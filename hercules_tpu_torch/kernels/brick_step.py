@@ -1,0 +1,85 @@
+"""K1: one explicit central-difference step of a uniform brick.
+
+``brick_step`` launches the CUDA kernel of ``csrc/brick_step.cu`` on a
+CUDA tensor and runs ``brick_step_plain``, the same step in plain
+PyTorch, on a CPU tensor.  It counts its kernel launches in
+``brick_step.launches``.
+
+Layout (see ``solver/fused_brick.py``): S [8, LEN] = (u, u-, 0, 0),
+K [8, LEN] = (c1, c2, beta, mass_minusaM x 3, inv_mass, 0), ops
+[48, 24] = -[M1; M2]; element e has its corners at columns
+e + offs[j].
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import build
+
+
+def brick_step_plain(S, K, offs, ops):
+    """The step as 8 shifted slices, one [24, 48] @ [48, E] product and
+    24 shifted adds (hercules_tpu/solver/brickstep.py:207-228, 331-332,
+    in the c1/c2/beta form of the fused kernel)."""
+    LEN = S.shape[1]
+    E = LEN - offs[7]                  # element columns whose corners fit
+    u, up = S[0:3], S[3:6]
+    c1, c2, beta = K[0:1, :E], K[1:2, :E], K[2:3, :E]
+    W = torch.cat([u[:, o:o + E] + beta * (u[:, o:o + E] - up[:, o:o + E])
+                   for o in offs])                       # [24, E]
+    mcat = torch.cat([ops[:24], ops[24:]], dim=1)        # [24, 48]
+    F = torch.matmul(mcat, torch.cat([c1 * W, c2 * W]))  # [24, E]
+    force = torch.zeros_like(u)
+    for j, o in enumerate(offs):
+        force[:, o:o + E] += F[3 * j:3 * j + 3]
+    un = u + (force + K[3:6] * (u - up)) * K[6:7]
+    return torch.cat([un, u, S[6:8]])
+
+
+def check_args(name, S, K, offs, ops, out):
+    """Raise unless the tensors are what the kernels take."""
+    dev, dt = S.device, S.dtype
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {dev}")
+    if dt not in (torch.float32, torch.float64):
+        raise TypeError(f"{name}: dtype {dt} (float32 or float64)")
+    LEN = S.shape[1] if S.dim() == 2 else -1
+    for arg, t, shape in (("S", S, (8, LEN)), ("K", K, (8, LEN)),
+                          ("ops", ops, (48, 24)), ("out", out, (8, LEN))):
+        if t.device != dev or t.dtype != dt:
+            raise ValueError(f"{name}: {arg} is {t.dtype} on "
+                             f"{t.device}, expected {dt} on {dev}")
+        if tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be a contiguous "
+                             f"{shape} tensor, got {tuple(t.shape)}")
+    if out.data_ptr() == S.data_ptr():
+        raise ValueError(f"{name}: out must not alias S")
+    if len(offs) != 8 or not 0 <= offs[7] < LEN:
+        raise ValueError(f"{name}: bad corner offsets {offs}")
+    if 8 * LEN >= 2 ** 31:
+        raise ValueError(f"{name}: {LEN} columns exceed 32-bit "
+                         f"indexing")
+
+
+def brick_step(S, K, offs, ops, out=None):
+    """One step S -> out (a new tensor unless ``out`` is given).  CUDA
+    tensors run the K1 kernel; CPU tensors run brick_step_plain."""
+    if S.device.type == "cpu":
+        res = brick_step_plain(S, K, offs, ops)
+        return res if out is None else out.copy_(res)
+    if out is None:
+        out = torch.empty_like(S)
+    check_args("brick_step", S, K, offs, ops, out)
+    sfx = "f32" if S.dtype == torch.float32 else "f64"
+    stream = torch.cuda.current_stream(S.device).cuda_stream
+    build.ensure_ops(f"ht_brick_step_set_ops_{sfx}", ops, stream)
+    rc = getattr(build.lib(), f"ht_brick_step_{sfx}")(
+        S.data_ptr(), K.data_ptr(), out.data_ptr(), S.shape[1],
+        build.offsets_arg(offs), S.device.index, stream)
+    build.check(rc, "brick_step launch")
+    brick_step.launches += 1
+    return out
+
+
+brick_step.launches = 0

@@ -1,0 +1,279 @@
+"""The single-brick elastic solver on the port's two kernels: tables,
+state layout, routing and the chunked time loop.
+
+Counterpart of the elastic host side of
+``hercules_tpu/solver/pallas_brick.py``; functions keep the JAX names
+(``plan_applies``, ``pallas_geometry``, ``PallasBrickTables``,
+``init_packed_state``, ``packed_snap_of``, ``run_pallas_solver``,
+``pallas_u_global``) so a reader finds each one's reference.
+
+Layout: column n of every [rows, LEN] array is node n of the brick's
+flat node grid (the JAX package's column order; only the zero padding
+after the nb nodes differs).
+
+- S [8, LEN]: rows 0:3 = u, 3:6 = u- (previous step), 6:8 = 0.
+- K [8, LEN]: rows 0:3 = (c1, c2, beta = c3/c1) of the element whose
+  lowest corner is column n (0 for padding and invalid elements),
+  3:6 = mass_minusaM, 6 = inv_mass (0 on padding), 7 = 0.
+
+Padding nodes therefore never move: their force is 0 and inv_mass 0.
+
+Routing (``chunk_applies``, the counterpart of ``resident_applies``
+without its on-chip memory clause): float32 runs with at most 128
+sources and 128 stations take brick_chunk (K5), one launch per chunk of
+steps; every other run takes brick_step (K1) once per step, with the
+source ``index_add_`` and the station sampling as torch ops between
+steps, as the JAX package does them around K1.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+from torch import nn
+
+from hercules_tpu.physics.kmats import stiffness_matrices_24
+
+from ..kernels.brick_chunk import brick_chunk, sample_stations
+from ..kernels.brick_step import brick_step
+from ..utils.timers import measure
+from .chunking import run_chunked
+
+
+def plan_applies(plan, damping) -> bool:
+    """True if the single-brick solver covers this brick plan.  (The
+    JAX package also requires the stencil reach to fit its on-chip tile,
+    ``pallas_fits``; the CUDA kernels have no such limit.)"""
+    return (len(plan.bricks) == 1
+            and len(plan.loose_eidx) == 0
+            and len(plan.grp_node) == 0
+            and damping in ("rayleigh", "mass", "none"))
+
+
+def pallas_geometry(nb, align=1024) -> int:
+    """LEN: the brick's nb node columns padded with zero columns to a
+    multiple of ``align``.  The kernels bounds-check their stencil
+    reads, so no halo is needed."""
+    return -(-nb // align) * align
+
+
+@lru_cache(maxsize=None)
+def _operator_np():
+    M1, M2 = stiffness_matrices_24()
+    return np.concatenate([-M1, -M2])
+
+
+def operators(dtype, device):
+    """A = -[M1; M2] as a [48, 24] tensor: the element force is
+    c1 A[:24] W + c2 A[24:] W."""
+    return torch.tensor(_operator_np(), dtype=dtype, device=device)
+
+
+def pack_constants(plan, tables, LEN):
+    """K [8, LEN] in float64 (see the module docstring)."""
+    g = plan.gnid_cat
+
+    def etab(k):
+        return np.where(plan.evalid_cat,
+                        getattr(tables, k)[plan.eidx_cat], 0.0)
+
+    c1, c2, c3 = etab("c1"), etab("c2"), etab("c3")
+    # c3 = beta*c1 and c4 = beta*c2 with one beta = b*dt per element
+    # (element_coefficients, consts.py), so (c1, c2, beta) suffice
+    beta = np.divide(c3, c1, out=np.zeros_like(c1), where=c1 != 0)
+    K = np.zeros((8, LEN))
+    nb = len(g)
+    K[0, :nb], K[1, :nb], K[2, :nb] = c1, c2, beta
+    K[3:6, :nb] = tables.mass_minusaM[g].T
+    K[6, :nb] = tables.inv_mass[g]
+    return K
+
+
+def _first_copy(g, ids):
+    """Column of each node id in ``ids`` (its first copy in g)."""
+    ids = np.asarray(ids).ravel()
+    uniq, first = np.unique(g, return_index=True)
+    pos = first[np.minimum(np.searchsorted(uniq, ids), len(uniq) - 1)]
+    if not (g[pos] == ids).all():
+        raise ValueError("source or station node not in the brick")
+    return pos
+
+
+class BrickStep(nn.Module):
+    """The brick's step operator: buffers K [8, LEN] and the two 24x24
+    stiffness operators, stacked as ops = -[M1; M2] [48, 24]."""
+
+    def __init__(self, K, offs):
+        super().__init__()
+        self.offs = tuple(int(o) for o in offs)
+        self.register_buffer("K", K)
+        self.register_buffer("ops", operators(K.dtype, K.device))
+
+    def forward(self, S, out=None):
+        """One step (K1)."""
+        return brick_step(S, self.K, self.offs, self.ops, out=out)
+
+    def chunk(self, S, spare, srcf, src_pos=None, st_pos=None,
+              st_phi=None):
+        """srcf.shape[0] steps in one launch (K5); see brick_chunk."""
+        return brick_chunk(S, spare, self.K, self.offs, self.ops, srcf,
+                           src_pos, st_pos, st_phi)
+
+
+class PallasBrickTables:
+    """Padded tables, geometry, source and station positions of a
+    single-brick plan, on ``device`` in ``dtype``."""
+
+    def __init__(self, plan, tables, src_ids=None, st_nodes=None,
+                 st_phi=None, dtype=torch.float32, device="cpu"):
+        if not plan_applies(plan, tables.damping):
+            raise ValueError("the plan is not a single elastic brick")
+        b = plan.bricks[0]
+        self.offs = tuple(b.corner_offsets())
+        self.nb = b.nb
+        self.LEN = pallas_geometry(b.nb)
+        self.dtype, self.device = dtype, torch.device(device)
+        K = pack_constants(plan, tables, self.LEN)
+        self.step = BrickStep(torch.as_tensor(K, dtype=dtype,
+                                              device=self.device),
+                              self.offs)
+        g = plan.gnid_cat
+        self.src_pos = self.st_pos = self.st_phi = None
+        if src_ids is not None and len(src_ids):
+            pos = _first_copy(g, src_ids)
+            self.src_pos = torch.as_tensor(pos, device=self.device)
+            # inv_mass at the sources, rounded to the working type as
+            # the device table holds it
+            self.src_invm = np.asarray(
+                K[6, pos], np.float32 if dtype == torch.float32
+                else np.float64)
+        if st_nodes is not None and len(st_nodes):
+            pos = _first_copy(g, st_nodes).reshape(np.shape(st_nodes))
+            self.st_pos = torch.as_tensor(pos, device=self.device)
+            self.st_phi = torch.as_tensor(np.asarray(st_phi), dtype=dtype,
+                                          device=self.device)
+
+    @property
+    def K(self):
+        return self.step.K
+
+    @property
+    def n_src(self):
+        return 0 if self.src_pos is None else len(self.src_pos)
+
+    @property
+    def n_st(self):
+        return 0 if self.st_pos is None else len(self.st_pos)
+
+
+def chunk_applies(dtype, n_src, n_st) -> bool:
+    """brick_chunk (K5) runs float32 runs with <=128 sources and <=128
+    stations; everything else steps with brick_step (K1)."""
+    return dtype == torch.float32 and n_src <= 128 and n_st <= 128
+
+
+def init_packed_state(pt: PallasBrickTables):
+    return torch.zeros((8, pt.LEN), dtype=pt.dtype, device=pt.device)
+
+
+def packed_snap_of(S):
+    """(u, up) views of the packed state."""
+    return S[0:3], S[3:6]
+
+
+def step_advance(pt, src_forces, dt2):
+    """advance(S, s, k) for the brick_step route: k launches of K1 with
+    the source add and station sampling between them."""
+    invm_src = None if pt.src_pos is None else pt.K[6, pt.src_pos]
+
+    def advance(S, s, k):
+        spare = torch.empty_like(S)
+        srcf = None
+        if pt.src_pos is not None:
+            srcf = torch.as_tensor(src_forces[s:s + k] * dt2,
+                                   dtype=pt.dtype, device=pt.device)
+        samples = []
+        for i in range(k):
+            samples.append(sample_stations(S, pt.st_pos, pt.st_phi))
+            Sn = pt.step(S, out=spare)
+            if srcf is not None:
+                Sn[0:3].index_add_(1, pt.src_pos,
+                                   srcf[i].T * invm_src[None, :])
+            S, spare = Sn, S
+        return S, torch.stack(samples).cpu().numpy()
+
+    return advance
+
+
+def source_increments(pt, src_forces, dt2, s, k):
+    """[k, 3, L] source increments of steps [s, s+k) in the working
+    type, as brick_chunk takes them: f dt^2 rounds to the working type
+    first, then multiplies inv_mass at the source node -- the rounding
+    of the brick_step route's ``srcf.T * invm``."""
+    if pt.src_pos is None:
+        return torch.zeros((k, 3, 0), dtype=pt.dtype, device=pt.device)
+    f = np.asarray(np.asarray(src_forces[s:s + k]) * dt2,
+                   pt.src_invm.dtype)
+    inc = f.transpose(0, 2, 1) * pt.src_invm[None, None, :]
+    return torch.as_tensor(np.ascontiguousarray(inc), device=pt.device)
+
+
+def chunk_advance(pt, src_forces, dt2):
+    """advance(S, s, k) for the brick_chunk route: one launch of K5."""
+
+    def advance(S, s, k):
+        srcf = source_increments(pt, src_forces, dt2, s, k)
+        S, samples = pt.step.chunk(S, torch.empty_like(S), srcf,
+                                   pt.src_pos, pt.st_pos, pt.st_phi)
+        return S, samples.cpu().numpy()
+
+    return advance
+
+
+def run_pallas_solver(plan, tables, src_ids, src_forces, total_steps, dt,
+                      st_nodes=None, st_phi=None, dtype=torch.float32,
+                      device="cpu", chunk=None, state=None, on_chunk=None,
+                      start_step=0, on_samples=None, route=None):
+    """Chunked time loop on one brick; the contract of the JAX
+    package's run_pallas_solver.  ``state``: an initial packed state
+    [8, LEN] (tensor or array), zero when None.  ``route``: "chunk"
+    (brick_chunk) or "step" (brick_step); None picks by
+    chunk_applies.  Returns ((u, up) as [3, LEN] views, samples
+    [T, ns, 3] numpy)."""
+    with measure("Solver tables", device):
+        pt = PallasBrickTables(plan, tables, src_ids=src_ids,
+                               st_nodes=st_nodes, st_phi=st_phi,
+                               dtype=dtype, device=device)
+    if state is None:
+        S = init_packed_state(pt)
+    else:
+        S = torch.as_tensor(state, dtype=dtype, device=pt.device).clone()
+        if S.shape != (8, pt.LEN):
+            raise ValueError(f"state must be [8, {pt.LEN}], got "
+                             f"{tuple(S.shape)}")
+    if chunk is None:
+        chunk = min(total_steps, 1000)
+    if route is None:
+        route = ("chunk" if chunk_applies(dtype, pt.n_src, pt.n_st)
+                 else "step")
+    make = {"chunk": chunk_advance, "step": step_advance}[route]
+    advance = make(pt, src_forces, dt * dt)
+    if on_chunk is not None:
+        inner = on_chunk
+        on_chunk = lambda done, S_: inner(done, packed_snap_of(S_))
+    with measure("Solver time loop", device):
+        S, samples = run_chunked(advance, S, total_steps,
+                                 start_step=start_step, chunk=chunk,
+                                 on_chunk=on_chunk, on_samples=on_samples)
+    return packed_snap_of(S), samples
+
+
+def pallas_u_global(plan, u_pad, N):
+    """Global [N, 3] displacement from the padded [3, LEN] field."""
+    b = plan.bricks[0]
+    arr = np.asarray(torch.as_tensor(u_pad).cpu())[:, :b.nb].T
+    u = np.zeros((N, 3), arr.dtype)
+    u[plan.gnid_cat] = arr
+    return u

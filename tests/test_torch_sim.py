@@ -1,0 +1,105 @@
+"""End to end on the CPU: the port's CLI and Simulation against the JAX
+package's, on the in-repo box case."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from hercules_tpu.sim import Simulation as JaxSimulation
+from hercules_tpu_torch import cli
+from hercules_tpu_torch.fixtures import write_box_case
+from hercules_tpu_torch.sim import Simulation
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+STEPS = 100
+
+
+def _read_stations(rundir, n):
+    return [np.loadtxt(os.path.join(rundir, "stations", f"station.{i}"),
+                       skiprows=1) for i in range(n)]
+
+
+def test_cli_station_files_match_jax(tmp_path):
+    """Both CLIs on the same case write station files equal to their
+    printed precision (7 significant digits)."""
+    env = dict(os.environ, PYTHONPATH=ROOT, HT_PLATFORM="cpu")
+    procs = []
+    for name, cmd in (
+            ("port", [sys.executable, "-m", "hercules_tpu_torch.cli",
+                      "--device=cpu"]),
+            ("jax", [sys.executable, "-m", "hercules_tpu.cli",
+                     "--ndev=1"])):
+        d = tmp_path / name
+        paths = write_box_case(str(d), steps=STEPS, n_stations=2)
+        procs.append((d, subprocess.Popen(
+            cmd + list(paths), cwd=d, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    for d, p in procs:
+        out, _ = p.communicate(timeout=120)
+        assert p.returncode == 0, out[-3000:]
+    (port_dir, _), (jax_dir, _) = procs
+    assert "solver path: torch_plain" in \
+        (port_dir / "monitor.txt").read_text()
+    mine, ref = _read_stations(port_dir, 2), _read_stations(jax_dir, 2)
+    for a, b in zip(mine, ref):
+        assert a.shape == b.shape == (STEPS, 4)
+        np.testing.assert_array_equal(a[:, 0], b[:, 0])
+        scale = np.abs(b[:, 1:]).max()
+        assert scale > 0
+        # one unit in the 7th significant digit of "% 8e"; the atol
+        # (far below that digit of the largest value) covers values at
+        # the wave front, where the float64 paths' 1e-13-of-max
+        # differences exceed 1e-6 of the value itself
+        np.testing.assert_allclose(a[:, 1:], b[:, 1:], rtol=1e-6,
+                                   atol=1e-12 * scale)
+
+
+def test_simulation_samples_match_jax(tmp_path):
+    """In memory, float64: Simulation.run on the CPU against the JAX
+    package's brick route, within 2e-13 of the largest sample."""
+    paths = write_box_case(str(tmp_path), steps=STEPS, n_stations=2)
+    cvmdb, physics, numerical = paths
+    sim = Simulation.setup(physics, numerical, cvmdb=cvmdb)
+    _, samp = sim.run(device="cpu")
+    assert sim.solver_path_name == "torch_plain"
+    jsim = JaxSimulation.setup(physics, numerical, cvmdb=cvmdb)
+    _, jsamp = jsim.run(dtype=jnp.float64, solver="bricks", ndev=1)
+    assert jsim.solver_path_name == "bricks"
+    scale = np.abs(jsamp).max()
+    assert samp.shape == jsamp.shape == (STEPS, 2, 3) and scale > 0
+    np.testing.assert_allclose(samp, jsamp, rtol=0, atol=2e-13 * scale)
+
+
+def test_cli_without_cuda_exits_nonzero(tmp_path, monkeypatch, capsys):
+    """The default device is CUDA; without one the CLI stops with a
+    message instead of carrying on on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    paths = write_box_case(str(tmp_path), steps=2)
+    assert cli.main(list(paths)) == 1
+    assert "no CUDA device" in capsys.readouterr().err
+    assert not (tmp_path / "stations").exists()
+
+
+@pytest.mark.parametrize("key,value", [
+    ("type_of_damping", "bkt"),
+    ("number_output_planes", "1"),
+])
+def test_unsupported_features_raise(tmp_path, key, value):
+    """Routes outside this slice raise NotImplementedError naming the
+    ROADMAP queue item."""
+    cvmdb, physics, numerical = write_box_case(str(tmp_path), steps=2)
+    target = physics if key == "type_of_damping" else numerical
+    with open(target, "a") as f:
+        f.write(f"\n{key} = {value}\n")
+    text = open(target).read().replace(
+        "type_of_damping             = rayleigh\n", "")
+    with open(target, "w") as f:
+        f.write(text)
+    with pytest.raises(NotImplementedError, match="Queue 1"):
+        Simulation.setup(physics, numerical, cvmdb=cvmdb)

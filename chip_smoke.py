@@ -17,19 +17,40 @@ JSON line {"phase": ...}:
               bit-identical, samples within 1e-12 (float64) / 1e-5
               (float32) relative; and K5 against brick_chunk_plain at
               2^20 elements, 10 steps in float32 (1e-4 max|u|).
-4. main    -- the main path through the CLI, launch counters set to 0
-              just before: the 2^20-element box (128 x 128 x 64 at
-              7.8125 m), 400 steps, a point source and 5 stations, in
-              float32 (route cuda_chunk) and in float64 (cuda_step).
-              Stations finite and non-zero, float32 within 1e-2 of
-              float64, both kernels launched.
+4. main    -- the elastic main path through the CLI, launch counters
+              set to 0 just before and read just after: the
+              2^20-element box (128 x 128 x 64 at 7.8125 m), 400 steps,
+              a point source and 5 stations, in float32 (route
+              cuda_chunk) and in float64 (cuda_step).  Stations finite
+              and non-zero, float32 within 1e-2 of float64, both
+              kernels launched.
 5. accuracy -- 131,072 elements (15.625 m), 200 steps: the float32
               CUDA run's stations within 1e-2 relative of the float64
               plain versions run on the card.
-6. timing  -- at 2^20 elements in float32, CUDA events, medians of
-              >= 20 steps after warm-up: K1 against its plain version,
-              K5 (per step, amortised) against the K1 step loop and
-              brick_chunk_plain.
+6. k2      -- bkt_step (K2) against bkt_step_plain on the card, from
+              random S and memory variables, with the sources: the BKT
+              box (shear attenuation only), 40 steps in float64 (S and
+              conv within 2e-13 of their max) and 20 in float32 (1e-4);
+              the soft box (bulk attenuation on), float64 (2e-13) and
+              float32 with bfloat16 conv (1e-3); the 2^20-element BKT
+              box, 10 steps in float32 (1e-4).  Padding stays zero.
+7. k6      -- bkt_chunk (K6) against the K2 step loop on the BKT box
+              and the soft box, chunks of 16, 37 steps, float64 and
+              float32: S and conv bit-identical, samples within 1e-12
+              / 1e-5 relative; K6 against bkt_chunk_plain at 2^20
+              elements, 10 steps in float32 (1e-4).
+8. main_bkt -- phase 4 with type_of_damping = bkt: routes
+              cuda_bkt_chunk (float32) and cuda_bkt_step (float64),
+              both BKT kernels launched.
+9. accuracy_bkt -- phase 5 on the BKT box: float32 CUDA stations
+              within 1e-2 relative of bkt_chunk_plain in float64.
+10. timing -- at 2^20 elements in float32, CUDA events, medians
+              of >= 20 steps after warm-up: K1 and K2 against their
+              plain versions, the K1 and K2 route steps (sampling +
+              step + sources), K5 and K6 (per step, amortised) against
+              brick_chunk_plain and bkt_chunk_plain; K2 and K6 again on
+              the soft box meshed at 2^20 elements (bfloat16 memory
+              variables, bulk attenuation on).
 
 Then the kernel table as one JSON line, the card's name and power
 limit (nvidia-smi), and last {"ok": true, "device": {...}}.  Any
@@ -80,8 +101,13 @@ def main():
     # the checkout too
     os.environ.setdefault("HT_NATIVE_CACHE",
                           os.path.join(ROOT, "build", "native"))
-    from hercules_tpu_torch.fixtures import box_stats, write_box_case
+    from hercules_tpu_torch.fixtures import (SOFT_FREQ, SOFT_LAYERS,
+                                             box_stats, write_box_case)
     from hercules_tpu_torch.kernels import build
+    from hercules_tpu_torch.kernels.bkt_chunk import (bkt_chunk,
+                                                      bkt_chunk_plain)
+    from hercules_tpu_torch.kernels.bkt_step import (bkt_step,
+                                                     bkt_step_plain)
     from hercules_tpu_torch.kernels.brick_chunk import (
         brick_chunk, brick_chunk_plain, sample_stations)
     from hercules_tpu_torch.kernels.brick_step import (brick_step,
@@ -102,9 +128,9 @@ def main():
     f32, f64 = torch.float32, torch.float64
     kern = {}
 
-    def box(edge, steps, n_st, name):
+    def box(edge, steps, n_st, name, **case):
         cv, ph, nu = write_box_case(os.path.join(work, name), edge, steps,
-                                    n_st)
+                                    n_st, **case)
         sim = Simulation.setup(ph, nu, cv)
         return sim, build_plan(sim.mesh), (cv, ph, nu)
 
@@ -140,6 +166,38 @@ def main():
         scale = b[0:3].abs().max().item()
         require(scale > 0, "zero reference field")
         err = (a[0:6] - b[0:6]).abs().max().item()
+        return err / scale, err
+
+    def random_bkt_state(pt):
+        """random_state's S and memory variables ~ 1e-3 N(0, 1) on the
+        brick's nodes, in the storage type."""
+        S = random_state(pt)
+        cv = np.zeros((pt.step.conv_rows, pt.LEN))
+        cv[:, :pt.nb] = 1e-3 * rng.standard_normal((pt.step.conv_rows,
+                                                     pt.nb))
+        return S, torch.as_tensor(cv, dtype=pt.dtype,
+                                  device=dev).to(pt.step.conv_dtype)
+
+    def k2_loop(pt, S, cv, inc, plain):
+        """K2 (or its plain version) step by step with the source adds."""
+        args = (pt.K, pt.offs, pt.step.fm, pt.step.rec)
+        S, cv = S.clone(), cv.clone()
+        spare, cspare = torch.empty_like(S), torch.empty_like(cv)
+        for t in range(inc.shape[0]):
+            if plain:
+                Sn, cn = bkt_step_plain(S, cv, *args)
+            else:
+                Sn, cn = bkt_step(S, cv, *args, out=spare, conv_out=cspare)
+            Sn[0:3].index_add_(1, pt.src_pos, inc[t])
+            S, spare, cv, cspare = Sn, S, cn, cv
+        return S, cv
+
+    def crel(a, b):
+        """Relative and absolute error of memory variables a against b."""
+        b = b.double()
+        scale = b.abs().max().item()
+        require(scale > 0, "zero reference conv")
+        err = (a.double() - b).abs().max().item()
         return err / scale, err
 
     try:
@@ -229,61 +287,71 @@ def main():
         # ---- 4. the main path through the CLI ------------------------
         from hercules_tpu_torch import cli
         from hercules_tpu_torch.utils.timers import GLOBAL_TIMERS
-        runs = {}
-        brick_step.launches = 0
-        brick_chunk.launches = 0
-        for dname in ("float32", "float64"):
-            cv, ph, nu = write_box_case(os.path.join(work, f"main_{dname}"),
-                                        7.8125, 400, 5)
-            parts = ("Solver", "Solver plan", "Solver tables",
-                     "Solver time loop")
-            before = {k: GLOBAL_TIMERS.value(k) for k in parts}
-            out = io.StringIO()
-            with contextlib.redirect_stdout(out):
-                rc = cli.main([f"--dtype={dname}", cv, ph, nu])
-            with open(os.path.join(LOG, f"cli_{dname}.log"), "w") as f:
-                f.write(out.getvalue())
-            require(rc == 0, f"CLI exit code {rc}")
-            spent = {k: GLOBAL_TIMERS.value(k) - before[k] for k in parts}
-            rundir = os.path.dirname(os.path.dirname(ph))
-            with open(os.path.join(rundir, "monitor.txt")) as f:
-                path = [ln.split()[2] for ln in f
-                        if ln.startswith("solver path:")]
-            st = np.stack([np.loadtxt(os.path.join(
-                rundir, "stations", f"station.{i}"), skiprows=1)
-                for i in range(5)])
-            runs[dname] = (path, st, spent)
-        main_launches = {"brick_step": brick_step.launches,
-                         "brick_chunk": brick_chunk.launches}
+        counters = (brick_step, brick_chunk, bkt_step, bkt_chunk)
         E, N = box_stats(7.8125)
         dt_b = sim_b.params.delta_t
-        s32, s64 = runs["float32"][1], runs["float64"][1]
-        st_rel = np.abs(s32[..., 1:] - s64[..., 1:]).max() / \
-            np.abs(s64[..., 1:]).max()
-        emit({"phase": "main", "elements": E, "nodes": N, "steps": 400,
-              "stations": 5,
-              "runs": {d: {"solver_path": runs[d][0],
-                           "seconds": runs[d][2],
-                           "steps_per_s": 400 / runs[d][2]["Solver"],
-                           "element_updates_per_s":
-                               E * 400 / runs[d][2]["Solver"],
-                           "wall_s_per_sim_s":
-                               runs[d][2]["Solver"] / (400 * dt_b),
-                           "loop_element_updates_per_s":
-                               E * 400 / runs[d][2]["Solver time loop"]}
-                       for d in runs},
-              "f32_vs_f64_station_rel": float(st_rel),
-              "launches": main_launches})
-        require(runs["float32"][0] == ["cuda_chunk"], "f32 route")
-        require(runs["float64"][0] == ["cuda_step"], "f64 route")
-        for d in runs:
-            s = runs[d][1][..., 1:]
-            require(np.isfinite(s).all() and np.abs(s).max() > 0,
-                    f"{d} stations not finite and non-zero")
-        require(st_rel <= 1e-2, f"f32 vs f64 stations {st_rel}")
-        require(main_launches["brick_chunk"] > 0
-                and main_launches["brick_step"] > 0,
-                f"a kernel of the main path never ran: {main_launches}")
+
+        def main_path(phase, routes, kernels, **case):
+            """The CLI on the 2^20-element box, 400 steps, 5 stations,
+            float32 then float64; every launch counter set to 0 just
+            before and read just after.  Returns the launches."""
+            runs = {}
+            for c in counters:
+                c.launches = 0
+            for dname in ("float32", "float64"):
+                cv, ph, nu = write_box_case(
+                    os.path.join(work, f"{phase}_{dname}"), 7.8125, 400, 5,
+                    **case)
+                parts = ("Solver", "Solver plan", "Solver tables",
+                         "Solver time loop")
+                before = {k: GLOBAL_TIMERS.value(k) for k in parts}
+                out = io.StringIO()
+                with contextlib.redirect_stdout(out):
+                    rc = cli.main([f"--dtype={dname}", cv, ph, nu])
+                with open(os.path.join(LOG, f"cli_{phase}_{dname}.log"),
+                          "w") as f:
+                    f.write(out.getvalue())
+                require(rc == 0, f"CLI exit code {rc}")
+                spent = {k: GLOBAL_TIMERS.value(k) - before[k]
+                         for k in parts}
+                rundir = os.path.dirname(os.path.dirname(ph))
+                with open(os.path.join(rundir, "monitor.txt")) as f:
+                    path = [ln.split()[2] for ln in f
+                            if ln.startswith("solver path:")]
+                st = np.stack([np.loadtxt(os.path.join(
+                    rundir, "stations", f"station.{i}"), skiprows=1)
+                    for i in range(5)])
+                runs[dname] = (path, st, spent)
+            launches = {c.__name__: c.launches for c in counters}
+            s32, s64 = runs["float32"][1], runs["float64"][1]
+            st_rel = np.abs(s32[..., 1:] - s64[..., 1:]).max() / \
+                np.abs(s64[..., 1:]).max()
+            emit({"phase": phase, "elements": E, "nodes": N, "steps": 400,
+                  "stations": 5, "case": case,
+                  "runs": {d: {"solver_path": runs[d][0],
+                               "seconds": runs[d][2],
+                               "steps_per_s": 400 / runs[d][2]["Solver"],
+                               "element_updates_per_s":
+                                   E * 400 / runs[d][2]["Solver"],
+                               "wall_s_per_sim_s":
+                                   runs[d][2]["Solver"] / (400 * dt_b),
+                               "loop_element_updates_per_s":
+                                   E * 400 / runs[d][2]["Solver time loop"]}
+                           for d in runs},
+                  "f32_vs_f64_station_rel": float(st_rel),
+                  "launches": launches})
+            for d, want in zip(("float32", "float64"), routes):
+                require(runs[d][0] == [want], f"{phase} {d} route")
+                s_ = runs[d][1][..., 1:]
+                require(np.isfinite(s_).all() and np.abs(s_).max() > 0,
+                        f"{phase} {d} stations not finite and non-zero")
+            require(st_rel <= 1e-2, f"{phase} f32 vs f64 stations {st_rel}")
+            require(all(launches[k] > 0 for k in kernels),
+                    f"a kernel of the {phase} path never ran: {launches}")
+            return launches
+
+        main_launches = main_path("main", ("cuda_chunk", "cuda_step"),
+                                  ("brick_step", "brick_chunk"))
 
         # ---- 5. accuracy: f32 CUDA against f64 plain -----------------
         sim_a, plan_a, _ = box(15.625, 200, 5, "accuracy")
@@ -302,7 +370,119 @@ def main():
               "steps": 200, "station_rel_err": acc, "bound": 1e-2})
         require(acc <= 1e-2, f"f32 stations vs f64 plain: {acc}")
 
-        # ---- 6. timings at 2^20 elements in float32 -----------------
+        # ---- 6. K2 against its plain version ------------------------
+        sim_sb, plan_sb, _ = box(62.5, 40, 5, "small_bkt", damping="bkt")
+        sim_ss, plan_ss, _ = box(62.5, 40, 5, "soft_bkt", damping="bkt",
+                                 layers=SOFT_LAYERS, freq=SOFT_FREQ)
+        sim_bb, plan_bb, _ = box(7.8125, 20, 5, "big_bkt", damping="bkt")
+        dt2_bb = sim_bb.params.delta_t ** 2
+        cases = []
+        for label, sim, plan, dtype, steps, bound in (
+                ("box", sim_sb, plan_sb, f64, 40, 2e-13),
+                ("box", sim_sb, plan_sb, f32, 20, 1e-4),
+                ("soft", sim_ss, plan_ss, f64, 40, 2e-13),
+                ("soft", sim_ss, plan_ss, f32, 20, 1e-3),
+                ("box", sim_bb, plan_bb, f32, 10, 1e-4)):
+            pt = tables(sim, plan, dtype)
+            S0, cv0 = random_bkt_state(pt)
+            inc = source_increments(pt, sim.src_forces,
+                                    sim.params.delta_t ** 2, 0, steps)
+            Sk, ck = k2_loop(pt, S0, cv0, inc, plain=False)
+            Sp, cp = k2_loop(pt, S0, cv0, inc, plain=True)
+            torch.cuda.synchronize()
+            r, err = rel(Sk, Sp)
+            rc_, cerr = crel(ck, cp)
+            cases.append({"case": label, "elements": sim.mesh.lenum,
+                          "dtype": str(dtype),
+                          "conv": str(pt.step.conv_dtype), "steps": steps,
+                          "rel_err": r, "max_abs_err": err,
+                          "conv_rel_err": rc_, "conv_max_abs_err": cerr,
+                          "bound": bound})
+            require(r <= bound and rc_ <= bound, f"K2 vs plain {cases[-1]}")
+            require(not Sk[:, pt.nb:].any() and not ck[:, pt.nb:].any(),
+                    "K2 moved the padding")
+        kern["bkt_step_err"] = cases[-1]["max_abs_err"]
+        emit({"phase": "k2", "cases": cases, "launches": bkt_step.launches})
+
+        # ---- 7. K6 against the K2 step loop and its plain version ----
+        cases = []
+        for label, sim, plan in (("box", sim_sb, plan_sb),
+                                 ("soft", sim_ss, plan_ss)):
+            for dtype, sbound in ((f64, 1e-12), (f32, 1e-5)):
+                pt = tables(sim, plan, dtype)
+                S0, cv0 = random_bkt_state(pt)
+                res = {}
+                for route in ("chunk", "step"):
+                    (u, up, c), smp = run_pallas_solver(
+                        plan, sim.tables, sim.src_ids, sim.src_forces, 37,
+                        sim.params.delta_t, st_nodes=sim.stations.nodes,
+                        st_phi=sim.stations.phi, dtype=dtype, device=dev,
+                        chunk=16, state=(S0, cv0), route=route)
+                    res[route] = (torch.cat([u, up]), c, smp)
+                same = (torch.equal(res["chunk"][0], res["step"][0])
+                        and torch.equal(res["chunk"][1], res["step"][1]))
+                r, _ = rel(res["chunk"][0], res["step"][0])
+                rc_, _ = crel(res["chunk"][1], res["step"][1])
+                sc = np.abs(res["step"][2]).max()
+                srel = np.abs(res["chunk"][2] - res["step"][2]).max() / sc
+                cases.append({"case": label, "elements": sim.mesh.lenum,
+                              "dtype": str(dtype), "steps": 37, "chunk": 16,
+                              "bit_identical": same, "rel_err": r,
+                              "conv_rel_err": rc_,
+                              "samples_rel_err": float(srel)})
+                require(same, f"K6 vs K2 loop {cases[-1]}")
+                require(srel <= sbound, f"K6 samples {cases[-1]}")
+        pt = tables(sim_bb, plan_bb, f32)
+        S0, cv0 = random_bkt_state(pt)
+        srcf = source_increments(pt, sim_bb.src_forces, dt2_bb, 0, 10)
+        bargs = (pt.K, pt.offs, pt.step.fm, pt.step.rec)
+        Sk, ck, smp_k = bkt_chunk(S0.clone(), torch.empty_like(S0),
+                                  cv0.clone(), torch.empty_like(cv0), *bargs,
+                                  srcf, pt.src_pos, pt.st_pos, pt.st_phi)
+        Sp, cp, smp_p = bkt_chunk_plain(S0.clone(), cv0.clone(), *bargs,
+                                        srcf, pt.src_pos, pt.st_pos,
+                                        pt.st_phi)
+        torch.cuda.synchronize()
+        r, err = rel(Sk, Sp)
+        rc_, _ = crel(ck, cp)
+        srel = ((smp_k - smp_p).abs().max() / smp_p.abs().max()).item()
+        cases.append({"case": "box", "elements": sim_bb.mesh.lenum,
+                      "dtype": str(f32), "steps": 10,
+                      "vs": "bkt_chunk_plain", "rel_err": r,
+                      "max_abs_err": err, "conv_rel_err": rc_,
+                      "samples_rel_err": srel, "bound": 1e-4})
+        require(r <= 1e-4 and rc_ <= 1e-4 and srel <= 1e-4,
+                f"K6 vs plain {cases[-1]}")
+        kern["bkt_chunk_err"] = err
+        emit({"phase": "k6", "cases": cases, "launches": bkt_chunk.launches})
+
+        # ---- 8. the BKT main path through the CLI --------------------
+        bkt_launches = main_path("main_bkt",
+                                 ("cuda_bkt_chunk", "cuda_bkt_step"),
+                                 ("bkt_step", "bkt_chunk"), damping="bkt")
+
+        # ---- 9. accuracy: BKT f32 CUDA against f64 plain -------------
+        sim_a, plan_a, _ = box(15.625, 200, 5, "accuracy_bkt",
+                               damping="bkt")
+        _, s32 = sim_a.run(device=dev)
+        require(sim_a.solver_path_name == "cuda_bkt_chunk",
+                "accuracy_bkt route")
+        pt = tables(sim_a, plan_a, f64)
+        srcf = source_increments(pt, sim_a.src_forces,
+                                 sim_a.params.delta_t ** 2, 0, 200)
+        zero = torch.zeros((8, pt.LEN), dtype=f64, device=dev)
+        zconv = torch.zeros((pt.step.conv_rows, pt.LEN), dtype=f64,
+                            device=dev)
+        _, _, s64 = bkt_chunk_plain(zero, zconv, pt.K, pt.offs, pt.step.fm,
+                                    pt.step.rec, srcf, pt.src_pos,
+                                    pt.st_pos, pt.st_phi)
+        s64 = s64.cpu().numpy()
+        acc = float(np.abs(s32 - s64).max() / np.abs(s64).max())
+        emit({"phase": "accuracy_bkt", "elements": sim_a.mesh.lenum,
+              "steps": 200, "station_rel_err": acc, "bound": 1e-2})
+        require(acc <= 1e-2, f"BKT f32 stations vs f64 plain: {acc}")
+
+        # ---- 10. timings at 2^20 elements in float32 -----------------
         card = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
@@ -346,6 +526,54 @@ def main():
         t_k1_again = timed(lambda: brick_step(S, *ops, out=spare), 30, 5)
         t_plain_again = timed(lambda: brick_step_plain(S, *ops), 30, 3)
         moved = 23 * pt.LEN * 4     # S 8 rows in + 8 out, K 7 rows in
+
+        # the same for K2 and K6 on the BKT box (float32 conv, 6 rows)
+        ptb = tables(sim_bb, plan_bb, f32)
+        Sb, cb = random_bkt_state(ptb)
+        spb, cspb = torch.empty_like(Sb), torch.empty_like(cb)
+        bargs = (ptb.K, ptb.offs, ptb.step.fm, ptb.step.rec)
+        srcfb = source_increments(ptb, sim_bb.src_forces, dt2_bb, 0, CH)
+        t_k2p = timed(lambda: bkt_step_plain(Sb, cb, *bargs), 30, 3)
+        t_k2 = timed(lambda: bkt_step(Sb, cb, *bargs, out=spb,
+                                      conv_out=cspb), 30, 5)
+
+        def k2_route_step():
+            sample_stations(Sb, ptb.st_pos, ptb.st_phi)
+            Sn, _ = bkt_step(Sb, cb, *bargs, out=spb, conv_out=cspb)
+            Sn[0:3].index_add_(1, ptb.src_pos, srcfb[0])
+
+        t_k2loop = timed(k2_route_step, 30, 5)
+        t_k6 = timed(lambda: bkt_chunk(Sb, spb, cb, cspb, *bargs, srcfb,
+                                       ptb.src_pos, ptb.st_pos,
+                                       ptb.st_phi), 25, 2) / CH
+        t_k6p = timed(lambda: bkt_chunk_plain(Sb, cb, *bargs, srcfb,
+                                              ptb.src_pos, ptb.st_pos,
+                                              ptb.st_phi), 5, 1) / CH
+        t_k2_again = timed(lambda: bkt_step(Sb, cb, *bargs, out=spb,
+                                            conv_out=cspb), 30, 5)
+        t_k2p_again = timed(lambda: bkt_step_plain(Sb, cb, *bargs), 30, 3)
+        # and with the bulk attenuation on: the soft box meshed at 2^20
+        # elements, 12 rows of bfloat16 memory variables
+        sim_bs, plan_bs, _ = box(7.8125, 20, 5, "big_soft", damping="bkt",
+                                 layers=SOFT_LAYERS,
+                                 freq=1200.0 / (8 * 7.8125))
+        require(sim_bs.mesh.lenum == 1 << 20, "soft 2^20 box")
+        pts = tables(sim_bs, plan_bs, f32)
+        require(pts.step.conv_dtype == torch.bfloat16, "soft conv type")
+        Ss, cs = random_bkt_state(pts)
+        sps, csps = torch.empty_like(Ss), torch.empty_like(cs)
+        sargs = (pts.K, pts.offs, pts.step.fm, pts.step.rec)
+        srcfs = source_increments(pts, sim_bs.src_forces,
+                                  sim_bs.params.delta_t ** 2, 0, CH)
+        t_k2s = timed(lambda: bkt_step(Ss, cs, *sargs, out=sps,
+                                       conv_out=csps), 30, 5)
+        t_k6s = timed(lambda: bkt_chunk(Ss, sps, cs, csps, *sargs, srcfs,
+                                        pts.src_pos, pts.st_pos,
+                                        pts.st_phi), 25, 2) / CH
+        t_k2ps = timed(lambda: bkt_step_plain(Ss, cs, *sargs), 30, 3)
+        # pass 1: S 6 rows + conv 6 in, conv 6 + dv 3 out; pass 2: S 8
+        # + K 5 + dv 3 in, S 8 out (float32, shear-only)
+        moved_k2 = 45 * ptb.LEN * 4
         emit({"phase": "timing", "card": card,
               "elements": sim_b.mesh.lenum, "LEN": pt.LEN,
               "ms_per_step": {
@@ -353,13 +581,26 @@ def main():
                   "brick_step_plain": [t_plain, t_plain_again],
                   "k1_route_step": t_loop,
                   "brick_chunk": t_k5,
-                  "brick_chunk_plain": t_k5p},
+                  "brick_chunk_plain": t_k5p,
+                  "bkt_step": [t_k2, t_k2_again],
+                  "bkt_step_plain": [t_k2p, t_k2p_again],
+                  "k2_route_step": t_k2loop,
+                  "bkt_chunk": t_k6,
+                  "bkt_chunk_plain": t_k6p,
+                  "bkt_step_bf16_kappa": t_k2s,
+                  "bkt_step_plain_bf16_kappa": t_k2ps,
+                  "bkt_chunk_bf16_kappa": t_k6s},
               "brick_step_GBps": moved / (min(t_k1, t_k1_again) * 1e-3)
+              / 1e9,
+              "bkt_step_GBps": moved_k2 / (min(t_k2, t_k2_again) * 1e-3)
               / 1e9,
               "element_updates_per_s": {
                   "brick_step": sim_b.mesh.lenum / (min(t_k1, t_k1_again)
                                                     * 1e-3),
-                  "brick_chunk": sim_b.mesh.lenum / (t_k5 * 1e-3)}})
+                  "brick_chunk": sim_b.mesh.lenum / (t_k5 * 1e-3),
+                  "bkt_step": sim_bb.mesh.lenum / (min(t_k2, t_k2_again)
+                                                   * 1e-3),
+                  "bkt_chunk": sim_bb.mesh.lenum / (t_k6 * 1e-3)}})
 
         kernels = [
             {"name": "brick_step", "route": "cuda",
@@ -375,6 +616,19 @@ def main():
              "launches": main_launches["brick_chunk"],
              "max_abs_err": kern["brick_chunk_err"],
              "ms": t_k5, "plain_ms": t_k5p},
+            {"name": "bkt_step", "route": "cuda",
+             "source": "hercules_tpu_torch/csrc/bkt_step.cu",
+             "replaces": "hercules_tpu/solver/pallas_brick.py:1389",
+             "launches": bkt_launches["bkt_step"],
+             "max_abs_err": kern["bkt_step_err"],
+             "ms": min(t_k2, t_k2_again),
+             "plain_ms": min(t_k2p, t_k2p_again)},
+            {"name": "bkt_chunk", "route": "cuda",
+             "source": "hercules_tpu_torch/csrc/bkt_chunk.cu",
+             "replaces": "hercules_tpu/solver/pallas_brick.py:1789",
+             "launches": bkt_launches["bkt_chunk"],
+             "max_abs_err": kern["bkt_chunk_err"],
+             "ms": t_k6, "plain_ms": t_k6p},
         ]
         require("jax" not in sys.modules, "jax was imported")
         print(json.dumps({"kernels": kernels}), flush=True)

@@ -17,8 +17,9 @@ from .solver.fused_brick import (PallasBrickTables, pallas_geometry,
 
 
 def tables_from_jax(tables, plan, dtype=torch.float32, device="cpu"):
-    """The port's constant table K [8, LEN] from the JAX package's
-    SolverTables (numpy) and a single-brick plan."""
+    """The port's constant table K [8, LEN] (the elastic or the BKT
+    layout, by tables.damping) from the JAX package's SolverTables
+    (numpy) and a single-brick plan."""
     return PallasBrickTables(plan, tables, dtype=dtype, device=device).K
 
 
@@ -41,6 +42,23 @@ def state_from_jax(S_np, plan):
     S = np.zeros((8, LEN), S_np.dtype)
     S[:, :b.nb] = S_np[:, :b.nb]
     return S
+
+
+def conv_from_jax(conv_node, plan):
+    """The port's BKT memory variables [6 | 12, LEN] (float64 numpy)
+    from the JAX package's uniform-Q node-basis conv [8 | 16, LEN_jax]
+    (rows s0, s1[, k0, k1] x 3, then zero padding rows): the padding
+    rows and columns are dropped."""
+    b = plan.bricks[0]
+    cv = np.asarray(conv_node).astype(np.float64)
+    if cv.ndim != 2 or cv.shape[0] not in (6, 8, 12, 16) \
+            or cv.shape[1] < b.nb:
+        raise ValueError(f"expected a node-basis conv [8|16, >={b.nb}], "
+                         f"got {cv.shape}")
+    R = 6 if cv.shape[0] in (6, 8) else 12
+    out = np.zeros((R, pallas_geometry(b.nb)))
+    out[:, :b.nb] = cv[:R, :b.nb]
+    return out
 
 
 def state_to_global(S, plan, N):

@@ -10,6 +10,12 @@ frequency, ``freq = Vs / (8 * edge)``; the time step is
 (2048 elements, 2601 nodes); at 7.8125 m it is 128 x 128 x 64 = 2^20
 elements.
 
+``damping``, ``layers`` and ``freq`` vary the case: the BKT fixtures
+are the box with ``damping="bkt"`` (one Q set, shear attenuation only),
+``SOFT_LAYERS`` at ``SOFT_FREQ`` (one Q set with the bulk attenuation
+on) and ``TWO_LAYERS`` at ``SOFT_FREQ`` (two Q sets: one brick, not
+uniform in Q).  All three mesh to the 62.5 m brick.
+
 Layout written under ``root``::
 
     box.e              CVM etree (62.5 m octants)
@@ -25,6 +31,14 @@ import os
 from hercules_tpu.tools.makecvm import build_layered_cvm
 
 VP, VS, RHO = 6000.0, 3464.0, 2700.0
+# CVM layer tables: rows (top depth m, Vp, Vs, rho)
+LAYERS = ((0.0, VP, VS, RHO),)
+SOFT_LAYERS = ((0.0, 2400.0, 1200.0, 2350.0),)
+TWO_LAYERS = ((0.0, 2400.0, 1200.0, 2350.0),
+              (250.0, 3600.0, 2000.0, 2500.0))
+# maximum frequency of the soft fixtures: 8 nodes per wavelength at
+# Vs 1200 m/s need 62.5 m elements
+SOFT_FREQ = 2.4
 EAST_M, NORTH_M, DEPTH_M = 1000.0, 1000.0, 500.0
 # surface corners (lon, lat) of a bilinear map with 1e-5 degrees per
 # metre: a station at (x_north, y_east) m sits at lat = x/1e5, lon = y/1e5
@@ -48,16 +62,20 @@ def _corners_text():
     return "".join(f" {lon:.6f} {lat:.6f}\n" for lon, lat in CORNERS)
 
 
-def write_box_case(root, edge_m=62.5, steps=200, n_stations=2):
+def write_box_case(root, edge_m=62.5, steps=200, n_stations=2,
+                   damping="rayleigh", layers=None, freq=None):
     """Write the box case into ``root``; returns the paths
-    (cvmdb, physics_in, numerical_in)."""
+    (cvmdb, physics_in, numerical_in).  ``damping`` is the
+    type_of_damping written; ``layers`` the CVM layer table (default
+    ``LAYERS``); ``freq`` the maximum frequency (default
+    ``box_freq(edge_m)``).  The time step stays ``box_dt(edge_m)``."""
     if not 0 <= n_stations <= len(STATIONS):
         raise ValueError(f"n_stations must be in [0, {len(STATIONS)}]")
     src_dir = os.path.join(root, "in", "src")
     os.makedirs(src_dir, exist_ok=True)
     cvmdb = os.path.join(root, "box.e")
     build_layered_cvm(cvmdb, EAST_M, NORTH_M, DEPTH_M, 62.5,
-                      [[0.0, VP, VS, RHO]])
+                      [list(r) for r in (layers or LAYERS)])
     dt = box_dt(edge_m)
     physics = os.path.join(root, "in", "physics.in")
     with open(physics, "w") as f:
@@ -68,13 +86,14 @@ def write_box_case(root, edge_m=62.5, steps=200, n_stations=2):
                 f"region_length_north_m       = {NORTH_M:g}\n"
                 f"region_depth_deep_m         = {DEPTH_M:g}\n"
                 f"region_azimuth_leftface_deg = 0\n"
-                f"type_of_damping             = rayleigh\n"
+                f"type_of_damping             = {damping}\n"
                 f"source_directory            = in/src\n")
     stations = "".join(f" {x / 1e5:.8f} {y / 1e5:.8f} {z:g}\n"
                        for x, y, z in STATIONS[:n_stations])
     numerical = os.path.join(root, "in", "numerical.in")
     with open(numerical, "w") as f:
-        f.write(f"simulation_wave_max_freq_hz    = {box_freq(edge_m)!r}\n"
+        f.write(f"simulation_wave_max_freq_hz    = "
+                f"{box_freq(edge_m) if freq is None else freq!r}\n"
                 f"simulation_node_per_wavelength = 8\n"
                 f"simulation_shear_velocity_min  = 500\n"
                 f"simulation_start_time_sec      = 0\n"
@@ -107,12 +126,13 @@ def write_box_case(root, edge_m=62.5, steps=200, n_stations=2):
     return cvmdb, physics, numerical
 
 
-def box_simulation(root, edge_m=62.5, steps=200, n_stations=2):
+def box_simulation(root, edge_m=62.5, steps=200, n_stations=2, **case):
     """Write the box case into ``root`` and set it up: the port's
-    ``Simulation`` (mesh, tables, source forces, stations)."""
+    ``Simulation`` (mesh, tables, source forces, stations).  ``case``:
+    write_box_case's damping, layers and freq."""
     from .sim import Simulation
     cvmdb, physics, numerical = write_box_case(root, edge_m, steps,
-                                               n_stations)
+                                               n_stations, **case)
     return Simulation.setup(physics, numerical, cvmdb=cvmdb)
 
 

@@ -1,0 +1,141 @@
+"""K2: one step of a uniform-Q BKT brick (node-basis memory variables).
+
+``bkt_step`` launches the CUDA kernels of ``csrc/bkt_step.cu`` on CUDA
+tensors and runs ``bkt_step_plain``, the same step in plain PyTorch, on
+CPU tensors.  It counts its launches in ``bkt_step.launches`` (one per
+step: the recursion pass and the force pass go out together).
+
+Layout (see ``solver/fused_bkt.py``): S [8, LEN] = (u, u-, 0, 0),
+conv [6 | 12, LEN] = (s0, s1[, k0, k1]) x 3 components in the storage
+type, K [8, LEN] = (mass_minusaM x 3, inv_mass, element valid, 0...),
+fm [24, 48], rec the 9 | 18 recursion scalars.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+
+# (working type, conv storage type) pairs the kernels take, and the
+# suffix of their C entries
+CONV_TYPES = {(torch.float32, torch.bfloat16): "f32_bf16",
+              (torch.float32, torch.float32): "f32_f32",
+              (torch.float64, torch.float64): "f64_f64"}
+
+
+def _pair(r, u, up, du, s0, s1):
+    """One recursion pair and its damping vector, in the op order of
+    pallas_brick.py:1477-1496 (each product and sum rounded, no fma)."""
+    c1, c2, c3, c4, e0, e1, a0, a1, coef = r
+    s0n = c2 * u + c1 * up + e0 * s0
+    s1n = c4 * u + c3 * up + e1 * s1
+    dv = coef * du + u - a0 * s0n - a1 * s1n
+    return s0n, s1n, dv
+
+
+def bkt_recursion_plain(S, conv, rec):
+    """(conv' in the working type, dvs [3, LEN], dvk [3, LEN]): the
+    node-wise memory-variable recursion; dvk = u when shear-only."""
+    u, up = S[0:3], S[3:6]
+    du = u - up
+    cv = conv.to(S.dtype)
+    s0n, s1n, dvs = _pair(rec[0:9], u, up, du, cv[0:3], cv[3:6])
+    if len(rec) == 9:
+        return torch.cat([s0n, s1n]), dvs, u
+    k0n, k1n, dvk = _pair(rec[9:18], u, up, du, cv[6:9], cv[9:12])
+    return torch.cat([s0n, s1n, k0n, k1n]), dvs, dvk
+
+
+def bkt_step_plain(S, conv, K, offs, fm, rec):
+    """The step as the node recursion, 8 shifted slices, one [24, 48] @
+    [48, E] product and 24 shifted adds.  conv' rounds to the storage
+    type once, on return.  Returns (S', conv')."""
+    LEN = S.shape[1]
+    E = LEN - offs[7]                  # element columns whose corners fit
+    u, up = S[0:3], S[3:6]
+    cn, dvs, dvk = bkt_recursion_plain(S, conv, rec)
+    X = torch.cat([dvs[:, o:o + E] for o in offs]
+                  + [dvk[:, o:o + E] for o in offs])    # [48, E]
+    F = torch.matmul(fm, X) * K[4:5, :E]                 # [24, E]
+    force = torch.zeros_like(u)
+    for j, o in enumerate(offs):
+        force[:, o:o + E] += F[3 * j:3 * j + 3]
+    un = u + (force + K[0:3] * (u - up)) * K[3:4]
+    return torch.cat([un, u, S[6:8]]), cn.to(conv.dtype)
+
+
+def check_args(name, S, conv, K, offs, fm, rec, out, conv_out):
+    """Raise unless the tensors are what the kernels take; returns the
+    C entry suffix."""
+    dev, dt = S.device, S.dtype
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {dev}")
+    sfx = CONV_TYPES.get((dt, conv.dtype))
+    if sfx is None:
+        raise TypeError(f"{name}: working type {dt} with conv {conv.dtype} "
+                        f"(one of {list(CONV_TYPES)})")
+    LEN = S.shape[1] if S.dim() == 2 else -1
+    R = conv.shape[0] if conv.dim() == 2 else -1
+    if R not in (6, 12) or len(rec) != 3 * R // 2:
+        raise ValueError(f"{name}: conv has {R} rows and rec {len(rec)} "
+                         f"values (6 and 9, or 12 and 18)")
+    for arg, t, shape, tdt in (
+            ("S", S, (8, LEN), dt), ("K", K, (8, LEN), dt),
+            ("fm", fm, (24, 48), dt), ("out", out, (8, LEN), dt),
+            ("conv", conv, (R, LEN), conv.dtype),
+            ("conv_out", conv_out, (R, LEN), conv.dtype)):
+        if t.device != dev or t.dtype != tdt:
+            raise ValueError(f"{name}: {arg} is {t.dtype} on {t.device}, "
+                             f"expected {tdt} on {dev}")
+        if tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be a contiguous {shape} "
+                             f"tensor, got {tuple(t.shape)}")
+    if out.data_ptr() == S.data_ptr() or conv_out.data_ptr() == conv.data_ptr():
+        raise ValueError(f"{name}: outputs must not alias the inputs")
+    if len(offs) != 8 or not 0 <= offs[7] < LEN:
+        raise ValueError(f"{name}: bad corner offsets {offs}")
+    if 12 * LEN >= 2 ** 31:
+        raise ValueError(f"{name}: {LEN} columns exceed 32-bit indexing")
+    return sfx
+
+
+def rec_arg(rec, dtype):
+    """The recursion scalars as the C entries' host array of 18."""
+    ct = ctypes.c_float if dtype == torch.float32 else ctypes.c_double
+    vals = list(rec) + [0.0] * (18 - len(rec))
+    return (ct * 18)(*vals)
+
+
+def bkt_step(S, conv, K, offs, fm, rec, out=None, conv_out=None):
+    """One step (S, conv) -> (out, conv_out) (new tensors unless given).
+    CUDA tensors run the K2 kernels; CPU tensors run bkt_step_plain."""
+    if S.device.type == "cpu":
+        Sn, cn = bkt_step_plain(S, conv, K, offs, fm, rec)
+        if out is not None:
+            Sn = out.copy_(Sn)
+        if conv_out is not None:
+            cn = conv_out.copy_(cn)
+        return Sn, cn
+    if out is None:
+        out = torch.empty_like(S)
+    if conv_out is None:
+        conv_out = torch.empty_like(conv)
+    sfx = check_args("bkt_step", S, conv, K, offs, fm, rec, out, conv_out)
+    kappa = conv.shape[0] == 12
+    dv = S.new_empty((6 if kappa else 3, S.shape[1]))
+    stream = torch.cuda.current_stream(S.device).cuda_stream
+    build.ensure_ops(f"ht_bkt_step_set_fm_{sfx[:3]}", fm, stream)
+    rc = getattr(build.lib(), f"ht_bkt_step_{sfx}")(
+        S.data_ptr(), conv.data_ptr(), K.data_ptr(), out.data_ptr(),
+        conv_out.data_ptr(), dv.data_ptr(), S.shape[1],
+        build.offsets_arg(offs), rec_arg(rec, S.dtype), int(kappa),
+        S.device.index, stream)
+    build.check(rc, "bkt_step launch")
+    bkt_step.launches += 1
+    return out, conv_out
+
+
+bkt_step.launches = 0

@@ -4,9 +4,10 @@ All of ``hercules_tpu_torch/csrc/*.cu`` is compiled by ``nvcc`` into one
 shared library with a plain C interface,
 ``build/hercules_tpu_torch/libhtkernels_<hash>.so`` at the root of the
 checkout, on first use (the hash covers the sources and the flags, so
-an edited source builds a new library).  A file lock serializes
-concurrent builds.  There is no fallback: a missing toolkit or a failed
-build raises.
+an edited source builds a new library).  Each source compiles in its
+own ``nvcc`` process, all started together, and one more links the
+objects.  A file lock serializes concurrent builds.  There is no
+fallback: a missing toolkit or a failed build raises.
 
 The library links the CUDA runtime statically and talks to the same
 device (primary context) and streams as PyTorch: the wrappers pass
@@ -31,9 +32,9 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "hercules_tpu_torch"
 # the kernels spell every multiply-add as an fma intrinsic, and no other
 # contraction may make two kernels round the shared body differently.
 # -Xptxas -v: registers, shared memory and spills, kept in the build log.
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "--fmad=false",
-              "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "--fmad=false", "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points and their ctypes argument types (pointers and the
@@ -49,7 +50,19 @@ SIGNATURES = {
                            _I, _P, _I, _P],
     "ht_brick_chunk_f64": [_P, _P, _P, _I, _P, _I, _P, _P, _I, _P, _P,
                            _I, _P, _I, _P],
+    "ht_bkt_step_set_fm_f32": [_P, _I, _P],
+    "ht_bkt_step_set_fm_f64": [_P, _I, _P],
+    "ht_bkt_chunk_set_fm_f32": [_P, _I, _P],
+    "ht_bkt_chunk_set_fm_f64": [_P, _I, _P],
 }
+# the BKT entries, one per (working type, memory-variable type) pair
+SIGNATURES.update(
+    {f"ht_bkt_step_{sfx}": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _P]
+     for sfx in ("f32_bf16", "f32_f32", "f64_f64")})
+SIGNATURES.update(
+    {f"ht_bkt_chunk_{sfx}": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I,
+                             _P, _P, _I, _P, _P, _I, _P, _I, _P]
+     for sfx in ("f32_bf16", "f32_f32", "f64_f64")})
 
 _LIB = None
 # wall seconds this process spent compiling (None: the library was
@@ -91,18 +104,42 @@ def build() -> Path:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if not so.exists():
             t0 = time.perf_counter()
-            tmp = so.with_name(f"{so.stem}.tmp{os.getpid()}.so")
-            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-                   *(str(f) for f in sorted(CSRC.glob("*.cu")))]
-            r = subprocess.run(cmd, capture_output=True, text=True)
-            so.with_suffix(".log").write_text(r.stdout + r.stderr)
-            if r.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed with exit code {r.returncode}:\n"
-                    f"{r.stderr[-4000:]}")
-            os.replace(tmp, so)
+            objdir = BUILD_DIR / f"{so.stem}.obj{os.getpid()}"
+            objdir.mkdir(exist_ok=True)
+            try:
+                _compile_and_link(so, objdir)
+            finally:
+                shutil.rmtree(objdir, ignore_errors=True)
             build_seconds = time.perf_counter() - t0
     return so
+
+
+def _compile_and_link(so, objdir):
+    """One nvcc per source, all at once, then the link; the compilers'
+    output goes to the library's ``.log``."""
+    nvcc = nvcc_path()
+    srcs = sorted(CSRC.glob("*.cu"))
+    objs = [objdir / f"{f.stem}.o" for f in srcs]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(f), "-o", str(o)],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for f, o in zip(srcs, objs)]
+    logs = [(f.name, p.communicate()[0], p.returncode)
+            for f, p in zip(srcs, procs)]
+    text = "".join(f"== {name} (exit {rc})\n{out}" for name, out, rc in logs)
+    so.with_suffix(".log").write_text(text)
+    bad = [(name, out, rc) for name, out, rc in logs if rc != 0]
+    if bad:
+        raise RuntimeError("nvcc failed:\n" + "".join(
+            f"{name}: exit code {rc}\n{out[-3000:]}" for name, out, rc in bad))
+    tmp = so.with_name(f"{so.stem}.tmp{os.getpid()}.so")
+    r = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp),
+                        *(str(o) for o in objs)],
+                       capture_output=True, text=True)
+    if r.returncode != 0:
+        raise RuntimeError(f"nvcc link failed with exit code "
+                           f"{r.returncode}:\n{r.stderr[-4000:]}")
+    os.replace(tmp, so)
 
 
 def lib() -> ctypes.CDLL:

@@ -5,9 +5,9 @@ files.
 Counterpart of ``hercules_tpu/sim.py`` (which imports jax).  The host
 stages are the JAX package's own numpy code; ``StationSet``,
 ``setup_stations`` and ``write_station_files`` are copied from it.
-``Simulation.run`` covers the single-brick elastic route only; every
-other route raises NotImplementedError naming its ROADMAP.md queue
-item.
+``Simulation.run`` covers the single-brick routes: elastic (Rayleigh,
+mass or no damping) and uniform-Q BKT; every other route raises
+NotImplementedError naming its ROADMAP.md queue item.
 """
 
 from __future__ import annotations
@@ -126,8 +126,8 @@ def _unsupported(params):
         (p.include_nonlinear, "nonlinear soil (Queue 1, item 7)"),
         (p.implement_drm, "DRM (Queue 1, item 7)"),
         (p.include_buildings, "buildings (Queue 1, item 7)"),
-        (p.type_of_damping not in ("rayleigh", "mass", "none"),
-         f"damping={p.type_of_damping} (BKT: Queue 1, item 5)"),
+        (p.type_of_damping not in ("rayleigh", "mass", "none", "bkt"),
+         f"damping={p.type_of_damping} (Queue 1, item 5)"),
         (p.use_checkpoint, "checkpoint/restart (Queue 1, item 3)"),
         (p.output_displacement or p.output_velocity,
          "4-D volume output (Queue 1, item 3)"),
@@ -150,7 +150,8 @@ class Simulation:
     src_forces: np.ndarray
     stations: Optional[StationSet]
     # which route ran the last .run(): "cuda_chunk" (brick_chunk),
-    # "cuda_step" (brick_step per step) or "torch_plain" (the plain
+    # "cuda_step" (brick_step per step), "cuda_bkt_chunk" (bkt_chunk),
+    # "cuda_bkt_step" (bkt_step per step) or "torch_plain" (the plain
     # versions, on the CPU)
     solver_path_name: str = ""
 
@@ -205,8 +206,9 @@ class Simulation:
     def run(self, device="cuda", dtype=None, chunk=None, total_steps=None,
             on_chunk=None):
         """The time loop on ``device`` in ``dtype`` (float32 on CUDA and
-        float64 on the CPU by default).  Returns ((u, up) [3, LEN]
-        tensors, samples [T, ns, 3] numpy)."""
+        float64 on the CPU by default).  Returns ((u, up[, conv])
+        tensors, samples [T, ns, 3] numpy); a BKT brick with more than
+        one Q set raises NotImplementedError."""
         from .solver.bricks import build_plan
         from .solver.fused_brick import (chunk_applies, plan_applies,
                                          run_pallas_solver)
@@ -232,10 +234,10 @@ class Simulation:
                 f"item 6")
         if device.type == "cuda":
             n_st = 0 if st is None else len(st.ids)
-            self.solver_path_name = (
-                "cuda_chunk" if chunk_applies(dtype, len(self.src_ids),
-                                              n_st)
-                else "cuda_step")
+            kind = "bkt_" if self.tables.damping == "bkt" else ""
+            route = ("chunk" if chunk_applies(dtype, len(self.src_ids), n_st)
+                     else "step")
+            self.solver_path_name = f"cuda_{kind}{route}"
         else:
             self.solver_path_name = "torch_plain"
         return run_pallas_solver(

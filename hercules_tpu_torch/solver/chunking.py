@@ -17,7 +17,8 @@ def run_chunked(advance, state, total_steps, start_step=0, chunk=1000,
     """Drive ``advance`` over [start_step, total_steps).
 
     advance(state, s, k) -> (state, samples [k, ...] numpy): steps
-        [s, s+k) from state
+        [s, s+k) from state (a tuple of tensors: (S,) elastic, (S, conv)
+        BKT; run_chunked does not look inside)
     on_chunk(done, state): fires at every chunk boundary
     on_samples(s0, ys): consumes each chunk's per-step sample rows
         (steps [s0, s0+len)) and returns what to accumulate

@@ -1,7 +1,8 @@
-"""The single-brick elastic solver on the port's two kernels: tables,
-state layout, routing and the chunked time loop.
+"""The single-brick solver on the port's kernels: tables, state layout,
+routing and the chunked time loop, for the elastic step (Rayleigh, mass
+or no damping) and for uniform-Q BKT attenuation (``fused_bkt.py``).
 
-Counterpart of the elastic host side of
+Counterpart of the single-brick host side of
 ``hercules_tpu/solver/pallas_brick.py``; functions keep the JAX names
 (``plan_applies``, ``pallas_geometry``, ``PallasBrickTables``,
 ``init_packed_state``, ``packed_snap_of``, ``run_pallas_solver``,
@@ -17,13 +18,18 @@ after the nb nodes differs).
   3:6 = mass_minusaM, 6 = inv_mass (0 on padding), 7 = 0.
 
 Padding nodes therefore never move: their force is 0 and inv_mass 0.
+BKT bricks keep S and add the node memory variables conv, with their
+own K (``fused_bkt.py``).  The state is a tuple, as the JAX carry:
+(S,) elastic, (S, conv) BKT.
 
 Routing (``chunk_applies``, the counterpart of ``resident_applies``
 without its on-chip memory clause): float32 runs with at most 128
-sources and 128 stations take brick_chunk (K5), one launch per chunk of
-steps; every other run takes brick_step (K1) once per step, with the
-source ``index_add_`` and the station sampling as torch ops between
-steps, as the JAX package does them around K1.
+sources and 128 stations take the chunk kernel -- brick_chunk (K5), or
+bkt_chunk (K6) for BKT -- one launch per chunk of steps; every other
+run takes the step kernel -- brick_step (K1) or bkt_step (K2) -- once
+per step, with the source ``index_add_`` and the station sampling as
+torch ops between steps, as the JAX package does them around K1 and
+K2.
 """
 
 from __future__ import annotations
@@ -40,16 +46,18 @@ from ..kernels.brick_chunk import brick_chunk, sample_stations
 from ..kernels.brick_step import brick_step
 from ..utils.timers import measure
 from .chunking import run_chunked
+from .fused_bkt import bkt_step_module
 
 
 def plan_applies(plan, damping) -> bool:
     """True if the single-brick solver covers this brick plan.  (The
     JAX package also requires the stencil reach to fit its on-chip tile,
-    ``pallas_fits``; the CUDA kernels have no such limit.)"""
+    ``pallas_fits``; the CUDA kernels have no such limit.)  A BKT brick
+    must also have one Q set (PallasBrickTables raises otherwise)."""
     return (len(plan.bricks) == 1
             and len(plan.loose_eidx) == 0
             and len(plan.grp_node) == 0
-            and damping in ("rayleigh", "mass", "none"))
+            and damping in ("rayleigh", "mass", "none", "bkt"))
 
 
 def pallas_geometry(nb, align=1024) -> int:
@@ -115,30 +123,39 @@ class BrickStep(nn.Module):
         """One step (K1)."""
         return brick_step(S, self.K, self.offs, self.ops, out=out)
 
-    def chunk(self, S, spare, srcf, src_pos=None, st_pos=None,
-              st_phi=None):
-        """srcf.shape[0] steps in one launch (K5); see brick_chunk."""
-        return brick_chunk(S, spare, self.K, self.offs, self.ops, srcf,
-                           src_pos, st_pos, st_phi)
+    def chunk(self, S, srcf, src_pos=None, st_pos=None, st_phi=None):
+        """srcf.shape[0] steps in one launch (K5); see brick_chunk.
+        Returns (S', samples)."""
+        return brick_chunk(S, torch.empty_like(S), self.K, self.offs,
+                           self.ops, srcf, src_pos, st_pos, st_phi)
 
 
 class PallasBrickTables:
     """Padded tables, geometry, source and station positions of a
-    single-brick plan, on ``device`` in ``dtype``."""
+    single-brick plan, on ``device`` in ``dtype``.  ``step`` is the
+    brick's step operator: BrickStep, or BktStep for BKT damping (which
+    raises NotImplementedError unless the brick has one Q set)."""
 
     def __init__(self, plan, tables, src_ids=None, st_nodes=None,
                  st_phi=None, dtype=torch.float32, device="cpu"):
         if not plan_applies(plan, tables.damping):
-            raise ValueError("the plan is not a single elastic brick")
+            raise ValueError("the plan is not a single brick")
         b = plan.bricks[0]
         self.offs = tuple(b.corner_offsets())
         self.nb = b.nb
         self.LEN = pallas_geometry(b.nb)
         self.dtype, self.device = dtype, torch.device(device)
-        K = pack_constants(plan, tables, self.LEN)
-        self.step = BrickStep(torch.as_tensor(K, dtype=dtype,
-                                              device=self.device),
-                              self.offs)
+        self.damping = tables.damping
+        if self.damping == "bkt":
+            self.step, K = bkt_step_module(plan, tables, self.LEN,
+                                           self.offs, dtype, self.device)
+            self.invm_row = 3
+        else:
+            K = pack_constants(plan, tables, self.LEN)
+            self.step = BrickStep(torch.as_tensor(K, dtype=dtype,
+                                                  device=self.device),
+                                  self.offs)
+            self.invm_row = 6
         g = plan.gnid_cat
         self.src_pos = self.st_pos = self.st_phi = None
         if src_ids is not None and len(src_ids):
@@ -147,7 +164,7 @@ class PallasBrickTables:
             # inv_mass at the sources, rounded to the working type as
             # the device table holds it
             self.src_invm = np.asarray(
-                K[6, pos], np.float32 if dtype == torch.float32
+                K[self.invm_row, pos], np.float32 if dtype == torch.float32
                 else np.float64)
         if st_nodes is not None and len(st_nodes):
             pos = _first_copy(g, st_nodes).reshape(np.shape(st_nodes))
@@ -169,40 +186,73 @@ class PallasBrickTables:
 
 
 def chunk_applies(dtype, n_src, n_st) -> bool:
-    """brick_chunk (K5) runs float32 runs with <=128 sources and <=128
-    stations; everything else steps with brick_step (K1)."""
+    """The chunk kernel (K5, or K6 for BKT) runs float32 runs with <=128
+    sources and <=128 stations; everything else steps with the step
+    kernel (K1, or K2 for BKT)."""
     return dtype == torch.float32 and n_src <= 128 and n_st <= 128
 
 
 def init_packed_state(pt: PallasBrickTables):
-    return torch.zeros((8, pt.LEN), dtype=pt.dtype, device=pt.device)
+    """Zero state: (S,) elastic, (S, conv) BKT."""
+    S = torch.zeros((8, pt.LEN), dtype=pt.dtype, device=pt.device)
+    if pt.damping != "bkt":
+        return (S,)
+    return (S, torch.zeros((pt.step.conv_rows, pt.LEN),
+                           dtype=pt.step.conv_dtype, device=pt.device))
 
 
-def packed_snap_of(S):
-    """(u, up) views of the packed state."""
-    return S[0:3], S[3:6]
+def fit_packed_state(pt: PallasBrickTables, state):
+    """A copy of ``state`` in the solver's layout, type and device.
+    Elastic: S [8, LEN] (or (S,)).  BKT: (S, conv [R, LEN]), or S alone
+    (zero conv)."""
+    parts = tuple(state) if isinstance(state, (tuple, list)) else (state,)
+    want = init_packed_state(pt)
+    if len(parts) > len(want):
+        raise ValueError(f"state has {len(parts)} parts, the "
+                         f"{pt.damping} solver {len(want)}")
+    out = []
+    for x, z in zip(parts, want):
+        t = torch.as_tensor(x).to(dtype=z.dtype, device=z.device)
+        if t.shape != z.shape:
+            raise ValueError(f"state part must be {list(z.shape)}, got "
+                             f"{list(t.shape)}")
+        out.append(t.clone())
+    return tuple(out) + want[len(out):]
+
+
+def packed_snap_of(state):
+    """(u, up[, conv]) views of the packed state."""
+    return (state[0][0:3], state[0][3:6]) + tuple(state[1:])
+
+
+def _step_once(pt, state, spare):
+    """One step of the step kernel from ``state`` into ``spare``."""
+    if len(state) == 1:
+        return (pt.step(state[0], out=spare[0]),)
+    return pt.step(state[0], state[1], out=spare[0], conv_out=spare[1])
 
 
 def step_advance(pt, src_forces, dt2):
-    """advance(S, s, k) for the brick_step route: k launches of K1 with
-    the source add and station sampling between them."""
-    invm_src = None if pt.src_pos is None else pt.K[6, pt.src_pos]
+    """advance(state, s, k) for the step route: k launches of K1 (K2)
+    with the source add and station sampling between them."""
+    invm_src = (None if pt.src_pos is None
+                else pt.K[pt.invm_row, pt.src_pos])
 
-    def advance(S, s, k):
-        spare = torch.empty_like(S)
+    def advance(state, s, k):
+        spare = tuple(torch.empty_like(x) for x in state)
         srcf = None
         if pt.src_pos is not None:
             srcf = torch.as_tensor(src_forces[s:s + k] * dt2,
                                    dtype=pt.dtype, device=pt.device)
         samples = []
         for i in range(k):
-            samples.append(sample_stations(S, pt.st_pos, pt.st_phi))
-            Sn = pt.step(S, out=spare)
+            samples.append(sample_stations(state[0], pt.st_pos, pt.st_phi))
+            new = _step_once(pt, state, spare)
             if srcf is not None:
-                Sn[0:3].index_add_(1, pt.src_pos,
-                                   srcf[i].T * invm_src[None, :])
-            S, spare = Sn, S
-        return S, torch.stack(samples).cpu().numpy()
+                new[0][0:3].index_add_(1, pt.src_pos,
+                                       srcf[i].T * invm_src[None, :])
+            state, spare = new, state
+        return state, torch.stack(samples).cpu().numpy()
 
     return advance
 
@@ -221,13 +271,13 @@ def source_increments(pt, src_forces, dt2, s, k):
 
 
 def chunk_advance(pt, src_forces, dt2):
-    """advance(S, s, k) for the brick_chunk route: one launch of K5."""
+    """advance(state, s, k) for the chunk route: one launch of K5 (K6)."""
 
-    def advance(S, s, k):
+    def advance(state, s, k):
         srcf = source_increments(pt, src_forces, dt2, s, k)
-        S, samples = pt.step.chunk(S, torch.empty_like(S), srcf,
-                                   pt.src_pos, pt.st_pos, pt.st_phi)
-        return S, samples.cpu().numpy()
+        *state, samples = pt.step.chunk(*state, srcf, pt.src_pos,
+                                        pt.st_pos, pt.st_phi)
+        return tuple(state), samples.cpu().numpy()
 
     return advance
 
@@ -238,21 +288,17 @@ def run_pallas_solver(plan, tables, src_ids, src_forces, total_steps, dt,
                       start_step=0, on_samples=None, route=None):
     """Chunked time loop on one brick; the contract of the JAX
     package's run_pallas_solver.  ``state``: an initial packed state
-    [8, LEN] (tensor or array), zero when None.  ``route``: "chunk"
-    (brick_chunk) or "step" (brick_step); None picks by
-    chunk_applies.  Returns ((u, up) as [3, LEN] views, samples
-    [T, ns, 3] numpy)."""
+    (tensors or arrays, see fit_packed_state), zero when None.
+    ``route``: "chunk" (brick_chunk / bkt_chunk) or "step" (brick_step
+    / bkt_step); None picks by chunk_applies.  Returns ((u, up) as
+    [3, LEN] views, plus conv [R, LEN] for BKT; samples [T, ns, 3]
+    numpy)."""
     with measure("Solver tables", device):
         pt = PallasBrickTables(plan, tables, src_ids=src_ids,
                                st_nodes=st_nodes, st_phi=st_phi,
                                dtype=dtype, device=device)
-    if state is None:
-        S = init_packed_state(pt)
-    else:
-        S = torch.as_tensor(state, dtype=dtype, device=pt.device).clone()
-        if S.shape != (8, pt.LEN):
-            raise ValueError(f"state must be [8, {pt.LEN}], got "
-                             f"{tuple(S.shape)}")
+    state = (init_packed_state(pt) if state is None
+             else fit_packed_state(pt, state))
     if chunk is None:
         chunk = min(total_steps, 1000)
     if route is None:
@@ -262,12 +308,13 @@ def run_pallas_solver(plan, tables, src_ids, src_forces, total_steps, dt,
     advance = make(pt, src_forces, dt * dt)
     if on_chunk is not None:
         inner = on_chunk
-        on_chunk = lambda done, S_: inner(done, packed_snap_of(S_))
+        on_chunk = lambda done, st: inner(done, packed_snap_of(st))
     with measure("Solver time loop", device):
-        S, samples = run_chunked(advance, S, total_steps,
-                                 start_step=start_step, chunk=chunk,
-                                 on_chunk=on_chunk, on_samples=on_samples)
-    return packed_snap_of(S), samples
+        state, samples = run_chunked(advance, state, total_steps,
+                                     start_step=start_step, chunk=chunk,
+                                     on_chunk=on_chunk,
+                                     on_samples=on_samples)
+    return packed_snap_of(state), samples
 
 
 def pallas_u_global(plan, u_pad, N):

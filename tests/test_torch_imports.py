@@ -9,6 +9,8 @@ import pytest
 import torch
 
 from hercules_tpu_torch.kernels import build
+from hercules_tpu_torch.kernels.bkt_chunk import bkt_chunk
+from hercules_tpu_torch.kernels.bkt_step import bkt_step
 from hercules_tpu_torch.kernels.brick_chunk import brick_chunk
 from hercules_tpu_torch.kernels.brick_step import brick_step
 
@@ -20,9 +22,12 @@ MODULES = ("hercules_tpu_torch", "hercules_tpu_torch.cli",
            "hercules_tpu_torch.solver.bricks",
            "hercules_tpu_torch.solver.chunking",
            "hercules_tpu_torch.solver.fused_brick",
+           "hercules_tpu_torch.solver.fused_bkt",
            "hercules_tpu_torch.kernels.build",
            "hercules_tpu_torch.kernels.brick_step",
            "hercules_tpu_torch.kernels.brick_chunk",
+           "hercules_tpu_torch.kernels.bkt_step",
+           "hercules_tpu_torch.kernels.bkt_chunk",
            "hercules_tpu_torch.utils.timers")
 
 
@@ -49,20 +54,34 @@ def _args(device):
     return S, K, (0, 1, 17, 18, 289, 290, 306, 307), ops
 
 
-@pytest.mark.parametrize("call", ["brick_step", "brick_chunk"])
+def _launches():
+    return (brick_step.launches, brick_chunk.launches, bkt_step.launches,
+            bkt_chunk.launches)
+
+
+@pytest.mark.parametrize("call", ["brick_step", "brick_chunk", "bkt_step",
+                                  "bkt_chunk"])
 def test_non_cpu_tensor_never_runs_plain(call):
     """Off the CPU a wrapper launches its kernel or raises: a tensor on
     a device with no kernel raises instead of taking the plain
     version."""
     S, K, offs, ops = _args("meta")
-    before = (brick_step.launches, brick_chunk.launches)
+    conv = torch.zeros((6, 1024), device="meta")
+    fm = torch.zeros((24, 48), device="meta")
+    rec = (0.0,) * 9
+    srcf = torch.zeros((4, 3, 0), device="meta")
+    before = _launches()
     with pytest.raises(ValueError, match="no kernel"):
         if call == "brick_step":
             brick_step(S, K, offs, ops)
+        elif call == "brick_chunk":
+            brick_chunk(S, torch.empty_like(S), K, offs, ops, srcf)
+        elif call == "bkt_step":
+            bkt_step(S, conv, K, offs, fm, rec)
         else:
-            brick_chunk(S, torch.empty_like(S), K, offs, ops,
-                        torch.zeros((4, 3, 0), device="meta"))
-    assert (brick_step.launches, brick_chunk.launches) == before
+            bkt_chunk(S, torch.empty_like(S), conv, torch.empty_like(conv),
+                      K, offs, fm, rec, srcf)
+    assert _launches() == before
 
 
 def test_missing_compiler_raises(monkeypatch, tmp_path):

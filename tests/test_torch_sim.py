@@ -13,7 +13,8 @@ import jax.numpy as jnp
 
 from hercules_tpu.sim import Simulation as JaxSimulation
 from hercules_tpu_torch import cli
-from hercules_tpu_torch.fixtures import write_box_case
+from hercules_tpu_torch.fixtures import (SOFT_FREQ, TWO_LAYERS,
+                                         write_box_case)
 from hercules_tpu_torch.sim import Simulation
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -25,9 +26,9 @@ def _read_stations(rundir, n):
                        skiprows=1) for i in range(n)]
 
 
-def test_cli_station_files_match_jax(tmp_path):
-    """Both CLIs on the same case write station files equal to their
-    printed precision (7 significant digits)."""
+def _run_both_clis(tmp_path, **case):
+    """Both CLIs (the port on the CPU, the JAX package with one CPU
+    device) on the same box case; returns their run directories."""
     env = dict(os.environ, PYTHONPATH=ROOT, HT_PLATFORM="cpu")
     procs = []
     for name, cmd in (
@@ -36,7 +37,7 @@ def test_cli_station_files_match_jax(tmp_path):
             ("jax", [sys.executable, "-m", "hercules_tpu.cli",
                      "--ndev=1"])):
         d = tmp_path / name
-        paths = write_box_case(str(d), steps=STEPS, n_stations=2)
+        paths = write_box_case(str(d), steps=STEPS, n_stations=2, **case)
         procs.append((d, subprocess.Popen(
             cmd + list(paths), cwd=d, env=env, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True)))
@@ -46,6 +47,13 @@ def test_cli_station_files_match_jax(tmp_path):
     (port_dir, _), (jax_dir, _) = procs
     assert "solver path: torch_plain" in \
         (port_dir / "monitor.txt").read_text()
+    return port_dir, jax_dir
+
+
+def test_cli_station_files_match_jax(tmp_path):
+    """Both CLIs on the same case write station files equal to their
+    printed precision (7 significant digits)."""
+    port_dir, jax_dir = _run_both_clis(tmp_path)
     mine, ref = _read_stations(port_dir, 2), _read_stations(jax_dir, 2)
     for a, b in zip(mine, ref):
         assert a.shape == b.shape == (STEPS, 4)
@@ -58,6 +66,49 @@ def test_cli_station_files_match_jax(tmp_path):
         # differences exceed 1e-6 of the value itself
         np.testing.assert_allclose(a[:, 1:], b[:, 1:], rtol=1e-6,
                                    atol=1e-12 * scale)
+
+
+def test_bkt_cli_station_files_match_jax(tmp_path):
+    """The BKT box (uniform Q) through both CLIs: station files equal to
+    their printed precision, as in the elastic case."""
+    port_dir, jax_dir = _run_both_clis(tmp_path, damping="bkt")
+    mine, ref = _read_stations(port_dir, 2), _read_stations(jax_dir, 2)
+    for a, b in zip(mine, ref):
+        assert a.shape == b.shape == (STEPS, 4)
+        np.testing.assert_array_equal(a[:, 0], b[:, 0])
+        scale = np.abs(b[:, 1:]).max()
+        assert scale > 0
+        np.testing.assert_allclose(a[:, 1:], b[:, 1:], rtol=1e-6,
+                                   atol=1e-12 * scale)
+
+
+def test_bkt_simulation_samples_match_jax(tmp_path):
+    """In memory, float64: the BKT box through Simulation.run on the CPU
+    against the JAX package's brick route (corner-basis BKT), within
+    2e-12 of the largest sample; the run returns the node conv too."""
+    cvmdb, physics, numerical = write_box_case(str(tmp_path), steps=STEPS,
+                                               n_stations=2, damping="bkt")
+    sim = Simulation.setup(physics, numerical, cvmdb=cvmdb)
+    (u, up, conv), samp = sim.run(device="cpu")
+    assert sim.solver_path_name == "torch_plain"
+    assert conv.shape == (6, u.shape[1]) and conv.abs().max() > 0
+    jsim = JaxSimulation.setup(physics, numerical, cvmdb=cvmdb)
+    _, jsamp = jsim.run(dtype=jnp.float64, solver="bricks", ndev=1)
+    assert jsim.solver_path_name == "bricks"
+    scale = np.abs(jsamp).max()
+    assert samp.shape == jsamp.shape == (STEPS, 2, 3) and scale > 0
+    np.testing.assert_allclose(samp, jsamp, rtol=0, atol=2e-12 * scale)
+
+
+def test_two_q_sets_raise_k3(tmp_path):
+    """A BKT brick with two Q sets (the two-layer box) needs the
+    general-Q tier, which this port does not run yet."""
+    cvmdb, physics, numerical = write_box_case(
+        str(tmp_path), steps=2, damping="bkt", layers=TWO_LAYERS,
+        freq=SOFT_FREQ)
+    sim = Simulation.setup(physics, numerical, cvmdb=cvmdb)
+    with pytest.raises(NotImplementedError, match=r"general-Q BKT \(K3\)"):
+        sim.run(device="cpu")
 
 
 def test_simulation_samples_match_jax(tmp_path):
@@ -87,19 +138,14 @@ def test_cli_without_cuda_exits_nonzero(tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("type_of_damping", "bkt"),
+    ("use_checkpoint", "1"),
     ("number_output_planes", "1"),
 ])
 def test_unsupported_features_raise(tmp_path, key, value):
     """Routes outside this slice raise NotImplementedError naming the
     ROADMAP queue item."""
     cvmdb, physics, numerical = write_box_case(str(tmp_path), steps=2)
-    target = physics if key == "type_of_damping" else numerical
-    with open(target, "a") as f:
+    with open(numerical, "a") as f:
         f.write(f"\n{key} = {value}\n")
-    text = open(target).read().replace(
-        "type_of_damping             = rayleigh\n", "")
-    with open(target, "w") as f:
-        f.write(text)
     with pytest.raises(NotImplementedError, match="Queue 1"):
         Simulation.setup(physics, numerical, cvmdb=cvmdb)

@@ -1,5 +1,6 @@
 """The port's numpy table assembly, brick plan and packed tables against
-the JAX package's, on the in-repo box case."""
+the JAX package's, on the in-repo box case with Rayleigh damping and
+with BKT damping."""
 
 import dataclasses
 
@@ -24,12 +25,17 @@ from hercules_tpu_torch.solver.fused_brick import (PallasBrickTables,
                                                    plan_applies)
 
 EDGES = (62.5, 31.25)
+# (edge, damping); the Rayleigh cases keep their edge as their id
+BOXES = [(e, "rayleigh") for e in EDGES] + [(e, "bkt") for e in EDGES]
 
 
-@pytest.fixture(scope="module", params=EDGES)
+@pytest.fixture(scope="module", params=BOXES,
+                ids=[f"{e}" if d == "rayleigh" else f"{e}-{d}"
+                     for e, d in BOXES])
 def box(request, tmp_path_factory):
+    edge, damping = request.param
     sim = box_simulation(str(tmp_path_factory.mktemp("box")),
-                         edge_m=request.param, steps=10)
+                         edge_m=edge, steps=10, damping=damping)
     return sim
 
 
@@ -71,8 +77,8 @@ def test_build_plan_matches_jax(box):
 
 def test_tables_from_jax_equal_port_K(box):
     """K from the JAX package's tables equals the port's own, and its
-    rows equal the JAX fused kernel's streamed tables column for
-    column."""
+    rows equal the JAX fused kernel's streamed tables column for column
+    (elastic: cm, mm, invm; BKT: mm, invm, element valid)."""
     plan = build_plan(box.mesh)
     jtab = jax_assemble(box.mesh, box.params)
     jplan = jax_build_plan(box.mesh)
@@ -82,11 +88,18 @@ def test_tables_from_jax_equal_port_K(box):
     nb = plan.bricks[0].nb
     assert K.shape == (8, pallas_geometry(nb))
     jpt = JaxPallasBrickTables(jplan, jtab, dtype=jnp.float64)
-    for rows, ref in ((slice(0, 3), jpt.cm), (slice(3, 6), jpt.mm),
-                      (slice(6, 7), jpt.invm)):
-        np.testing.assert_array_equal(K[rows, :nb].numpy(),
+    if box.tables.damping == "bkt":
+        rows = ((slice(0, 3), jpt.mm), (slice(3, 4), jpt.invm),
+                (slice(4, 5), jpt.evalid_row))
+        zero = slice(5, 8)
+    else:
+        rows = ((slice(0, 3), jpt.cm), (slice(3, 6), jpt.mm),
+                (slice(6, 7), jpt.invm))
+        zero = slice(7, 8)
+    for r, ref in rows:
+        np.testing.assert_array_equal(K[r, :nb].numpy(),
                                       np.asarray(ref)[:, :nb])
-    assert not K[:, nb:].any() and not K[7].any()
+    assert not K[:, nb:].any() and not K[zero].any()
 
 
 def test_state_round_trip(box):

@@ -44,13 +44,39 @@ JSON line {"phase": ...}:
               both BKT kernels launched.
 9. accuracy_bkt -- phase 5 on the BKT box: float32 CUDA stations
               within 1e-2 relative of bkt_chunk_plain in float64.
-10. timing -- at 2^20 elements in float32, CUDA events, medians
+10. k3     -- the node-tier step (bkt_node_step, K3, then the mixed-
+              element epilogue and the sources) against the same route
+              on bkt_node_step_plain, from random S, memory variables
+              and mixed-element carry: the two-layer box (two Q sets),
+              40 steps in float64 (S, conv and conv_mix within 2e-13 of
+              their max) and 20 in float32 with bfloat16 memory
+              variables (1e-3); its shear-only variant in float32
+              (1e-4); the four-layer box at 2^20 elements (four Q sets,
+              49,533 mixed elements in 3 runs), 10 steps in float32
+              (1e-4 on S).  Padding stays zero.
+11. k4     -- bkt_corner_step (K4) against bkt_corner_step_plain: the
+              four-layer box at 62.5 m (where the rule picks the corner
+              tier), 40 steps in float64 (2e-13) and 20 in float32
+              (1e-3); the two-layer box forced to the corner tier,
+              float64 (2e-13); the four-layer box at 2^20 forced to the
+              corner tier, 10 steps in float32 (1e-4 on S).
+12. main_bktq -- phase 4 on the four-layer box at 2^20 elements: both
+              types on the node tier (route cuda_bkt_node_step), K3
+              launched; then the four-layer box at 62.5 m through the
+              CLI: route cuda_bkt_corner_step, K4 launched.
+13. accuracy_bktq -- the four-layer box at 15.625 m (131,072 elements),
+              200 steps: the float32 CUDA stations within 1e-2 relative
+              of the node route on the plain versions in float64.
+14. timing -- at 2^20 elements in float32, CUDA events, medians
               of >= 20 steps after warm-up: K1 and K2 against their
               plain versions, the K1 and K2 route steps (sampling +
               step + sources), K5 and K6 (per step, amortised) against
               brick_chunk_plain and bkt_chunk_plain; K2 and K6 again on
               the soft box meshed at 2^20 elements (bfloat16 memory
-              variables, bulk attenuation on).
+              variables, bulk attenuation on); on the four-layer box,
+              K3, the epilogue alone and the K3 route step against
+              bkt_node_step_plain, and K4 (forced) against
+              bkt_corner_step_plain.
 
 Then the kernel table as one JSON line, the card's name and power
 limit (nvidia-smi), and last {"ok": true, "device": {...}}.  Any
@@ -101,11 +127,17 @@ def main():
     # the checkout too
     os.environ.setdefault("HT_NATIVE_CACHE",
                           os.path.join(ROOT, "build", "native"))
-    from hercules_tpu_torch.fixtures import (SOFT_FREQ, SOFT_LAYERS,
-                                             box_stats, write_box_case)
+    from hercules_tpu_torch.fixtures import (FOUR_Q_LAYERS, SOFT_FREQ,
+                                             SOFT_LAYERS, TWO_LAYERS,
+                                             box_dt, box_stats,
+                                             four_q_freq, write_box_case)
     from hercules_tpu_torch.kernels import build
     from hercules_tpu_torch.kernels.bkt_chunk import (bkt_chunk,
                                                       bkt_chunk_plain)
+    from hercules_tpu_torch.kernels.bkt_corner_step import (
+        bkt_corner_step, bkt_corner_step_plain)
+    from hercules_tpu_torch.kernels.bkt_node_step import (
+        bkt_node_step, bkt_node_step_plain)
     from hercules_tpu_torch.kernels.bkt_step import (bkt_step,
                                                      bkt_step_plain)
     from hercules_tpu_torch.kernels.brick_chunk import (
@@ -116,6 +148,7 @@ def main():
     from hercules_tpu_torch.solver.bricks import build_plan
     from hercules_tpu_torch.solver.fused_brick import (
         PallasBrickTables, run_pallas_solver, source_increments)
+    from hercules_tpu_torch.solver.fused_bktq import bkt_mix_epilogue
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -134,11 +167,11 @@ def main():
         sim = Simulation.setup(ph, nu, cv)
         return sim, build_plan(sim.mesh), (cv, ph, nu)
 
-    def tables(sim, plan, dtype):
+    def tables(sim, plan, dtype, bkt_tier=None):
         st = sim.stations
         return PallasBrickTables(plan, sim.tables, src_ids=sim.src_ids,
                                  st_nodes=st.nodes, st_phi=st.phi,
-                                 dtype=dtype, device=dev)
+                                 dtype=dtype, device=dev, bkt_tier=bkt_tier)
 
     def random_state(pt):
         """u ~ 1e-3 N(0, 1) on the brick's nodes, u- close to it, zero
@@ -188,6 +221,63 @@ def main():
                 Sn, cn = bkt_step_plain(S, cv, *args)
             else:
                 Sn, cn = bkt_step(S, cv, *args, out=spare, conv_out=cspare)
+            Sn[0:3].index_add_(1, pt.src_pos, inc[t])
+            S, spare, cv, cspare = Sn, S, cn, cv
+        return S, cv
+
+    def random_bktq_state(pt):
+        """random_state's S, then every memory-variable part of the
+        tier (conv and the node tier's conv_mix) ~ 1e-3 N(0, 1) on the
+        brick's columns, in the storage type."""
+        parts = [random_state(pt)]
+        for shape, dt in pt.step.state_parts(pt.LEN):
+            x = np.zeros(shape)
+            if len(shape) == 2:
+                x[:, :pt.nb] = 1e-3 * rng.standard_normal((shape[0], pt.nb))
+            else:
+                x[:] = 1e-3 * rng.standard_normal(shape)
+            parts.append(torch.as_tensor(x, dtype=pt.dtype,
+                                         device=dev).to(dt))
+        return parts
+
+    def node_loop(pt, state, inc, plain):
+        """The node route step by step: K3 (or its plain version), the
+        mixed-element epilogue, the source adds.  Returns (the final
+        state, samples [steps, ns, 3])."""
+        st = [x.clone() for x in state]
+        spare = [torch.empty_like(st[0]), torch.empty_like(st[1])]
+        samples = []
+        for t in range(inc.shape[0]):
+            samples.append(sample_stations(st[0], pt.st_pos, pt.st_phi))
+            if plain:
+                Sn, cn = bkt_node_step_plain(st[0], st[1], pt.K, pt.offs,
+                                             pt.step.tab)
+            else:
+                Sn, cn = bkt_node_step(st[0], st[1], pt.K, pt.offs,
+                                       pt.step.tab, out=spare[0],
+                                       conv_out=spare[1])
+            new = [Sn, cn]
+            if pt.step.mix_M:
+                Sn, cm = bkt_mix_epilogue(pt.step.mix, pt.step.shear_only,
+                                          st[0], Sn, st[1], st[2],
+                                          runs=pt.step.mix_runs,
+                                          offs=pt.offs)
+                new.append(cm)
+            Sn[0:3].index_add_(1, pt.src_pos, inc[t])
+            spare, st = st[:2], new
+        return st, torch.stack(samples)
+
+    def k4_loop(pt, S, cv, inc, plain):
+        """K4 (or its plain version) step by step with the source adds."""
+        args = (pt.K, pt.step.bk, pt.offs, pt.step.fm)
+        S, cv = S.clone(), cv.clone()
+        spare, cspare = torch.empty_like(S), torch.empty_like(cv)
+        for t in range(inc.shape[0]):
+            if plain:
+                Sn, cn = bkt_corner_step_plain(S, cv, *args)
+            else:
+                Sn, cn = bkt_corner_step(S, cv, *args, out=spare,
+                                         conv_out=cspare)
             Sn[0:3].index_add_(1, pt.src_pos, inc[t])
             S, spare, cv, cspare = Sn, S, cn, cv
         return S, cv
@@ -287,20 +377,22 @@ def main():
         # ---- 4. the main path through the CLI ------------------------
         from hercules_tpu_torch import cli
         from hercules_tpu_torch.utils.timers import GLOBAL_TIMERS
-        counters = (brick_step, brick_chunk, bkt_step, bkt_chunk)
-        E, N = box_stats(7.8125)
-        dt_b = sim_b.params.delta_t
+        counters = (brick_step, brick_chunk, bkt_step, bkt_chunk,
+                    bkt_node_step, bkt_corner_step)
 
-        def main_path(phase, routes, kernels, **case):
-            """The CLI on the 2^20-element box, 400 steps, 5 stations,
-            float32 then float64; every launch counter set to 0 just
-            before and read just after.  Returns the launches."""
+        def main_path(phase, routes, kernels, edge=7.8125, **case):
+            """The CLI on the box at ``edge`` (2^20 elements by default),
+            400 steps, 5 stations, float32 then float64; every launch
+            counter set to 0 just before and read just after.  Returns
+            the launches."""
+            E, N = box_stats(edge)
+            dt_b = box_dt(edge)
             runs = {}
             for c in counters:
                 c.launches = 0
             for dname in ("float32", "float64"):
                 cv, ph, nu = write_box_case(
-                    os.path.join(work, f"{phase}_{dname}"), 7.8125, 400, 5,
+                    os.path.join(work, f"{phase}_{dname}"), edge, 400, 5,
                     **case)
                 parts = ("Solver", "Solver plan", "Solver tables",
                          "Solver time loop")
@@ -482,7 +574,122 @@ def main():
               "steps": 200, "station_rel_err": acc, "bound": 1e-2})
         require(acc <= 1e-2, f"BKT f32 stations vs f64 plain: {acc}")
 
-        # ---- 10. timings at 2^20 elements in float32 -----------------
+        # ---- 10. K3 (and the epilogue) against the plain route ------
+        two = dict(damping="bkt", layers=TWO_LAYERS, freq=SOFT_FREQ)
+        four = dict(damping="bkt", layers=FOUR_Q_LAYERS,
+                    freq=four_q_freq(62.5))
+        four_big = dict(damping="bkt", layers=FOUR_Q_LAYERS,
+                        freq=four_q_freq(7.8125))
+        sim_2q, plan_2q, _ = box(62.5, 40, 5, "two_q", **two)
+        sim_2s, plan_2s, _ = box(62.5, 40, 5, "two_q_shear",
+                                 use_infinite_qk=True, **two)
+        sim_4q, plan_4q, _ = box(62.5, 40, 5, "four_q", **four)
+        sim_4b, plan_4b, _ = box(7.8125, 20, 5, "four_q_big", **four_big)
+        require(sim_4b.mesh.lenum == 1 << 20, "four-layer 2^20 box")
+        # (case, sim, plan, type, steps, bound on S and samples, bound on
+        # the memory variables); at 2^20 elements S alone is bounded
+        # tightly: there a memory variable near the max that rounds to
+        # the other bfloat16 neighbour differs by 2^-8 of itself, so the
+        # memory variables are bounded at 5e-3, just above that
+        cases = []
+        for label, sim, plan, dtype, steps, bound, mbound in (
+                ("two", sim_2q, plan_2q, f64, 40, 2e-13, 2e-13),
+                ("two", sim_2q, plan_2q, f32, 20, 1e-3, 1e-3),
+                ("two_shear", sim_2s, plan_2s, f32, 20, 1e-4, 1e-4),
+                ("four", sim_4b, plan_4b, f32, 10, 1e-4, 5e-3)):
+            pt = tables(sim, plan, dtype)
+            require(pt.bkt_tier == "node", f"{label} tier {pt.bkt_tier}")
+            state = random_bktq_state(pt)
+            inc = source_increments(pt, sim.src_forces,
+                                    sim.params.delta_t ** 2, 0, steps)
+            (Sk, *mk), smp_k = node_loop(pt, state, inc, plain=False)
+            (Sp, *mp), smp_p = node_loop(pt, state, inc, plain=True)
+            torch.cuda.synchronize()
+            r, err = rel(Sk, Sp)
+            mem = [crel(a, b) for a, b in zip(mk, mp)]
+            srel = ((smp_k - smp_p).abs().max()
+                    / smp_p.abs().max()).item()
+            cases.append({"case": label, "elements": sim.mesh.lenum,
+                          "dtype": str(dtype),
+                          "conv": str(pt.step.conv_dtype), "steps": steps,
+                          "mixed": pt.step.mix_M,
+                          "mix_runs": len(pt.step.mix_runs or ()),
+                          "rel_err": r, "max_abs_err": err,
+                          "conv_rel_err": mem[0][0],
+                          "conv_mix_rel_err": mem[1][0],
+                          "samples_rel_err": srel, "bound": bound,
+                          "conv_bound": mbound})
+            require(r <= bound and srel <= bound
+                    and all(m[0] <= mbound for m in mem),
+                    f"K3 route vs plain {cases[-1]}")
+            require(not Sk[:, pt.nb:].any() and not mk[0][:, pt.nb:].any(),
+                    "K3 moved the padding")
+        kern["bkt_node_step_err"] = cases[-1]["max_abs_err"]
+        emit({"phase": "k3", "cases": cases,
+              "launches": bkt_node_step.launches})
+
+        # ---- 11. K4 against its plain version ------------------------
+        cases = []
+        for label, sim, plan, dtype, steps, bound, mbound, tier in (
+                ("four", sim_4q, plan_4q, f64, 40, 2e-13, 2e-13, None),
+                ("four", sim_4q, plan_4q, f32, 20, 1e-3, 1e-3, None),
+                ("two", sim_2q, plan_2q, f64, 40, 2e-13, 2e-13, "corner"),
+                ("four", sim_4b, plan_4b, f32, 10, 1e-4, 5e-3, "corner")):
+            pt = tables(sim, plan, dtype, bkt_tier=tier)
+            require(pt.bkt_tier == "corner", f"{label} tier {pt.bkt_tier}")
+            S0, cv0 = random_bktq_state(pt)
+            inc = source_increments(pt, sim.src_forces,
+                                    sim.params.delta_t ** 2, 0, steps)
+            Sk, ck = k4_loop(pt, S0, cv0, inc, plain=False)
+            Sp, cp = k4_loop(pt, S0, cv0, inc, plain=True)
+            torch.cuda.synchronize()
+            r, err = rel(Sk, Sp)
+            rc_, cerr = crel(ck, cp)
+            cases.append({"case": label, "forced": tier,
+                          "elements": sim.mesh.lenum, "dtype": str(dtype),
+                          "conv": str(pt.step.conv_dtype),
+                          "conv_rows": pt.step.conv_rows, "steps": steps,
+                          "rel_err": r, "max_abs_err": err,
+                          "conv_rel_err": rc_, "conv_max_abs_err": cerr,
+                          "bound": bound, "conv_bound": mbound})
+            require(r <= bound and rc_ <= mbound, f"K4 vs plain {cases[-1]}")
+            require(not Sk[:, pt.nb:].any() and not ck[:, pt.nb:].any(),
+                    "K4 moved the padding")
+        kern["bkt_corner_step_err"] = cases[-1]["max_abs_err"]
+        emit({"phase": "k4", "cases": cases,
+              "launches": bkt_corner_step.launches})
+
+        # ---- 12. the general-Q BKT main path through the CLI ---------
+        node_launches = main_path(
+            "main_bktq", ("cuda_bkt_node_step", "cuda_bkt_node_step"),
+            ("bkt_node_step",), **four_big)
+        corner_launches = main_path(
+            "main_bktq_corner",
+            ("cuda_bkt_corner_step", "cuda_bkt_corner_step"),
+            ("bkt_corner_step",), edge=62.5, **four)
+
+        # ---- 13. accuracy: node tier f32 CUDA against f64 plain ------
+        sim_a, plan_a, _ = box(15.625, 200, 5, "accuracy_bktq",
+                               damping="bkt", layers=FOUR_Q_LAYERS,
+                               freq=four_q_freq(15.625))
+        _, s32 = sim_a.run(device=dev)
+        require(sim_a.solver_path_name == "cuda_bkt_node_step",
+                f"accuracy_bktq route {sim_a.solver_path_name}")
+        pt = tables(sim_a, plan_a, f64)
+        inc = source_increments(pt, sim_a.src_forces,
+                                sim_a.params.delta_t ** 2, 0, 200)
+        zero = [torch.zeros((8, pt.LEN), dtype=f64, device=dev)] + [
+            torch.zeros(shape, dtype=dt, device=dev)
+            for shape, dt in pt.step.state_parts(pt.LEN)]
+        _, s64 = node_loop(pt, zero, inc, plain=True)
+        s64 = s64.cpu().numpy()
+        acc = float(np.abs(s32 - s64).max() / np.abs(s64).max())
+        emit({"phase": "accuracy_bktq", "elements": sim_a.mesh.lenum,
+              "mixed": pt.step.mix_M, "steps": 200,
+              "station_rel_err": acc, "bound": 1e-2})
+        require(acc <= 1e-2, f"node-tier f32 stations vs f64 plain: {acc}")
+
+        # ---- 14. timings at 2^20 elements in float32 -----------------
         card = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
@@ -574,6 +781,53 @@ def main():
         # pass 1: S 6 rows + conv 6 in, conv 6 + dv 3 out; pass 2: S 8
         # + K 5 + dv 3 in, S 8 out (float32, shear-only)
         moved_k2 = 45 * ptb.LEN * 4
+        # the general-Q tiers on the four-layer box at 2^20 elements (12
+        # rows of bfloat16 memory variables; 49,533 mixed elements)
+        ptn = tables(sim_4b, plan_4b, f32)
+        Sn0, cn0, cm0 = random_bktq_state(ptn)
+        spn, cspn = torch.empty_like(Sn0), torch.empty_like(cn0)
+        nargs = (ptn.K, ptn.offs, ptn.step.tab)
+        srcfn = source_increments(ptn, sim_4b.src_forces,
+                                  sim_4b.params.delta_t ** 2, 0, 1)
+
+        def epilogue(runs=ptn.step.mix_runs):
+            bkt_mix_epilogue(ptn.step.mix, ptn.step.shear_only, Sn0, spn,
+                             cn0, cm0, runs=runs, offs=ptn.offs)
+
+        def k3_route_step():
+            sample_stations(Sn0, ptn.st_pos, ptn.st_phi)
+            S1 = ptn.step(Sn0, cn0, cm0, out=spn, conv_out=cspn)[0]
+            S1[0:3].index_add_(1, ptn.src_pos, srcfn[0])
+
+        t_k3p = timed(lambda: bkt_node_step_plain(Sn0, cn0, *nargs), 30, 3)
+        t_k3 = timed(lambda: bkt_node_step(Sn0, cn0, *nargs, out=spn,
+                                           conv_out=cspn), 30, 5)
+        t_mix = timed(epilogue, 30, 5)
+        # the gather form on the same mixed set, for comparison
+        t_mix_gather = timed(lambda: epilogue(None), 30, 5)
+        t_k3loop = timed(k3_route_step, 30, 5)
+        t_k3_again = timed(lambda: bkt_node_step(Sn0, cn0, *nargs, out=spn,
+                                                 conv_out=cspn), 30, 5)
+        t_k3p_again = timed(lambda: bkt_node_step_plain(Sn0, cn0, *nargs),
+                            30, 3)
+        ptc = tables(sim_4b, plan_4b, f32, bkt_tier="corner")
+        Sc0, cc0 = random_bktq_state(ptc)
+        spc, cspc = torch.empty_like(Sc0), torch.empty_like(cc0)
+        cargs = (ptc.K, ptc.step.bk, ptc.offs, ptc.step.fm)
+        t_k4p = timed(lambda: bkt_corner_step_plain(Sc0, cc0, *cargs), 10, 2)
+        t_k4 = timed(lambda: bkt_corner_step(Sc0, cc0, *cargs, out=spc,
+                                             conv_out=cspc), 30, 5)
+        t_k4_again = timed(lambda: bkt_corner_step(Sc0, cc0, *cargs, out=spc,
+                                                   conv_out=cspc), 30, 5)
+        t_k4p_again = timed(lambda: bkt_corner_step_plain(Sc0, cc0, *cargs),
+                            10, 2)
+        # K3 (float32, bfloat16 kappa): pass 1: S 6 rows, K 1 row, conv
+        # 12 bf16 rows in and out, dv 6 rows out; pass 2: S 8, K 6 and
+        # dv 6 rows in, S 8 out.  K4: pass 1: S 6 rows, conv 96 bf16
+        # rows in and out, bk 20 rows in, F 24 rows out; pass 2: F 24, S
+        # 8, K 4 rows in, S 8 out
+        moved_k3 = 53 * ptn.LEN * 4
+        moved_k4 = 190 * ptc.LEN * 4
         emit({"phase": "timing", "card": card,
               "elements": sim_b.mesh.lenum, "LEN": pt.LEN,
               "ms_per_step": {
@@ -589,18 +843,36 @@ def main():
                   "bkt_chunk_plain": t_k6p,
                   "bkt_step_bf16_kappa": t_k2s,
                   "bkt_step_plain_bf16_kappa": t_k2ps,
-                  "bkt_chunk_bf16_kappa": t_k6s},
+                  "bkt_chunk_bf16_kappa": t_k6s,
+                  "bkt_node_step": [t_k3, t_k3_again],
+                  "bkt_node_step_plain": [t_k3p, t_k3p_again],
+                  "bkt_mix_epilogue": t_mix,
+                  "bkt_mix_epilogue_gather_form": t_mix_gather,
+                  "k3_route_step": t_k3loop,
+                  "bkt_corner_step": [t_k4, t_k4_again],
+                  "bkt_corner_step_plain": [t_k4p, t_k4p_again]},
+              "mixed_elements": ptn.step.mix_M,
+              "bytes_per_step": {"brick_step": moved, "bkt_step": moved_k2,
+                                 "bkt_node_step": moved_k3,
+                                 "bkt_corner_step": moved_k4},
               "brick_step_GBps": moved / (min(t_k1, t_k1_again) * 1e-3)
               / 1e9,
               "bkt_step_GBps": moved_k2 / (min(t_k2, t_k2_again) * 1e-3)
               / 1e9,
+              "bkt_node_step_GBps": moved_k3 / (min(t_k3, t_k3_again)
+                                                * 1e-3) / 1e9,
+              "bkt_corner_step_GBps": moved_k4 / (min(t_k4, t_k4_again)
+                                                  * 1e-3) / 1e9,
               "element_updates_per_s": {
                   "brick_step": sim_b.mesh.lenum / (min(t_k1, t_k1_again)
                                                     * 1e-3),
                   "brick_chunk": sim_b.mesh.lenum / (t_k5 * 1e-3),
                   "bkt_step": sim_bb.mesh.lenum / (min(t_k2, t_k2_again)
                                                    * 1e-3),
-                  "bkt_chunk": sim_bb.mesh.lenum / (t_k6 * 1e-3)}})
+                  "bkt_chunk": sim_bb.mesh.lenum / (t_k6 * 1e-3),
+                  "k3_route_step": sim_4b.mesh.lenum / (t_k3loop * 1e-3),
+                  "bkt_corner_step": sim_4b.mesh.lenum
+                  / (min(t_k4, t_k4_again) * 1e-3)}})
 
         kernels = [
             {"name": "brick_step", "route": "cuda",
@@ -629,6 +901,20 @@ def main():
              "launches": bkt_launches["bkt_chunk"],
              "max_abs_err": kern["bkt_chunk_err"],
              "ms": t_k6, "plain_ms": t_k6p},
+            {"name": "bkt_node_step", "route": "cuda",
+             "source": "hercules_tpu_torch/csrc/bkt_node.cu",
+             "replaces": "hercules_tpu/solver/pallas_brick.py:2153",
+             "launches": node_launches["bkt_node_step"],
+             "max_abs_err": kern["bkt_node_step_err"],
+             "ms": min(t_k3, t_k3_again),
+             "plain_ms": min(t_k3p, t_k3p_again)},
+            {"name": "bkt_corner_step", "route": "cuda",
+             "source": "hercules_tpu_torch/csrc/bkt_corner.cu",
+             "replaces": "hercules_tpu/solver/pallas_brick.py:1216",
+             "launches": corner_launches["bkt_corner_step"],
+             "max_abs_err": kern["bkt_corner_step_err"],
+             "ms": min(t_k4, t_k4_again),
+             "plain_ms": min(t_k4p, t_k4p_again)},
         ]
         require("jax" not in sys.modules, "jax was imported")
         print(json.dumps({"kernels": kernels}), flush=True)

@@ -13,6 +13,11 @@ Options:
   --dtype=float32|float64
                   working precision (default float32 on CUDA, float64
                   on the CPU)
+
+monitor.txt names the route that ran ("solver path: ..."): cuda_chunk
+or cuda_step (elastic), cuda_bkt_chunk or cuda_bkt_step (BKT, one Q
+set), cuda_bkt_node_step (BKT, several Q sets, node tier),
+cuda_bkt_corner_step (BKT, corner tier), torch_plain (--device=cpu).
 """
 
 from __future__ import annotations

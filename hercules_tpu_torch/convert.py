@@ -44,18 +44,29 @@ def state_from_jax(S_np, plan):
     return S
 
 
-def conv_from_jax(conv_node, plan):
-    """The port's BKT memory variables [6 | 12, LEN] (float64 numpy)
-    from the JAX package's uniform-Q node-basis conv [8 | 16, LEN_jax]
-    (rows s0, s1[, k0, k1] x 3, then zero padding rows): the padding
-    rows and columns are dropped."""
+def conv_from_jax(conv, plan):
+    """The port's BKT memory variables (float64 numpy) from the JAX
+    package's, by the number of rows:
+
+    - node basis [8 | 16, LEN_jax] (uniform or node tier: s0, s1[, k0,
+      k1] x 3, then padding rows, on the node tier the set index in row
+      6 | 12) -> [6 | 12, LEN]: the rows from 6 | 12 on are dropped;
+    - corner basis [48 | 96, LEN_jax] -> [48 | 96, LEN];
+    - the node tier's carry (conv_node, conv_mix [6 | 12, 8, M]) -> the
+      pair (conv, conv_mix), conv_mix passed through.
+
+    Columns past the brick's nb nodes are dropped or zero-padded."""
+    if isinstance(conv, (tuple, list)):
+        node, *mix = conv
+        return (conv_from_jax(node, plan),) + tuple(
+            np.asarray(m).astype(np.float64) for m in mix)
     b = plan.bricks[0]
-    cv = np.asarray(conv_node).astype(np.float64)
-    if cv.ndim != 2 or cv.shape[0] not in (6, 8, 12, 16) \
+    cv = np.asarray(conv).astype(np.float64)
+    if cv.ndim != 2 or cv.shape[0] not in (6, 8, 12, 16, 48, 96) \
             or cv.shape[1] < b.nb:
-        raise ValueError(f"expected a node-basis conv [8|16, >={b.nb}], "
-                         f"got {cv.shape}")
-    R = 6 if cv.shape[0] in (6, 8) else 12
+        raise ValueError(f"expected a conv [8|16|48|96, >={b.nb}], got "
+                         f"{cv.shape}")
+    R = {8: 6, 16: 12}.get(cv.shape[0], cv.shape[0])
     out = np.zeros((R, pallas_geometry(b.nb)))
     out[:, :b.nb] = cv[:R, :b.nb]
     return out

@@ -71,7 +71,7 @@ __global__ void __launch_bounds__(kThreads)
       samples[(t * nst + s) * 3 + c] = acc;
     }
     for (int n = tid; n < len; n += stride)
-      ht::node_rec<T, CT, KAPPA>(cur, ccur, cnxt, dv, n, len, r);
+      ht::node_rec<T, CT, KAPPA>(cur, ccur, cnxt, dv, n, len, r.v);
     grid.sync();
     for (int n = tid; n < len; n += stride)
       ht::node_force<T, KAPPA>(cur, K, dv, nxt, n, len, offs);

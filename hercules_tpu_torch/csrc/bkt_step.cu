@@ -38,7 +38,8 @@ __global__ void __launch_bounds__(kThreads)
                    CT* __restrict__ conv_out, T* __restrict__ dv, int len,
                    ht::BktRec<T> r) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n < len) ht::node_rec<T, CT, KAPPA>(S, conv, conv_out, dv, n, len, r);
+  if (n < len)
+    ht::node_rec<T, CT, KAPPA>(S, conv, conv_out, dv, n, len, r.v);
 }
 
 template <typename T, bool KAPPA>

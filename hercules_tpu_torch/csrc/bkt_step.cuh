@@ -1,7 +1,11 @@
-// Per-node bodies of the uniform-Q BKT step, shared by bkt_step (K2, one
-// step per call) and bkt_chunk (K6, one launch per chunk of steps).
-// Both kernels inline these functions, so they run the same arithmetic
-// in the same order and give bit-identical states.
+// Per-node bodies of the node-basis BKT step, shared by bkt_step (K2, one
+// step per call), bkt_chunk (K6, one launch per chunk of steps) and
+// bkt_node (K3, the general-Q step).  K2 and K6 inline these functions
+// with the same arguments, so they run the same arithmetic in the same
+// order and give bit-identical states.  K3 runs the same recursion with
+// each node's coefficient set in place of the brick's one set, and the
+// force with the per-element mu_f and kappa_f on the output side
+// (node_force<..., PER_ELEM = true>).
 //
 // Layout (hercules_tpu_torch/solver/fused_bkt.py):
 //   S    [8, len]: rows 0:3 = u, 3:6 = u-, 6:8 = zero rows carried
@@ -88,25 +92,27 @@ __device__ __forceinline__ void rec_pair(const T* k, T u, T up, T du, T s0,
   dv = ((k[8] * du + u) - k[6] * s0n) - k[7] * s1n;
 }
 
-// Pass 1 at node n: conv -> conv_out, and dv.  Plain (coherent) loads:
-// bkt_chunk reads buffers that other blocks wrote earlier in the launch.
+// Pass 1 at node n: conv -> conv_out, and dv, with the 9 | 18
+// recursion coefficients k (shear, then kappa).  Plain (coherent)
+// loads: bkt_chunk reads buffers that other blocks wrote earlier in the
+// launch.
 template <typename T, typename CT, bool KAPPA>
 __device__ __forceinline__ void node_rec(const T* S, const CT* conv,
                                          CT* conv_out, T* dv, int n, int len,
-                                         const BktRec<T>& r) {
+                                         const T* k) {
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
     const T u = S[c * len + n];
     const T up = S[(3 + c) * len + n];
     const T du = u - up;
     T s0n, s1n, d;
-    rec_pair<T>(r.v, u, up, du, conv_load(conv + c * len + n),
+    rec_pair<T>(k, u, up, du, conv_load(conv + c * len + n),
                 conv_load(conv + (3 + c) * len + n), s0n, s1n, d);
     conv_store(conv_out + c * len + n, s0n);
     conv_store(conv_out + (3 + c) * len + n, s1n);
     dv[c * len + n] = d;
     if (KAPPA) {
-      rec_pair<T>(r.v + 9, u, up, du, conv_load(conv + (6 + c) * len + n),
+      rec_pair<T>(k + 9, u, up, du, conv_load(conv + (6 + c) * len + n),
                   conv_load(conv + (9 + c) * len + n), s0n, s1n, d);
       conv_store(conv_out + (6 + c) * len + n, s0n);
       conv_store(conv_out + (9 + c) * len + n, s1n);
@@ -117,7 +123,11 @@ __device__ __forceinline__ void node_rec(const T* S, const CT* conv,
 
 // Pass 2 at node n: the force gathered from the 8 elements sharing n,
 // then the update S -> out.  Shear-only runs read dvk = u from S.
-template <typename T, bool KAPPA>
+// PER_ELEM = false (K2, K6): fm has mu_f and kappa_f folded in and K row
+// 4 flags the valid elements.  PER_ELEM = true (K3): fm = [Kmu | Kkappa]
+// and K rows 4, 5 hold each element's mu_f and kappa_f (both 0 for
+// invalid elements): F_e = mu_f (Kmu dvs) + kappa_f (Kkappa dvk).
+template <typename T, bool KAPPA, bool PER_ELEM = false>
 __device__ __forceinline__ void node_force(const T* S, const T* K,
                                            const T* dv, T* out, int n,
                                            int len, const Offs& offs) {
@@ -128,8 +138,16 @@ __device__ __forceinline__ void node_force(const T* S, const T* K,
     // every corner of e must lie inside the state; valid elements
     // always do (their corners are brick nodes < nb <= len)
     if (e < 0 || e + offs.o[7] >= len) continue;
-    if (K[4 * len + e] == T(0)) continue;  // padding or invalid element
+    T mu = T(0), ka = T(0);
+    if constexpr (PER_ELEM) {
+      mu = K[4 * len + e];
+      ka = K[5 * len + e];
+      if (mu == T(0) && ka == T(0)) continue;  // padding or invalid
+    } else {
+      if (K[4 * len + e] == T(0)) continue;  // padding or invalid element
+    }
     T a[3] = {T(0), T(0), T(0)};
+    T b[3] = {T(0), T(0), T(0)};
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int col = e + offs.o[i];
@@ -141,12 +159,20 @@ __device__ __forceinline__ void node_force(const T* S, const T* K,
         for (int c = 0; c < 3; ++c) {
           const int row = (3 * j + c) * 48;
           a[c] = fma_rn(fm<T>(row + 3 * i + cc), xs, a[c]);
-          a[c] = fma_rn(fm<T>(row + 24 + 3 * i + cc), xk, a[c]);
+          if constexpr (PER_ELEM)
+            b[c] = fma_rn(fm<T>(row + 24 + 3 * i + cc), xk, b[c]);
+          else
+            a[c] = fma_rn(fm<T>(row + 24 + 3 * i + cc), xk, a[c]);
         }
       }
     }
 #pragma unroll
-    for (int c = 0; c < 3; ++c) f[c] = f[c] + a[c];
+    for (int c = 0; c < 3; ++c) {
+      if constexpr (PER_ELEM)
+        f[c] = f[c] + (mu * a[c] + ka * b[c]);
+      else
+        f[c] = f[c] + a[c];
+    }
   }
   const T invm = K[3 * len + n];
 #pragma unroll

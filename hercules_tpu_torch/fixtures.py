@@ -10,11 +10,16 @@ frequency, ``freq = Vs / (8 * edge)``; the time step is
 (2048 elements, 2601 nodes); at 7.8125 m it is 128 x 128 x 64 = 2^20
 elements.
 
-``damping``, ``layers`` and ``freq`` vary the case: the BKT fixtures
-are the box with ``damping="bkt"`` (one Q set, shear attenuation only),
-``SOFT_LAYERS`` at ``SOFT_FREQ`` (one Q set with the bulk attenuation
-on) and ``TWO_LAYERS`` at ``SOFT_FREQ`` (two Q sets: one brick, not
-uniform in Q).  All three mesh to the 62.5 m brick.
+``damping``, ``layers``, ``freq`` and ``use_infinite_qk`` vary the
+case: the BKT fixtures are the box with ``damping="bkt"`` (one Q set,
+shear attenuation only), ``SOFT_LAYERS`` at ``SOFT_FREQ`` (one Q set
+with the bulk attenuation on) and ``TWO_LAYERS`` at ``SOFT_FREQ`` (two
+Q sets: one brick, not uniform in Q).  All three mesh to the 62.5 m
+brick.  ``FOUR_Q_LAYERS`` at ``four_q_freq(edge_m)`` is a slow
+four-layer box whose Vs values fall in four Q bins (Q about 38, 51, 65
+and 84): one brick at 62.5 m (2048 elements) and at 7.8125 m (2^20
+elements).  ``use_infinite_qk=True`` turns the bulk attenuation off
+(shear-only BKT) on any layer table.
 
 Layout written under ``root``::
 
@@ -39,6 +44,12 @@ TWO_LAYERS = ((0.0, 2400.0, 1200.0, 2350.0),
 # maximum frequency of the soft fixtures: 8 nodes per wavelength at
 # Vs 1200 m/s need 62.5 m elements
 SOFT_FREQ = 2.4
+# four layers, Vs 600-1100 m/s: all under 2 Vs_min, so the mesh stays
+# one brick; the Qs(Vs) fit puts each in its own QTABLE bin
+FOUR_Q_LAYERS = ((0.0, 1200.0, 600.0, 2000.0),
+                 (125.0, 1500.0, 750.0, 2100.0),
+                 (250.0, 1800.0, 900.0, 2200.0),
+                 (375.0, 2200.0, 1100.0, 2300.0))
 EAST_M, NORTH_M, DEPTH_M = 1000.0, 1000.0, 500.0
 # surface corners (lon, lat) of a bilinear map with 1e-5 degrees per
 # metre: a station at (x_north, y_east) m sits at lat = x/1e5, lon = y/1e5
@@ -54,6 +65,12 @@ def box_freq(edge_m):
     return VS / (8.0 * edge_m)
 
 
+def four_q_freq(edge_m):
+    """Maximum frequency of the four-layer box meshed at edge_m: 8
+    nodes per wavelength at its slowest Vs (600 m/s)."""
+    return 600.0 / (8.0 * edge_m)
+
+
 def box_dt(edge_m):
     return 0.4 * edge_m / VP
 
@@ -63,12 +80,15 @@ def _corners_text():
 
 
 def write_box_case(root, edge_m=62.5, steps=200, n_stations=2,
-                   damping="rayleigh", layers=None, freq=None):
+                   damping="rayleigh", layers=None, freq=None,
+                   use_infinite_qk=False):
     """Write the box case into ``root``; returns the paths
     (cvmdb, physics_in, numerical_in).  ``damping`` is the
     type_of_damping written; ``layers`` the CVM layer table (default
     ``LAYERS``); ``freq`` the maximum frequency (default
-    ``box_freq(edge_m)``).  The time step stays ``box_dt(edge_m)``."""
+    ``box_freq(edge_m)``); ``use_infinite_qk`` writes that key (the
+    bulk attenuation off) into numerical.in.  The time step stays
+    ``box_dt(edge_m)``."""
     if not 0 <= n_stations <= len(STATIONS):
         raise ValueError(f"n_stations must be in [0, {len(STATIONS)}]")
     src_dir = os.path.join(root, "in", "src")
@@ -109,6 +129,8 @@ def write_box_case(root, edge_m=62.5, steps=200, n_stations=2,
                 f"output_stations_directory      = stations\n"
                 f"output_stations =\n{stations}\n"
                 f"domain_surface_corners =\n{_corners_text()}\n")
+        if use_infinite_qk:
+            f.write("use_infinite_qk                = 1\n")
     with open(os.path.join(src_dir, "source.in"), "w") as f:
         f.write(f"source_is_filtered   = 0\n"
                 f"type_of_source       = point\n"
@@ -129,7 +151,7 @@ def write_box_case(root, edge_m=62.5, steps=200, n_stations=2,
 def box_simulation(root, edge_m=62.5, steps=200, n_stations=2, **case):
     """Write the box case into ``root`` and set it up: the port's
     ``Simulation`` (mesh, tables, source forces, stations).  ``case``:
-    write_box_case's damping, layers and freq."""
+    write_box_case's damping, layers, freq and use_infinite_qk."""
     from .sim import Simulation
     cvmdb, physics, numerical = write_box_case(root, edge_m, steps,
                                                n_stations, **case)

@@ -67,6 +67,28 @@ def bkt_step_plain(S, conv, K, offs, fm, rec):
     return torch.cat([un, u, S[6:8]]), cn.to(conv.dtype)
 
 
+def check_layout(name, specs, outputs, offs, LEN, rows):
+    """Raise unless each (arg, tensor, shape, dtype) of ``specs`` is a
+    contiguous tensor of that shape and type on the first one's device,
+    no (output, input) pair of ``outputs`` shares storage, the 8 corner
+    offsets fit in LEN columns, and rows x LEN elements index in 32
+    bits (the kernels' int indexing)."""
+    dev = specs[0][1].device
+    for arg, t, shape, tdt in specs:
+        if t.device != dev or t.dtype != tdt:
+            raise ValueError(f"{name}: {arg} is {t.dtype} on {t.device}, "
+                             f"expected {tdt} on {dev}")
+        if tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be a contiguous {shape} "
+                             f"tensor, got {tuple(t.shape)}")
+    if any(o.data_ptr() == i.data_ptr() for o, i in outputs):
+        raise ValueError(f"{name}: outputs must not alias the inputs")
+    if len(offs) != 8 or not 0 <= offs[7] < LEN:
+        raise ValueError(f"{name}: bad corner offsets {offs}")
+    if rows * LEN >= 2 ** 31:
+        raise ValueError(f"{name}: {LEN} columns exceed 32-bit indexing")
+
+
 def check_args(name, S, conv, K, offs, fm, rec, out, conv_out):
     """Raise unless the tensors are what the kernels take; returns the
     C entry suffix."""
@@ -82,23 +104,11 @@ def check_args(name, S, conv, K, offs, fm, rec, out, conv_out):
     if R not in (6, 12) or len(rec) != 3 * R // 2:
         raise ValueError(f"{name}: conv has {R} rows and rec {len(rec)} "
                          f"values (6 and 9, or 12 and 18)")
-    for arg, t, shape, tdt in (
-            ("S", S, (8, LEN), dt), ("K", K, (8, LEN), dt),
-            ("fm", fm, (24, 48), dt), ("out", out, (8, LEN), dt),
-            ("conv", conv, (R, LEN), conv.dtype),
-            ("conv_out", conv_out, (R, LEN), conv.dtype)):
-        if t.device != dev or t.dtype != tdt:
-            raise ValueError(f"{name}: {arg} is {t.dtype} on {t.device}, "
-                             f"expected {tdt} on {dev}")
-        if tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(f"{name}: {arg} must be a contiguous {shape} "
-                             f"tensor, got {tuple(t.shape)}")
-    if out.data_ptr() == S.data_ptr() or conv_out.data_ptr() == conv.data_ptr():
-        raise ValueError(f"{name}: outputs must not alias the inputs")
-    if len(offs) != 8 or not 0 <= offs[7] < LEN:
-        raise ValueError(f"{name}: bad corner offsets {offs}")
-    if 12 * LEN >= 2 ** 31:
-        raise ValueError(f"{name}: {LEN} columns exceed 32-bit indexing")
+    check_layout(name, (("S", S, (8, LEN), dt), ("K", K, (8, LEN), dt),
+                        ("fm", fm, (24, 48), dt), ("out", out, (8, LEN), dt),
+                        ("conv", conv, (R, LEN), conv.dtype),
+                        ("conv_out", conv_out, (R, LEN), conv.dtype)),
+                 ((out, S), (conv_out, conv)), offs, LEN, 12)
     return sfx
 
 

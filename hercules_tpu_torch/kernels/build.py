@@ -63,6 +63,17 @@ SIGNATURES.update(
     {f"ht_bkt_chunk_{sfx}": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I,
                              _P, _P, _I, _P, _P, _I, _P, _I, _P]
      for sfx in ("f32_bf16", "f32_f32", "f64_f64")})
+SIGNATURES.update(
+    {f"ht_bkt_node_set_tab_{t}": [_P, _I, _P] for t in ("f32", "f64")})
+SIGNATURES.update(
+    {f"ht_bkt_node_step_{sfx}": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P]
+     for sfx in ("f32_bf16", "f32_f32", "f64_f64")})
+SIGNATURES.update(
+    {f"ht_bkt_corner_set_fm_{t}": [_P, _I, _P] for t in ("f32", "f64")})
+SIGNATURES.update(
+    {f"ht_bkt_corner_step_{sfx}": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I,
+                                   _I, _P]
+     for sfx in ("f32_bf16", "f64_f64")})
 
 _LIB = None
 # wall seconds this process spent compiling (None: the library was

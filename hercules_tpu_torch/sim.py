@@ -6,8 +6,10 @@ Counterpart of ``hercules_tpu/sim.py`` (which imports jax).  The host
 stages are the JAX package's own numpy code; ``StationSet``,
 ``setup_stations`` and ``write_station_files`` are copied from it.
 ``Simulation.run`` covers the single-brick routes: elastic (Rayleigh,
-mass or no damping) and uniform-Q BKT; every other route raises
-NotImplementedError naming its ROADMAP.md queue item.
+mass or no damping) and BKT on its three tiers (uniform Q, general Q
+with node-basis memory variables, or corner-basis memory variables);
+every other route raises NotImplementedError naming its ROADMAP.md
+queue item.
 """
 
 from __future__ import annotations
@@ -151,8 +153,10 @@ class Simulation:
     stations: Optional[StationSet]
     # which route ran the last .run(): "cuda_chunk" (brick_chunk),
     # "cuda_step" (brick_step per step), "cuda_bkt_chunk" (bkt_chunk),
-    # "cuda_bkt_step" (bkt_step per step) or "torch_plain" (the plain
-    # versions, on the CPU)
+    # "cuda_bkt_step" (bkt_step per step), "cuda_bkt_node_step"
+    # (bkt_node_step and the mixed-element epilogue per step),
+    # "cuda_bkt_corner_step" (bkt_corner_step per step) or
+    # "torch_plain" (the plain versions, on the CPU)
     solver_path_name: str = ""
 
     @classmethod
@@ -206,12 +210,11 @@ class Simulation:
     def run(self, device="cuda", dtype=None, chunk=None, total_steps=None,
             on_chunk=None):
         """The time loop on ``device`` in ``dtype`` (float32 on CUDA and
-        float64 on the CPU by default).  Returns ((u, up[, conv])
-        tensors, samples [T, ns, 3] numpy); a BKT brick with more than
-        one Q set raises NotImplementedError."""
+        float64 on the CPU by default), on the first BKT tier that holds
+        the brick.  Returns ((u, up[, conv[, conv_mix]]) tensors, samples
+        [T, ns, 3] numpy)."""
         from .solver.bricks import build_plan
-        from .solver.fused_brick import (chunk_applies, plan_applies,
-                                         run_pallas_solver)
+        from .solver.fused_brick import plan_applies, run_pallas_solver
 
         device = torch.device(device)
         if dtype is None:
@@ -232,16 +235,13 @@ class Simulation:
                 f"{len(plan.bricks)} bricks, {len(plan.loose_eidx)} loose "
                 f"elements: the graded multi-brick path is Queue 1, "
                 f"item 6")
-        if device.type == "cuda":
-            n_st = 0 if st is None else len(st.ids)
-            kind = "bkt_" if self.tables.damping == "bkt" else ""
-            route = ("chunk" if chunk_applies(dtype, len(self.src_ids), n_st)
-                     else "step")
-            self.solver_path_name = f"cuda_{kind}{route}"
-        else:
-            self.solver_path_name = "torch_plain"
+
+        def on_route(name):
+            self.solver_path_name = name
+
         return run_pallas_solver(
             plan, self.tables, self.src_ids, self.src_forces, steps,
             p.delta_t, st_nodes=None if st is None else st.nodes,
             st_phi=None if st is None else st.phi, dtype=dtype,
-            device=device, chunk=chunk, on_chunk=on_chunk)
+            device=device, chunk=chunk, on_chunk=on_chunk,
+            on_route=on_route)

@@ -26,8 +26,8 @@ Layout (column n = node n of the brick, as in ``fused_brick.py``):
 - rec: the 9 shear recursion scalars (c1 c2 c3 c4 e0 e1 a0 a1 coef),
   then the 9 kappa ones when kappa is active, in the working type.
 
-A brick with more than one coefficient set (the general-Q tier, K3)
-raises NotImplementedError.
+A brick with more than one coefficient set takes the node or the
+corner tier (``fused_bktq.py``).
 """
 
 from __future__ import annotations
@@ -116,6 +116,8 @@ class BktStep(nn.Module):
     fm [24, 48]; ``rec`` the recursion scalars rounded to the working
     type; conv rows and storage type fixed by ``shear_only``."""
 
+    tier = "uniform"
+
     def __init__(self, K, offs, fm, rec, shear_only):
         super().__init__()
         self.offs = tuple(int(o) for o in offs)
@@ -126,6 +128,10 @@ class BktStep(nn.Module):
         self.shear_only = shear_only
         self.conv_rows = 6 if shear_only else 12
         self.conv_dtype = bkt_conv_dtype(K.dtype, shear_only)
+
+    def state_parts(self, LEN):
+        """(shape, dtype) of the state after S: conv [R, LEN]."""
+        return [((self.conv_rows, LEN), self.conv_dtype)]
 
     def forward(self, S, conv, out=None, conv_out=None):
         """One step (K2): (S', conv')."""
@@ -141,16 +147,14 @@ class BktStep(nn.Module):
                          self.fm, self.rec, srcf, src_pos, st_pos, st_phi)
 
 
-def bkt_step_module(plan, tables, LEN, offs, dtype, device):
-    """The BktStep of a uniform-Q BKT brick; raises NotImplementedError
-    when the brick has more than one coefficient set."""
+def uniform_step_module(plan, tables, LEN, offs, dtype, device):
+    """(BktStep, K) of a uniform-Q BKT brick, or None when the brick has
+    more than one coefficient set."""
     shear_only = bkt_kappa_zero(tables.bkt)
     scal = detect_bkt_uniform(tables.bkt, plan.eidx_cat, plan.evalid_cat,
                               shear_only)
     if scal is None:
-        raise NotImplementedError(
-            "the brick has more than one BKT coefficient set: general-Q "
-            "BKT (K3), ROADMAP Queue 1 item 5")
+        return None
     K = pack_bkt_constants(plan, tables, LEN)
     as_t = lambda x: torch.as_tensor(x, dtype=dtype, device=device)
     return BktStep(as_t(K), offs, as_t(bkt_operator(scal)),

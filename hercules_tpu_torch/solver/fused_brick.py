@@ -1,6 +1,7 @@
 """The single-brick solver on the port's kernels: tables, state layout,
 routing and the chunked time loop, for the elastic step (Rayleigh, mass
-or no damping) and for uniform-Q BKT attenuation (``fused_bkt.py``).
+or no damping) and for BKT attenuation (``fused_bkt.py``: one Q set;
+``fused_bktq.py``: several, on the node or the corner tier).
 
 Counterpart of the single-brick host side of
 ``hercules_tpu/solver/pallas_brick.py``; functions keep the JAX names
@@ -18,18 +19,20 @@ after the nb nodes differs).
   3:6 = mass_minusaM, 6 = inv_mass (0 on padding), 7 = 0.
 
 Padding nodes therefore never move: their force is 0 and inv_mass 0.
-BKT bricks keep S and add the node memory variables conv, with their
-own K (``fused_bkt.py``).  The state is a tuple, as the JAX carry:
-(S,) elastic, (S, conv) BKT.
+BKT bricks keep S and add memory variables, with their own K: the
+state is a tuple, as the JAX carry: (S,) elastic, (S, conv) on the
+uniform and corner BKT tiers, (S, conv[, conv_mix]) on the node tier
+(``fused_bktq.py``).
 
 Routing (``chunk_applies``, the counterpart of ``resident_applies``
 without its on-chip memory clause): float32 runs with at most 128
 sources and 128 stations take the chunk kernel -- brick_chunk (K5), or
-bkt_chunk (K6) for BKT -- one launch per chunk of steps; every other
-run takes the step kernel -- brick_step (K1) or bkt_step (K2) -- once
-per step, with the source ``index_add_`` and the station sampling as
-torch ops between steps, as the JAX package does them around K1 and
-K2.
+bkt_chunk (K6) for uniform-Q BKT -- one launch per chunk of steps;
+every other run takes the step kernel -- brick_step (K1), bkt_step
+(K2), bkt_node_step (K3, then the mixed-element epilogue) or
+bkt_corner_step (K4) -- once per step, with the source ``index_add_``
+and the station sampling as torch ops between steps, as the JAX package
+does them around its step kernels.  ``route_name`` names the route.
 """
 
 from __future__ import annotations
@@ -46,14 +49,14 @@ from ..kernels.brick_chunk import brick_chunk, sample_stations
 from ..kernels.brick_step import brick_step
 from ..utils.timers import measure
 from .chunking import run_chunked
-from .fused_bkt import bkt_step_module
+from .fused_bktq import bkt_step_module
 
 
 def plan_applies(plan, damping) -> bool:
     """True if the single-brick solver covers this brick plan.  (The
     JAX package also requires the stencil reach to fit its on-chip tile,
     ``pallas_fits``; the CUDA kernels have no such limit.)  A BKT brick
-    must also have one Q set (PallasBrickTables raises otherwise)."""
+    takes the uniform, node or corner tier (fused_bktq)."""
     return (len(plan.bricks) == 1
             and len(plan.loose_eidx) == 0
             and len(plan.grp_node) == 0
@@ -133,11 +136,15 @@ class BrickStep(nn.Module):
 class PallasBrickTables:
     """Padded tables, geometry, source and station positions of a
     single-brick plan, on ``device`` in ``dtype``.  ``step`` is the
-    brick's step operator: BrickStep, or BktStep for BKT damping (which
-    raises NotImplementedError unless the brick has one Q set)."""
+    brick's step operator: BrickStep, or for BKT damping the module of
+    its tier (``bkt_tier``: BktStep "uniform", BktNodeStep "node" or
+    BktCornerStep "corner"), chosen as fused_bktq.bkt_step_module does,
+    or forced by ``bkt_tier`` (raises if that tier cannot hold the
+    brick)."""
 
     def __init__(self, plan, tables, src_ids=None, st_nodes=None,
-                 st_phi=None, dtype=torch.float32, device="cpu"):
+                 st_phi=None, dtype=torch.float32, device="cpu",
+                 bkt_tier=None):
         if not plan_applies(plan, tables.damping):
             raise ValueError("the plan is not a single brick")
         b = plan.bricks[0]
@@ -146,11 +153,17 @@ class PallasBrickTables:
         self.LEN = pallas_geometry(b.nb)
         self.dtype, self.device = dtype, torch.device(device)
         self.damping = tables.damping
+        self.bkt_tier = None
         if self.damping == "bkt":
             self.step, K = bkt_step_module(plan, tables, self.LEN,
-                                           self.offs, dtype, self.device)
+                                           self.offs, dtype, self.device,
+                                           tier=bkt_tier)
+            self.bkt_tier = self.step.tier
             self.invm_row = 3
         else:
+            if bkt_tier is not None:
+                raise ValueError(f"bkt_tier={bkt_tier!r} on a "
+                                 f"{self.damping} brick")
             K = pack_constants(plan, tables, self.LEN)
             self.step = BrickStep(torch.as_tensor(K, dtype=dtype,
                                                   device=self.device),
@@ -185,26 +198,41 @@ class PallasBrickTables:
         return 0 if self.st_pos is None else len(self.st_pos)
 
 
-def chunk_applies(dtype, n_src, n_st) -> bool:
-    """The chunk kernel (K5, or K6 for BKT) runs float32 runs with <=128
-    sources and <=128 stations; everything else steps with the step
-    kernel (K1, or K2 for BKT)."""
-    return dtype == torch.float32 and n_src <= 128 and n_st <= 128
+def chunk_applies(dtype, n_src, n_st, bkt_tier=None) -> bool:
+    """The chunk kernel (K5, or K6 for uniform-Q BKT) runs float32 runs
+    with <=128 sources and <=128 stations; everything else, and every
+    run on the node or the corner BKT tier, steps with the step kernel
+    (K1, K2, K3 or K4)."""
+    return (dtype == torch.float32 and n_src <= 128 and n_st <= 128
+            and bkt_tier in (None, "uniform"))
+
+
+def route_name(pt: PallasBrickTables, route) -> str:
+    """The route's name in monitor.txt: cuda_chunk / cuda_step
+    (elastic), cuda_bkt_chunk / cuda_bkt_step (uniform-Q BKT),
+    cuda_bkt_node_step, cuda_bkt_corner_step, or torch_plain (the plain
+    versions, on the CPU)."""
+    if pt.device.type == "cpu":
+        return "torch_plain"
+    if pt.bkt_tier in ("node", "corner"):
+        return f"cuda_bkt_{pt.bkt_tier}_step"
+    return f"cuda_{'bkt_' if pt.bkt_tier else ''}{route}"
 
 
 def init_packed_state(pt: PallasBrickTables):
-    """Zero state: (S,) elastic, (S, conv) BKT."""
+    """Zero state: (S,) elastic, (S, conv[, conv_mix]) BKT."""
     S = torch.zeros((8, pt.LEN), dtype=pt.dtype, device=pt.device)
     if pt.damping != "bkt":
         return (S,)
-    return (S, torch.zeros((pt.step.conv_rows, pt.LEN),
-                           dtype=pt.step.conv_dtype, device=pt.device))
+    return (S,) + tuple(torch.zeros(shape, dtype=dt, device=pt.device)
+                        for shape, dt in pt.step.state_parts(pt.LEN))
 
 
 def fit_packed_state(pt: PallasBrickTables, state):
     """A copy of ``state`` in the solver's layout, type and device.
-    Elastic: S [8, LEN] (or (S,)).  BKT: (S, conv [R, LEN]), or S alone
-    (zero conv)."""
+    Elastic: S [8, LEN] (or (S,)).  BKT: (S, conv [R, LEN]) on the
+    uniform and corner tiers, (S, conv[, conv_mix [R, 8, M]]) on the node
+    tier; parts left out start at zero."""
     parts = tuple(state) if isinstance(state, (tuple, list)) else (state,)
     want = init_packed_state(pt)
     if len(parts) > len(want):
@@ -221,20 +249,23 @@ def fit_packed_state(pt: PallasBrickTables, state):
 
 
 def packed_snap_of(state):
-    """(u, up[, conv]) views of the packed state."""
+    """(u, up[, conv[, conv_mix]]) views of the packed state."""
     return (state[0][0:3], state[0][3:6]) + tuple(state[1:])
 
 
 def _step_once(pt, state, spare):
-    """One step of the step kernel from ``state`` into ``spare``."""
+    """One step of the step kernel from ``state`` into ``spare`` (S and
+    conv; the node tier's epilogue returns a new conv_mix).  ``state``
+    stays as it was: the epilogue reads it after the kernel."""
     if len(state) == 1:
         return (pt.step(state[0], out=spare[0]),)
-    return pt.step(state[0], state[1], out=spare[0], conv_out=spare[1])
+    return pt.step(*state, out=spare[0], conv_out=spare[1])
 
 
 def step_advance(pt, src_forces, dt2):
-    """advance(state, s, k) for the step route: k launches of K1 (K2)
-    with the source add and station sampling between them."""
+    """advance(state, s, k) for the step route: k steps of K1, K2, K3
+    (with its epilogue) or K4, with the station sampling before and the
+    source add after each (pallas_brick.py:3435-3460)."""
     invm_src = (None if pt.src_pos is None
                 else pt.K[pt.invm_row, pt.src_pos])
 
@@ -285,25 +316,34 @@ def chunk_advance(pt, src_forces, dt2):
 def run_pallas_solver(plan, tables, src_ids, src_forces, total_steps, dt,
                       st_nodes=None, st_phi=None, dtype=torch.float32,
                       device="cpu", chunk=None, state=None, on_chunk=None,
-                      start_step=0, on_samples=None, route=None):
+                      start_step=0, on_samples=None, route=None,
+                      bkt_tier=None, on_route=None):
     """Chunked time loop on one brick; the contract of the JAX
     package's run_pallas_solver.  ``state``: an initial packed state
     (tensors or arrays, see fit_packed_state), zero when None.
-    ``route``: "chunk" (brick_chunk / bkt_chunk) or "step" (brick_step
-    / bkt_step); None picks by chunk_applies.  Returns ((u, up) as
-    [3, LEN] views, plus conv [R, LEN] for BKT; samples [T, ns, 3]
+    ``route``: "chunk" (brick_chunk / bkt_chunk) or "step" (the step
+    kernel of the damping and BKT tier); None picks by chunk_applies.
+    ``bkt_tier`` forces a BKT tier (PallasBrickTables).  ``on_route``,
+    if given, is called with the route's name (route_name) before the
+    loop.  Returns ((u, up) as [3, LEN] views, then the memory variables
+    for BKT: conv [R, LEN][, conv_mix [R, 8, M]]; samples [T, ns, 3]
     numpy)."""
     with measure("Solver tables", device):
         pt = PallasBrickTables(plan, tables, src_ids=src_ids,
                                st_nodes=st_nodes, st_phi=st_phi,
-                               dtype=dtype, device=device)
+                               dtype=dtype, device=device,
+                               bkt_tier=bkt_tier)
     state = (init_packed_state(pt) if state is None
              else fit_packed_state(pt, state))
     if chunk is None:
         chunk = min(total_steps, 1000)
     if route is None:
-        route = ("chunk" if chunk_applies(dtype, pt.n_src, pt.n_st)
-                 else "step")
+        route = ("chunk" if chunk_applies(dtype, pt.n_src, pt.n_st,
+                                          pt.bkt_tier) else "step")
+    elif route == "chunk" and pt.bkt_tier not in (None, "uniform"):
+        raise ValueError(f"no chunk kernel for the {pt.bkt_tier} BKT tier")
+    if on_route is not None:
+        on_route(route_name(pt, route))
     make = {"chunk": chunk_advance, "step": step_advance}[route]
     advance = make(pt, src_forces, dt * dt)
     if on_chunk is not None:

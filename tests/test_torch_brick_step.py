@@ -69,6 +69,31 @@ def test_plain_matches_jax(box, monkeypatch):
             atol=2e-13 * max(np.abs(s_ref).max(), 1))
 
 
+def test_plain_matches_jax_legacy_layout(box, monkeypatch):
+    """The JAX package's legacy 3-row route (HT_PALLAS_STATE=legacy:
+    make_pallas_step -> build_call, interpret mode) against the port's
+    brick_step_plain route, 40 steps: 2e-13 max|u| and 2e-13
+    max(|samples|, 1).  The port's K1 is that kernel's counterpart."""
+    monkeypatch.setenv("HT_PALLAS_TILE", "1024")
+    monkeypatch.setenv("HT_PALLAS_STATE", "legacy")
+    sim, plan, jtab, jplan = box
+    st, N = sim.stations, sim.mesh.nnum
+    (u, _), samp = _port(sim, plan, sim.src_ids, sim.src_forces,
+                         route="step")
+    state_p, samp_p = jax_run_pallas_solver(
+        jplan, jtab, sim.src_ids, sim.src_forces, T, sim.params.delta_t,
+        st_nodes=st.nodes, st_phi=st.phi, dtype=jnp.float64,
+        interpret=True)
+    assert len(state_p) == 2 and state_p[0].shape[0] == 3
+    u_ref = jax_pallas_u_global(jplan, state_p[0], N)
+    scale = np.abs(u_ref).max()
+    assert scale > 0
+    np.testing.assert_allclose(pallas_u_global(plan, u, N), u_ref, rtol=0,
+                               atol=2e-13 * scale)
+    np.testing.assert_allclose(samp, np.asarray(samp_p), rtol=0,
+                               atol=2e-13 * max(np.abs(samp_p).max(), 1))
+
+
 @pytest.mark.parametrize("route", ["step", "chunk"])
 def test_duplicate_sources_summed(box, route):
     """Sources that share a node add up on both routes, as the JAX

@@ -10,6 +10,9 @@ import torch
 
 from hercules_tpu_torch.kernels import build
 from hercules_tpu_torch.kernels.bkt_chunk import bkt_chunk
+from hercules_tpu_torch.kernels.bkt_corner_step import bkt_corner_step
+from hercules_tpu_torch.kernels.bkt_node_step import (TAB_SIZE,
+                                                      bkt_node_step)
 from hercules_tpu_torch.kernels.bkt_step import bkt_step
 from hercules_tpu_torch.kernels.brick_chunk import brick_chunk
 from hercules_tpu_torch.kernels.brick_step import brick_step
@@ -23,11 +26,14 @@ MODULES = ("hercules_tpu_torch", "hercules_tpu_torch.cli",
            "hercules_tpu_torch.solver.chunking",
            "hercules_tpu_torch.solver.fused_brick",
            "hercules_tpu_torch.solver.fused_bkt",
+           "hercules_tpu_torch.solver.fused_bktq",
            "hercules_tpu_torch.kernels.build",
            "hercules_tpu_torch.kernels.brick_step",
            "hercules_tpu_torch.kernels.brick_chunk",
            "hercules_tpu_torch.kernels.bkt_step",
            "hercules_tpu_torch.kernels.bkt_chunk",
+           "hercules_tpu_torch.kernels.bkt_node_step",
+           "hercules_tpu_torch.kernels.bkt_corner_step",
            "hercules_tpu_torch.utils.timers")
 
 
@@ -56,11 +62,13 @@ def _args(device):
 
 def _launches():
     return (brick_step.launches, brick_chunk.launches, bkt_step.launches,
-            bkt_chunk.launches)
+            bkt_chunk.launches, bkt_node_step.launches,
+            bkt_corner_step.launches)
 
 
 @pytest.mark.parametrize("call", ["brick_step", "brick_chunk", "bkt_step",
-                                  "bkt_chunk"])
+                                  "bkt_chunk", "bkt_node_step",
+                                  "bkt_corner_step"])
 def test_non_cpu_tensor_never_runs_plain(call):
     """Off the CPU a wrapper launches its kernel or raises: a tensor on
     a device with no kernel raises instead of taking the plain
@@ -78,6 +86,12 @@ def test_non_cpu_tensor_never_runs_plain(call):
             brick_chunk(S, torch.empty_like(S), K, offs, ops, srcf)
         elif call == "bkt_step":
             bkt_step(S, conv, K, offs, fm, rec)
+        elif call == "bkt_node_step":
+            bkt_node_step(S, conv, K, offs,
+                          torch.zeros(TAB_SIZE, device="meta"))
+        elif call == "bkt_corner_step":
+            bkt_corner_step(S, torch.zeros((48, 1024), device="meta"), K,
+                            torch.zeros((11, 1024), device="meta"), offs, fm)
         else:
             bkt_chunk(S, torch.empty_like(S), conv, torch.empty_like(conv),
                       K, offs, fm, rec, srcf)

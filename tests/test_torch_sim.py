@@ -13,7 +13,8 @@ import jax.numpy as jnp
 
 from hercules_tpu.sim import Simulation as JaxSimulation
 from hercules_tpu_torch import cli
-from hercules_tpu_torch.fixtures import (SOFT_FREQ, TWO_LAYERS,
+from hercules_tpu_torch.fixtures import (FOUR_Q_LAYERS, SOFT_FREQ,
+                                         TWO_LAYERS, four_q_freq,
                                          write_box_case)
 from hercules_tpu_torch.sim import Simulation
 
@@ -100,15 +101,39 @@ def test_bkt_simulation_samples_match_jax(tmp_path):
     np.testing.assert_allclose(samp, jsamp, rtol=0, atol=2e-12 * scale)
 
 
-def test_two_q_sets_raise_k3(tmp_path):
-    """A BKT brick with two Q sets (the two-layer box) needs the
-    general-Q tier, which this port does not run yet."""
-    cvmdb, physics, numerical = write_box_case(
-        str(tmp_path), steps=2, damping="bkt", layers=TWO_LAYERS,
-        freq=SOFT_FREQ)
+def _bkt_samples_match_jax(tmp_path, conv_rows, **case):
+    """In memory, float64: a BKT case through Simulation.run on the CPU
+    against the JAX package's brick route (corner-basis BKT), within
+    2e-12 of the largest sample; conv_rows tells the tier (12: node,
+    96: corner)."""
+    cvmdb, physics, numerical = write_box_case(str(tmp_path), steps=STEPS,
+                                               n_stations=2, damping="bkt",
+                                               **case)
     sim = Simulation.setup(physics, numerical, cvmdb=cvmdb)
-    with pytest.raises(NotImplementedError, match=r"general-Q BKT \(K3\)"):
-        sim.run(device="cpu")
+    (u, up, conv, *_), samp = sim.run(device="cpu")
+    assert sim.solver_path_name == "torch_plain"
+    assert conv.shape == (conv_rows, u.shape[1]) and conv.abs().max() > 0
+    jsim = JaxSimulation.setup(physics, numerical, cvmdb=cvmdb)
+    _, jsamp = jsim.run(dtype=jnp.float64, solver="bricks", ndev=1)
+    assert jsim.solver_path_name == "bricks"
+    scale = np.abs(jsamp).max()
+    assert samp.shape == jsamp.shape == (STEPS, 2, 3) and scale > 0
+    np.testing.assert_allclose(samp, jsamp, rtol=0, atol=2e-12 * scale)
+
+
+def test_two_q_sets_raise_k3(tmp_path):
+    """The two-layer box (two Q sets) runs on the general-Q node tier
+    (K3's plain version and the mixed-element epilogue) and matches the
+    JAX brick route."""
+    _bkt_samples_match_jax(tmp_path, 12, layers=TWO_LAYERS, freq=SOFT_FREQ)
+
+
+def test_four_q_sets_corner_tier_match_jax(tmp_path):
+    """The four-layer box at 62.5 m (four Q sets, the node tier declines)
+    runs on the corner tier (K4's plain version) and matches the JAX
+    brick route."""
+    _bkt_samples_match_jax(tmp_path, 96, layers=FOUR_Q_LAYERS,
+                           freq=four_q_freq(62.5))
 
 
 def test_simulation_samples_match_jax(tmp_path):

@@ -17,7 +17,11 @@ from hercules_tpu.solver.pallas_brick import \
 from hercules_tpu.solver.pallas_brick import pallas_u_global as jax_u_global
 from hercules_tpu_torch.convert import (state_from_jax, state_to_global,
                                         tables_from_jax)
-from hercules_tpu_torch.fixtures import box_simulation, box_stats
+from hercules_tpu.solver import pallas_brick as jpb
+from hercules_tpu_torch.fixtures import (FOUR_Q_LAYERS, SOFT_FREQ,
+                                         TWO_LAYERS, box_simulation,
+                                         box_stats, four_q_freq)
+from hercules_tpu_torch.kernels.bkt_node_step import unpack_tab
 from hercules_tpu_torch.solver.assemble import assemble
 from hercules_tpu_torch.solver.bricks import build_plan
 from hercules_tpu_torch.solver.fused_brick import (PallasBrickTables,
@@ -120,3 +124,67 @@ def test_state_round_trip(box):
     np.testing.assert_array_equal(state_to_global(S2, plan, N), u)
     np.testing.assert_array_equal(
         state_to_global(S2[3:6], plan, N), up)
+
+
+# layered BKT boxes: (name, write_box_case arguments, the tier they take)
+LAYERED = {"two": ({"layers": TWO_LAYERS, "freq": SOFT_FREQ}, "node"),
+           "four": ({"layers": FOUR_Q_LAYERS, "freq": four_q_freq(62.5)},
+                    "corner")}
+
+
+@pytest.fixture(scope="module", params=sorted(LAYERED))
+def layered(request, tmp_path_factory):
+    case, tier = LAYERED[request.param]
+    sim = box_simulation(str(tmp_path_factory.mktemp(request.param)),
+                         steps=10, damping="bkt", **case)
+    return sim, tier
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_bkt_tier_tables_match_jax(layered, dtype, monkeypatch):
+    """The node tier's K, fm and sets (two-layer box) and the corner
+    tier's K, bk, fm and conv shape and type (four-layer box) equal the
+    JAX PallasBrickTables' and its kernel factories' (unpermuted fm:
+    HT_BKT_ALIGN8=0; unsplit sets: HT_BKT_CF3=0)."""
+    monkeypatch.setenv("HT_BKT_ALIGN8", "0")
+    monkeypatch.setenv("HT_BKT_CF3", "0")
+    sim, tier = layered
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.float64
+    jplan = jax_build_plan(sim.mesh)
+    jpt = JaxPallasBrickTables(jplan, jax_assemble(sim.mesh, sim.params),
+                               dtype=jdt)
+    pt = PallasBrickTables(build_plan(sim.mesh), sim.tables, dtype=dtype)
+    assert pt.bkt_tier == tier
+    nb, K = pt.nb, pt.K.numpy()
+    so = jpt.bkt_shear_only
+    if tier == "node":
+        np.testing.assert_array_equal(K[:, :nb],
+                                      np.asarray(jpt.bkn_K)[:, :nb])
+        assert not K[:6, nb:].any() and not K[7].any()
+        _, fm_j, _, sets_j = jpb._make_bkt_node_kernel(
+            jpt.offs, jpt.B, jpt.o7, jpt.T, jdt, jpt.bkn_sets,
+            shear_only=so, conv_dtype=jpt.conv_dtype_node, interpret=True)
+        rc = 9 if so else 18
+        fm, sets = unpack_tab(pt.step.tab, rc)
+        nsets = len(jpt.bkn_sets)
+        np.testing.assert_array_equal(sets[:nsets].numpy().T,
+                                      np.asarray(sets_j))
+        assert not sets[nsets:].any()
+    else:
+        K_j = np.concatenate([np.asarray(jpt.mm), np.asarray(jpt.invm),
+                              np.asarray(jpt.evalid_row)])
+        np.testing.assert_array_equal(K[:5, :nb], K_j[:, :nb])
+        assert not K[:, nb:].any() and not K[5:].any()
+        np.testing.assert_array_equal(pt.step.bk[:, :nb].numpy(),
+                                      np.asarray(jpt.bk)[:, :nb])
+        assert not pt.step.bk[:, nb:].any()
+        _, fm_j = jpb._make_bkt_kernel(jpt.offs, jpt.B, jpt.o7, jpt.T, 2048,
+                                       jdt, shear_only=so,
+                                       conv_dtype=jpt.conv_dtype,
+                                       interpret=True)
+        fm = pt.step.fm
+        assert pt.step.conv_rows == jpt.conv_rows
+        assert pt.step.conv_dtype == {jnp.bfloat16: torch.bfloat16,
+                                      jnp.float64: torch.float64}[
+                                          jpt.conv_dtype]
+    np.testing.assert_array_equal(fm.numpy(), np.asarray(fm_j))

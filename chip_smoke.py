@@ -67,7 +67,16 @@ JSON line {"phase": ...}:
 13. accuracy_bktq -- the four-layer box at 15.625 m (131,072 elements),
               200 steps: the float32 CUDA stations within 1e-2 relative
               of the node route on the plain versions in float64.
-14. timing -- at 2^20 elements in float32, CUDA events, medians
+14. k7     -- stream_add (K7) in both forms, out of place and aliased
+              (out is a), against stream_add_plain on the probe's
+              [8, 33 x 32768] float32 arrays: bit-identical.
+15. hbm_ceiling -- K7's main path, the probe's entry point
+              (hercules_tpu_torch.tools.hbm_ceiling.main), launch
+              counter set to 0 just before and read just after: the
+              three legs (torch.add, stream_add, stream_add aliased),
+              ms per iteration and GB/s beside the card's name and
+              power limit.
+16. timing -- at 2^20 elements in float32, CUDA events, medians
               of >= 20 steps after warm-up: K1 and K2 against their
               plain versions, the K1 and K2 route steps (sampling +
               step + sources), K5 and K6 (per step, amortised) against
@@ -76,13 +85,23 @@ JSON line {"phase": ...}:
               variables, bulk attenuation on); on the four-layer box,
               K3, the epilogue alone and the K3 route step against
               bkt_node_step_plain, and K4 (forced) against
-              bkt_corner_step_plain.
+              bkt_corner_step_plain.  K7's time (aliased) and torch.add's
+              are phase 15's legs.  For every kernel K1-K7: its bound
+              (utils/roofline.py: bytes and operations counted from
+              the shapes of these inputs, against the H100's data
+              sheet; K5's and K6's bytes amortised over the timed
+              chunk) and what sets it, the share of the bound its time
+              reaches, its traffic's share of the measured aliased
+              stream ceiling (phase 15), its launches on its main
+              path, and the library call's time where one PyTorch call
+              computes the same function (K7: torch.add).
 
 Then the kernel table as one JSON line, the card's name and power
 limit (nvidia-smi), and last {"ok": true, "device": {...}}.  Any
 failure raises (non-zero exit, no result line); so does a machine
-without a CUDA device.  Plain versions run with TF32 matmuls disabled
-(torch.backends.cuda.matmul.allow_tf32 = False).
+without a CUDA device, and a run in which any module of jax or of the
+JAX package hercules_tpu was loaded.  Plain versions run with TF32
+matmuls disabled (torch.backends.cuda.matmul.allow_tf32 = False).
 """
 
 from __future__ import annotations
@@ -93,7 +112,6 @@ import json
 import os
 import shutil
 import statistics
-import subprocess
 import sys
 import tempfile
 import time
@@ -123,10 +141,6 @@ def main():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    # the JAX package's native meshing helpers cache their build under
-    # the checkout too
-    os.environ.setdefault("HT_NATIVE_CACHE",
-                          os.path.join(ROOT, "build", "native"))
     from hercules_tpu_torch.fixtures import (FOUR_Q_LAYERS, SOFT_FREQ,
                                              SOFT_LAYERS, TWO_LAYERS,
                                              box_dt, box_stats,
@@ -144,11 +158,15 @@ def main():
         brick_chunk, brick_chunk_plain, sample_stations)
     from hercules_tpu_torch.kernels.brick_step import (brick_step,
                                                        brick_step_plain)
+    from hercules_tpu_torch.kernels.stream_add import (stream_add,
+                                                       stream_add_plain)
     from hercules_tpu_torch.sim import Simulation
     from hercules_tpu_torch.solver.bricks import build_plan
     from hercules_tpu_torch.solver.fused_brick import (
         PallasBrickTables, run_pallas_solver, source_increments)
     from hercules_tpu_torch.solver.fused_bktq import bkt_mix_epilogue
+    from hercules_tpu_torch.tools import hbm_ceiling
+    from hercules_tpu_torch.utils import roofline
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -689,17 +707,49 @@ def main():
               "station_rel_err": acc, "bound": 1e-2})
         require(acc <= 1e-2, f"node-tier f32 stations vs f64 plain: {acc}")
 
-        # ---- 14. timings at 2^20 elements in float32 -----------------
-        card = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            check=True).stdout.strip().splitlines()[0]
+        # ---- 14. K7 against its plain version ------------------------
+        shape7 = (8, hbm_ceiling.LEN)
+        a7 = torch.as_tensor(rng.standard_normal(shape7), dtype=f32,
+                             device=dev)
+        b7 = torch.as_tensor(rng.standard_normal(shape7), dtype=f32,
+                             device=dev)
+        want = stream_add_plain(a7, b7)
+        got = stream_add(a7, b7)
+        same = torch.equal(got, want)
+        s7 = a7.clone()
+        stream_add(s7, b7, out=s7)
+        torch.cuda.synchronize()
+        same_aliased = torch.equal(s7, want)
+        err7 = max((got - want).abs().max().item(),
+                   (s7 - want).abs().max().item())
+        emit({"phase": "k7", "shape": list(shape7), "dtype": str(f32),
+              "bit_identical": same, "aliased_bit_identical": same_aliased,
+              "max_abs_err": err7, "launches": stream_add.launches})
+        require(same and same_aliased, "K7 vs torch.add: not bit-identical")
+        kern["stream_add_err"] = err7
+
+        # ---- 15. K7's main path: the streaming-ceiling probe ---------
+        stream_add.launches = 0
+        ceiling = hbm_ceiling.main()
+        k7_launches = stream_add.launches
+        emit({"phase": "hbm_ceiling", **ceiling, "launches": k7_launches})
+        require(k7_launches > 0, "the probe never launched K7")
+        require(len(ceiling["legs"]) == 3
+                and all(leg["GBps"] > 0 for leg in ceiling["legs"].values()),
+                f"hbm_ceiling legs {ceiling['legs']}")
+        ceiling_GBps = ceiling["legs"]["stream_add aliased"]["GBps"]
+        t_k7 = ceiling["legs"]["stream_add aliased"]["ms_per_iteration"]
+        t_add = ceiling["legs"]["torch.add"]["ms_per_iteration"]
+
+        # ---- 16. timings at 2^20 elements in float32 -----------------
+        card = roofline.card()
         pt = tables(sim_b, plan_b, f32)
         S = random_state(pt)
         spare = torch.empty_like(S)
 
         def timed(fn, reps, warm):
-            """Median milliseconds of fn() over reps calls after warm."""
+            """Median milliseconds of fn() over reps calls, after warm
+            calls."""
             for _ in range(warm):
                 fn()
             evs = [(torch.cuda.Event(enable_timing=True),
@@ -732,7 +782,6 @@ def main():
                       5, 1) / CH
         t_k1_again = timed(lambda: brick_step(S, *ops, out=spare), 30, 5)
         t_plain_again = timed(lambda: brick_step_plain(S, *ops), 30, 3)
-        moved = 23 * pt.LEN * 4     # S 8 rows in + 8 out, K 7 rows in
 
         # the same for K2 and K6 on the BKT box (float32 conv, 6 rows)
         ptb = tables(sim_bb, plan_bb, f32)
@@ -778,9 +827,6 @@ def main():
                                         pts.src_pos, pts.st_pos,
                                         pts.st_phi), 25, 2) / CH
         t_k2ps = timed(lambda: bkt_step_plain(Ss, cs, *sargs), 30, 3)
-        # pass 1: S 6 rows + conv 6 in, conv 6 + dv 3 out; pass 2: S 8
-        # + K 5 + dv 3 in, S 8 out (float32, shear-only)
-        moved_k2 = 45 * ptb.LEN * 4
         # the general-Q tiers on the four-layer box at 2^20 elements (12
         # rows of bfloat16 memory variables; 49,533 mixed elements)
         ptn = tables(sim_4b, plan_4b, f32)
@@ -821,13 +867,49 @@ def main():
                                                    conv_out=cspc), 30, 5)
         t_k4p_again = timed(lambda: bkt_corner_step_plain(Sc0, cc0, *cargs),
                             10, 2)
-        # K3 (float32, bfloat16 kappa): pass 1: S 6 rows, K 1 row, conv
-        # 12 bf16 rows in and out, dv 6 rows out; pass 2: S 8, K 6 and
-        # dv 6 rows in, S 8 out.  K4: pass 1: S 6 rows, conv 96 bf16
-        # rows in and out, bk 20 rows in, F 24 rows out; pass 2: F 24, S
-        # 8, K 4 rows in, S 8 out
-        moved_k3 = 53 * ptn.LEN * 4
-        moved_k4 = 190 * ptc.LEN * 4
+        # bound, shares and launches of every kernel, from the shapes of
+        # the inputs timed above; the chunk kernels' bytes are amortised
+        # over the CH steps per launch they were timed at (the main
+        # path's launch runs all its steps: both bounds are set by the
+        # operations at 2^20 elements)
+        cost = {**roofline.route_costs(pt, sim_b.mesh.lenum, chunk=CH),
+                **roofline.route_costs(ptb, sim_bb.mesh.lenum, chunk=CH),
+                **roofline.route_costs(ptn, sim_4b.mesh.lenum),
+                **roofline.route_costs(ptc, sim_4b.mesh.lenum),
+                "stream_add": roofline.kernel_cost(
+                    "stream_add", hbm_ceiling.LEN, 0)}
+        ms = {"brick_step": min(t_k1, t_k1_again), "brick_chunk": t_k5,
+              "bkt_step": min(t_k2, t_k2_again), "bkt_chunk": t_k6,
+              "bkt_node_step": min(t_k3, t_k3_again),
+              "bkt_corner_step": min(t_k4, t_k4_again),
+              "stream_add": t_k7}
+        plain_ms = {"brick_step": min(t_plain, t_plain_again),
+                    "brick_chunk": t_k5p,
+                    "bkt_step": min(t_k2p, t_k2p_again), "bkt_chunk": t_k6p,
+                    "bkt_node_step": min(t_k3p, t_k3p_again),
+                    "bkt_corner_step": min(t_k4p, t_k4p_again),
+                    "stream_add": t_add}
+        library_ms = {k: None for k in ms}
+        library_ms["stream_add"] = plain_ms["stream_add"]
+        # each kernel's launches on its own main path
+        own = {"brick_step": main_launches, "brick_chunk": main_launches,
+               "bkt_step": bkt_launches, "bkt_chunk": bkt_launches,
+               "bkt_node_step": node_launches,
+               "bkt_corner_step": corner_launches}
+        launches = {k: own[k][k] for k in own}
+        launches["stream_add"] = k7_launches
+        roof = {k: {"ms": ms[k], "plain_ms": plain_ms[k],
+                    "library_ms": library_ms[k],
+                    "bytes": c.bytes, "moved": c.moved, "flop": c.flop,
+                    "bound_ms": c.bound_ms, "bound_by": c.bound_by,
+                    "share_of_bound": c.bound_ms / ms[k],
+                    "moved_GBps": c.moved / (ms[k] * 1e-3) / 1e9,
+                    "share_of_ceiling":
+                        c.moved / (ms[k] * 1e-3) / 1e9 / ceiling_GBps,
+                    "launches": launches[k],
+                    "bound_steps_per_launch":
+                        CH if k in ("brick_chunk", "bkt_chunk") else 1}
+                for k, c in cost.items()}
         emit({"phase": "timing", "card": card,
               "elements": sim_b.mesh.lenum, "LEN": pt.LEN,
               "ms_per_step": {
@@ -852,17 +934,8 @@ def main():
                   "bkt_corner_step": [t_k4, t_k4_again],
                   "bkt_corner_step_plain": [t_k4p, t_k4p_again]},
               "mixed_elements": ptn.step.mix_M,
-              "bytes_per_step": {"brick_step": moved, "bkt_step": moved_k2,
-                                 "bkt_node_step": moved_k3,
-                                 "bkt_corner_step": moved_k4},
-              "brick_step_GBps": moved / (min(t_k1, t_k1_again) * 1e-3)
-              / 1e9,
-              "bkt_step_GBps": moved_k2 / (min(t_k2, t_k2_again) * 1e-3)
-              / 1e9,
-              "bkt_node_step_GBps": moved_k3 / (min(t_k3, t_k3_again)
-                                                * 1e-3) / 1e9,
-              "bkt_corner_step_GBps": moved_k4 / (min(t_k4, t_k4_again)
-                                                  * 1e-3) / 1e9,
+              "stream_ceiling_GBps": ceiling_GBps,
+              "kernels": roof,
               "element_updates_per_s": {
                   "brick_step": sim_b.mesh.lenum / (min(t_k1, t_k1_again)
                                                     * 1e-3),
@@ -874,49 +947,37 @@ def main():
                   "bkt_corner_step": sim_4b.mesh.lenum
                   / (min(t_k4, t_k4_again) * 1e-3)}})
 
+        # the TPU kernel each one replaces, and its CUDA source
+        ports = (
+            ("brick_step", "brick_step.cu",
+             "hercules_tpu/solver/pallas_brick.py:568"),
+            ("brick_chunk", "brick_chunk.cu",
+             "hercules_tpu/solver/pallas_brick.py:2924"),
+            ("bkt_step", "bkt_step.cu",
+             "hercules_tpu/solver/pallas_brick.py:1389"),
+            ("bkt_chunk", "bkt_chunk.cu",
+             "hercules_tpu/solver/pallas_brick.py:1789"),
+            ("bkt_node_step", "bkt_node.cu",
+             "hercules_tpu/solver/pallas_brick.py:2153"),
+            ("bkt_corner_step", "bkt_corner.cu",
+             "hercules_tpu/solver/pallas_brick.py:1216"),
+            ("stream_add", "stream_add.cu",
+             "hercules_tpu/tools/hbm_ceiling.py:75"))
         kernels = [
-            {"name": "brick_step", "route": "cuda",
-             "source": "hercules_tpu_torch/csrc/brick_step.cu",
-             "replaces": "hercules_tpu/solver/pallas_brick.py:568",
-             "launches": main_launches["brick_step"],
-             "max_abs_err": kern["brick_step_err"],
-             "ms": min(t_k1, t_k1_again),
-             "plain_ms": min(t_plain, t_plain_again)},
-            {"name": "brick_chunk", "route": "cuda",
-             "source": "hercules_tpu_torch/csrc/brick_chunk.cu",
-             "replaces": "hercules_tpu/solver/pallas_brick.py:2924",
-             "launches": main_launches["brick_chunk"],
-             "max_abs_err": kern["brick_chunk_err"],
-             "ms": t_k5, "plain_ms": t_k5p},
-            {"name": "bkt_step", "route": "cuda",
-             "source": "hercules_tpu_torch/csrc/bkt_step.cu",
-             "replaces": "hercules_tpu/solver/pallas_brick.py:1389",
-             "launches": bkt_launches["bkt_step"],
-             "max_abs_err": kern["bkt_step_err"],
-             "ms": min(t_k2, t_k2_again),
-             "plain_ms": min(t_k2p, t_k2p_again)},
-            {"name": "bkt_chunk", "route": "cuda",
-             "source": "hercules_tpu_torch/csrc/bkt_chunk.cu",
-             "replaces": "hercules_tpu/solver/pallas_brick.py:1789",
-             "launches": bkt_launches["bkt_chunk"],
-             "max_abs_err": kern["bkt_chunk_err"],
-             "ms": t_k6, "plain_ms": t_k6p},
-            {"name": "bkt_node_step", "route": "cuda",
-             "source": "hercules_tpu_torch/csrc/bkt_node.cu",
-             "replaces": "hercules_tpu/solver/pallas_brick.py:2153",
-             "launches": node_launches["bkt_node_step"],
-             "max_abs_err": kern["bkt_node_step_err"],
-             "ms": min(t_k3, t_k3_again),
-             "plain_ms": min(t_k3p, t_k3p_again)},
-            {"name": "bkt_corner_step", "route": "cuda",
-             "source": "hercules_tpu_torch/csrc/bkt_corner.cu",
-             "replaces": "hercules_tpu/solver/pallas_brick.py:1216",
-             "launches": corner_launches["bkt_corner_step"],
-             "max_abs_err": kern["bkt_corner_step_err"],
-             "ms": min(t_k4, t_k4_again),
-             "plain_ms": min(t_k4p, t_k4p_again)},
-        ]
-        require("jax" not in sys.modules, "jax was imported")
+            {"name": name, "route": "cuda",
+             "source": f"hercules_tpu_torch/csrc/{src}",
+             "replaces": replaces, "launches": roof[name]["launches"],
+             "max_abs_err": kern[f"{name}_err"],
+             **{k: roof[name][k] for k in ("ms", "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms")}}
+            for name, src, replaces in ports]
+        require(all(k["launches"] > 0 for k in kernels),
+                f"a kernel never ran on its main path: {launches}")
+        loaded = sorted(m for m in sys.modules
+                        if m in ("jax", "hercules_tpu")
+                        or m.startswith(("jax.", "hercules_tpu.")))
+        require(not loaded, f"modules of jax or hercules_tpu loaded: "
+                            f"{loaded[:10]}")
         print(json.dumps({"kernels": kernels}), flush=True)
         print(card, flush=True)
         print(json.dumps({"ok": True, "device": {

@@ -2,15 +2,19 @@
 
 The port runs on an NVIDIA H100 through kernels written by hand for
 Hopper (CUDA C++ under ``csrc/``, built with nvcc on first use).  It
-imports ``torch`` and never ``jax``; the numpy host layers (config,
-CVM, meshing, sources, physics constants) are imported from
-``hercules_tpu``, whose JAX package stays the reference the port is
-tested against.
+imports ``torch`` and nothing of ``jax`` or of the JAX package
+``hercules_tpu``: the numpy host layers (config, CVM, etree, meshing,
+sources, physics constants, the native meshing helpers) are the port's
+own copies of that package's modules, held equal to them by the tests.
+The JAX package stays the reference the port is tested against.
 
-This slice covers the single-brick elastic solver (a uniform mesh with
-Rayleigh, mass or no damping, point or finite sources, stations):
+The port runs the single-brick solver (a uniform mesh with Rayleigh,
+mass, no or BKT damping, point or finite sources, stations) on the CUDA
+device by default:
 ``python -m hercules_tpu_torch.cli [--device=cuda|cpu] <cvmdb>
-<physics.in> <numerical.in>``.
+<physics.in> <numerical.in>``.  ``python -m
+hercules_tpu_torch.tools.hbm_ceiling`` measures the card's streaming
+ceiling.
 
 Importing the package loads no kernel and runs no compiler.
 """

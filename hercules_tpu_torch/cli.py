@@ -87,9 +87,9 @@ def main(argv=None):
               "PyTorch versions on the CPU)", file=sys.stderr)
         return 1
 
-    from hercules_tpu.io.monitor import Monitor
-    from hercules_tpu.physics.consts import critical_dt
-    from hercules_tpu.utils.stats import mesh_stats
+    from .io.monitor import Monitor
+    from .physics.consts import critical_dt
+    from .utils.stats import mesh_stats
 
     from .sim import Simulation, write_station_files
     from .utils.timers import GLOBAL_TIMERS, measure, print_timing_stat
@@ -123,7 +123,7 @@ def main(argv=None):
                 f.write(buf.getvalue())
 
     if p.output_mesh and (mesh_out or p.mesh_etree_output_file):
-        from hercules_tpu.io.meshout import write_mesh_etree
+        from .io.meshout import write_mesh_etree
         path = mesh_out or p.mesh_etree_output_file
         if not os.path.isabs(path):
             path = os.path.join(rundir, path)

@@ -16,10 +16,11 @@ from .solver.fused_brick import (PallasBrickTables, pallas_geometry,
                                  pallas_u_global)
 
 
-def tables_from_jax(tables, plan, dtype=torch.float32, device="cpu"):
+def tables_from_jax(tables, plan, dtype=torch.float32, device="cuda"):
     """The port's constant table K [8, LEN] (the elastic or the BKT
     layout, by tables.damping) from the JAX package's SolverTables
-    (numpy) and a single-brick plan."""
+    (numpy) and a single-brick plan, on ``device`` (the CUDA device
+    unless the caller asks for the CPU)."""
     return PallasBrickTables(plan, tables, dtype=dtype, device=device).K
 
 

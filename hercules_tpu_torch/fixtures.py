@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import os
 
-from hercules_tpu.tools.makecvm import build_layered_cvm
+from .tools.makecvm import build_layered_cvm
 
 VP, VS, RHO = 6000.0, 3464.0, 2700.0
 # CVM layer tables: rows (top depth m, Vp, Vs, rho)

@@ -36,7 +36,7 @@ ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "--fmad=false", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry points and their ctypes argument types (pointers and the
 # stream as c_void_p, so 64-bit values are not cut to an int)
 SIGNATURES = {
@@ -54,6 +54,8 @@ SIGNATURES = {
     "ht_bkt_step_set_fm_f64": [_P, _I, _P],
     "ht_bkt_chunk_set_fm_f32": [_P, _I, _P],
     "ht_bkt_chunk_set_fm_f64": [_P, _I, _P],
+    "ht_stream_add_f32": [_P, _P, _P, _L, _P],
+    "ht_stream_add_inplace_f32": [_P, _P, _L, _P],
 }
 # the BKT entries, one per (working type, memory-variable type) pair
 SIGNATURES.update(

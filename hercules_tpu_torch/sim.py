@@ -3,8 +3,10 @@ tables, source, stations, the time loop on the CUDA kernels, station
 files.
 
 Counterpart of ``hercules_tpu/sim.py`` (which imports jax).  The host
-stages are the JAX package's own numpy code; ``StationSet``,
-``setup_stations`` and ``write_station_files`` are copied from it.
+stages are the port's copies of the JAX package's numpy modules
+(``config``, ``cvm``, ``meshgen``, ``mesh``, ``physics``, ``source``);
+``StationSet``, ``setup_stations`` and ``write_station_files`` are
+copied from it.
 ``Simulation.run`` covers the single-brick routes: elastic (Rayleigh,
 mass or no damping) and BKT on its three tiers (uniform Q, general Q
 with node-basis memory variables, or corner-basis memory variables);
@@ -22,14 +24,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from hercules_tpu.config import Params, load_params
-from hercules_tpu.cvm import CVM, open_material_db
-from hercules_tpu.mesh.locate import local_coords, locate_points
-from hercules_tpu.meshgen import generate_mesh
-from hercules_tpu.physics.consts import critical_dt, critical_dt_factors
-from hercules_tpu.physics.kmats import XI
-from hercules_tpu.source.model import (SourceModel,
-                                       compute_domain_coords_linearinterp)
+from .config import Params, load_params
+from .cvm import CVM, open_material_db
+from .mesh.locate import local_coords, locate_points
+from .meshgen import generate_mesh
+from .physics.consts import critical_dt, critical_dt_factors
+from .physics.kmats import XI
+from .source.model import SourceModel, compute_domain_coords_linearinterp
 
 from .solver.assemble import assemble
 from .utils.timers import measure

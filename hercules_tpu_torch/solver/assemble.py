@@ -18,11 +18,9 @@ from typing import Optional
 
 import numpy as np
 
-from hercules_tpu.physics.consts import (compute_setab,
-                                         element_coefficients,
-                                         node_masses)
-from hercules_tpu.physics.kmats import (bkt_matrices_24,
-                                        stiffness_matrices_24)
+from ..physics.consts import (compute_setab, element_coefficients,
+                              node_masses)
+from ..physics.kmats import bkt_matrices_24, stiffness_matrices_24
 
 
 @dataclass

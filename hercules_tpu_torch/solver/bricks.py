@@ -36,9 +36,9 @@ from typing import List, Optional
 
 import numpy as np
 
-from hercules_tpu.etree import morton
-from hercules_tpu.mesh.extract import MeshArrays, _key128
-from hercules_tpu.mesh.octree import PIXELLEVEL
+from ..etree import morton
+from ..mesh.extract import MeshArrays, _key128
+from ..mesh.octree import PIXELLEVEL
 
 # the JAX fused kernel's default column tile: bricks whose legacy
 # stencil reach exceeds it get the reordered storage axes (Brick.axes)

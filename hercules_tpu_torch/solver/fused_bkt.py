@@ -36,7 +36,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from hercules_tpu.physics.kmats import bkt_matrices_24
+from ..physics.kmats import bkt_matrices_24
 
 from ..kernels.bkt_chunk import bkt_chunk
 from ..kernels.bkt_step import bkt_step

@@ -47,7 +47,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from hercules_tpu.physics.kmats import bkt_matrices_24
+from ..physics.kmats import bkt_matrices_24
 
 from ..kernels.bkt_corner_step import bkt_corner_step
 from ..kernels.bkt_node_step import bkt_node_step, node_tab

@@ -43,7 +43,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from hercules_tpu.physics.kmats import stiffness_matrices_24
+from ..physics.kmats import stiffness_matrices_24
 
 from ..kernels.brick_chunk import brick_chunk, sample_stations
 from ..kernels.brick_step import brick_step
@@ -61,6 +61,17 @@ def plan_applies(plan, damping) -> bool:
             and len(plan.loose_eidx) == 0
             and len(plan.grp_node) == 0
             and damping in ("rayleigh", "mass", "none", "bkt"))
+
+
+def solver_device(device) -> torch.device:
+    """``device`` as a torch.device.  A CUDA device raises when none is
+    present: the solver runs on the card unless the caller asks for the
+    CPU, and never carries on on the CPU by itself."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass "
+                           "device='cpu' for the plain PyTorch versions")
+    return device
 
 
 def pallas_geometry(nb, align=1024) -> int:
@@ -135,7 +146,8 @@ class BrickStep(nn.Module):
 
 class PallasBrickTables:
     """Padded tables, geometry, source and station positions of a
-    single-brick plan, on ``device`` in ``dtype``.  ``step`` is the
+    single-brick plan, on ``device`` (the CUDA device unless the
+    caller asks for the CPU) in ``dtype``.  ``step`` is the
     brick's step operator: BrickStep, or for BKT damping the module of
     its tier (``bkt_tier``: BktStep "uniform", BktNodeStep "node" or
     BktCornerStep "corner"), chosen as fused_bktq.bkt_step_module does,
@@ -143,7 +155,7 @@ class PallasBrickTables:
     brick)."""
 
     def __init__(self, plan, tables, src_ids=None, st_nodes=None,
-                 st_phi=None, dtype=torch.float32, device="cpu",
+                 st_phi=None, dtype=torch.float32, device="cuda",
                  bkt_tier=None):
         if not plan_applies(plan, tables.damping):
             raise ValueError("the plan is not a single brick")
@@ -151,7 +163,7 @@ class PallasBrickTables:
         self.offs = tuple(b.corner_offsets())
         self.nb = b.nb
         self.LEN = pallas_geometry(b.nb)
-        self.dtype, self.device = dtype, torch.device(device)
+        self.dtype, self.device = dtype, solver_device(device)
         self.damping = tables.damping
         self.bkt_tier = None
         if self.damping == "bkt":
@@ -315,7 +327,7 @@ def chunk_advance(pt, src_forces, dt2):
 
 def run_pallas_solver(plan, tables, src_ids, src_forces, total_steps, dt,
                       st_nodes=None, st_phi=None, dtype=torch.float32,
-                      device="cpu", chunk=None, state=None, on_chunk=None,
+                      device="cuda", chunk=None, state=None, on_chunk=None,
                       start_step=0, on_samples=None, route=None,
                       bkt_tier=None, on_route=None):
     """Chunked time loop on one brick; the contract of the JAX
@@ -327,7 +339,8 @@ def run_pallas_solver(plan, tables, src_ids, src_forces, total_steps, dt,
     if given, is called with the route's name (route_name) before the
     loop.  Returns ((u, up) as [3, LEN] views, then the memory variables
     for BKT: conv [R, LEN][, conv_mix [R, 8, M]]; samples [T, ns, 3]
-    numpy)."""
+    numpy).  Runs on the CUDA device unless ``device`` is the CPU."""
+    device = solver_device(device)
     with measure("Solver tables", device):
         pt = PallasBrickTables(plan, tables, src_ids=src_ids,
                                st_nodes=st_nodes, st_phi=st_phi,

@@ -104,7 +104,7 @@ def test_tables_match_jax(case, dtype, monkeypatch):
     name, sim, plan, jtab, jplan = case
     jdt = jnp.float32 if dtype == torch.float32 else jnp.float64
     jpt = jpb.PallasBrickTables(jplan, jtab, dtype=jdt)
-    pt = PallasBrickTables(plan, sim.tables, dtype=dtype)
+    pt = PallasBrickTables(plan, sim.tables, dtype=dtype, device="cpu")
     shear_only = fused_bkt.bkt_kappa_zero(sim.tables.bkt)
     assert shear_only == jpb.bkt_kappa_zero(jtab.bkt) == (name == "box")
     assert jpt.bkt_uniform and pt.step.shear_only == jpt.bkt_shear_only
@@ -160,7 +160,7 @@ def test_single_step_matches_jax(case):
                            jnp.zeros((3, jpt.LEN), jnp.float64)])
     Sn_j, cvn_j = call(jnp.asarray(S_j), jnp.asarray(S_j), K_j,
                        jnp.asarray(cv_j), jnp.asarray(cv_j))
-    pt = PallasBrickTables(plan, sim.tables, dtype=torch.float64)
+    pt = PallasBrickTables(plan, sim.tables, dtype=torch.float64, device="cpu")
     S = torch.as_tensor(state_from_jax(S_j, plan))
     cv = torch.as_tensor(conv_from_jax(cv_j, plan))
     Sn, cvn = pt.step(S, cv)
@@ -182,7 +182,7 @@ def test_chunk_plain_equals_step_loop(case):
     st = sim.stations
     pt = PallasBrickTables(plan, sim.tables, src_ids=src,
                            st_nodes=st.nodes, st_phi=st.phi,
-                           dtype=torch.float64)
+                           dtype=torch.float64, device="cpu")
     S0, cv0 = _random_state(pt, 1, 1e-3)
     srcf = source_increments(pt, forces, sim.params.delta_t ** 2, 0, T)
     args = (pt.K, pt.offs, pt.step.fm, pt.step.rec)
@@ -218,7 +218,7 @@ def test_wrappers_on_cpu_run_plain(case, dtype):
     """bkt_step and bkt_chunk on CPU tensors are the plain versions,
     with or without outputs given, and count no launch."""
     _, sim, plan, _, _ = case
-    pt = PallasBrickTables(plan, sim.tables, dtype=dtype)
+    pt = PallasBrickTables(plan, sim.tables, dtype=dtype, device="cpu")
     S, cv = _random_state(pt, 2, 1e-3)
     args = (pt.K, pt.offs, pt.step.fm, pt.step.rec)
     before = (bkt_step.launches, bkt_chunk.launches)
@@ -243,7 +243,7 @@ def test_float32_soft_box_stores_bfloat16(case):
     recursion rounded once; the run stays within 1e-3 of float64."""
     name, sim, plan, jtab, jplan = case
     jpt = jpb.PallasBrickTables(jplan, jtab, dtype=jnp.float32)
-    pt = PallasBrickTables(plan, sim.tables, dtype=torch.float32)
+    pt = PallasBrickTables(plan, sim.tables, dtype=torch.float32, device="cpu")
     want = torch.bfloat16 if name == "soft" else torch.float32
     assert pt.step.conv_dtype == want
     assert (jpt.conv_dtype_node == jnp.bfloat16) == (name == "soft")

@@ -83,7 +83,7 @@ def _close(a, b, bound, what):
 def test_tier_matches_jax(case, monkeypatch):
     """Both packages pick the same tier; the port's route name says so."""
     name, sim, plan, jtab, jplan = case
-    pt = PallasBrickTables(plan, sim.tables, dtype=torch.float64)
+    pt = PallasBrickTables(plan, sim.tables, dtype=torch.float64, device="cpu")
     jpt = _jax_tables(jplan, jtab, monkeypatch)
     assert pt.bkt_tier == _jax_tier(jpt) == TIER[name]
     assert pt.step.shear_only == jpt.bkt_shear_only == (name == "two_shear")
@@ -101,7 +101,7 @@ def test_node_tables_match_jax(case, monkeypatch):
     functions array for array on the same inputs, and the port's tables
     equal the JAX PallasBrickTables' on the brick's columns."""
     name, sim, plan, jtab, jplan = case
-    pt = PallasBrickTables(plan, sim.tables, dtype=torch.float64)
+    pt = PallasBrickTables(plan, sim.tables, dtype=torch.float64, device="cpu")
     nb, LEN, offs = pt.nb, pt.LEN, pt.offs
     shear_only = fused_bktq.bkt_kappa_zero(sim.tables.bkt)
     assert fused_bktq.bkn_coef_keys(shear_only) == \
@@ -220,7 +220,7 @@ def test_mix_runs_equal_gather_form(case):
     tables with mix_runs dropped): the same trajectory within 1e-14."""
     name, sim, plan, _, _ = case
     pt = PallasBrickTables(plan, sim.tables, dtype=torch.float64,
-                           bkt_tier="node")
+                           bkt_tier="node", device="cpu")
     assert pt.step.mix_runs
     rng = np.random.default_rng(3)
     S = torch.zeros((8, pt.LEN), dtype=torch.float64)
@@ -285,7 +285,7 @@ def test_single_step_matches_jax(case, tier, monkeypatch):
                                np.zeros((2, jpt.LEN))])
         mem_j = (new_j[2],)
     pt = PallasBrickTables(plan, sim.tables, dtype=torch.float64,
-                           bkt_tier=tier)
+                           bkt_tier=tier, device="cpu")
     S = torch.as_tensor(state_from_jax(S_j, plan))
     mem = conv_from_jax(conv_j, plan)
     new = pt.step(S, *(torch.as_tensor(m) for m in mem))
@@ -309,7 +309,8 @@ def test_wrappers_on_cpu_run_plain(case, dtype):
     before = (bkt_node_step.launches, bkt_corner_step.launches)
     rng = np.random.default_rng(2)
     for tier in ("node", "corner"):
-        pt = PallasBrickTables(plan, sim.tables, dtype=dtype, bkt_tier=tier)
+        pt = PallasBrickTables(plan, sim.tables, dtype=dtype, bkt_tier=tier,
+                               device="cpu")
         want = (torch.float64 if dtype == torch.float64
                 else torch.bfloat16 if tier == "corner"
                 or name != "two_shear" else torch.float32)
@@ -342,9 +343,9 @@ def test_wrappers_on_cpu_run_plain(case, dtype):
 def test_forcing_a_tier_that_cannot_hold_the_brick_raises(case):
     name, sim, plan, _, _ = case
     with pytest.raises(ValueError, match="more than one BKT coefficient"):
-        PallasBrickTables(plan, sim.tables, bkt_tier="uniform")
+        PallasBrickTables(plan, sim.tables, bkt_tier="uniform", device="cpu")
     with pytest.raises(ValueError, match="bkt_tier must be"):
-        PallasBrickTables(plan, sim.tables, bkt_tier="nodeq")
+        PallasBrickTables(plan, sim.tables, bkt_tier="nodeq", device="cpu")
     with pytest.raises(ValueError, match="no chunk kernel"):
         _run(sim, plan, route="chunk")
 

@@ -121,7 +121,7 @@ def test_wrapper_on_cpu_runs_plain(box, dtype):
     """brick_step on a CPU tensor is brick_step_plain, with or without
     ``out``, and counts no launch."""
     sim, plan, _, _ = box
-    pt = PallasBrickTables(plan, sim.tables, dtype=dtype)
+    pt = PallasBrickTables(plan, sim.tables, dtype=dtype, device="cpu")
     rng = np.random.default_rng(2)
     S = torch.zeros((8, pt.LEN), dtype=dtype)
     S[0:6, :pt.nb] = torch.as_tensor(rng.standard_normal((6, pt.nb)))

@@ -49,7 +49,7 @@ def test_chunk_plain_equals_step_loop(box):
     st = sim.stations
     pt = PallasBrickTables(plan, sim.tables, src_ids=sim.src_ids,
                            st_nodes=st.nodes, st_phi=st.phi,
-                           dtype=torch.float64)
+                           dtype=torch.float64, device="cpu")
     S0 = _random_state(pt, 1)
     srcf = source_increments(pt, sim.src_forces * 1e3,
                              sim.params.delta_t ** 2, 0, T)

@@ -86,8 +86,9 @@ def test_tables_from_jax_equal_port_K(box):
     plan = build_plan(box.mesh)
     jtab = jax_assemble(box.mesh, box.params)
     jplan = jax_build_plan(box.mesh)
-    K = tables_from_jax(jtab, jplan, dtype=torch.float64)
-    mine = PallasBrickTables(plan, box.tables, dtype=torch.float64).K
+    K = tables_from_jax(jtab, jplan, dtype=torch.float64, device="cpu")
+    mine = PallasBrickTables(plan, box.tables, dtype=torch.float64,
+                             device="cpu").K
     assert torch.equal(K, mine)
     nb = plan.bricks[0].nb
     assert K.shape == (8, pallas_geometry(nb))
@@ -153,7 +154,8 @@ def test_bkt_tier_tables_match_jax(layered, dtype, monkeypatch):
     jplan = jax_build_plan(sim.mesh)
     jpt = JaxPallasBrickTables(jplan, jax_assemble(sim.mesh, sim.params),
                                dtype=jdt)
-    pt = PallasBrickTables(build_plan(sim.mesh), sim.tables, dtype=dtype)
+    pt = PallasBrickTables(build_plan(sim.mesh), sim.tables, dtype=dtype,
+                           device="cpu")
     assert pt.bkt_tier == tier
     nb, K = pt.nb, pt.K.numpy()
     so = jpt.bkt_shear_only

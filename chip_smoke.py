@@ -44,16 +44,18 @@ JSON line {"phase": ...}:
               both BKT kernels launched.
 9. accuracy_bkt -- phase 5 on the BKT box: float32 CUDA stations
               within 1e-2 relative of bkt_chunk_plain in float64.
-10. k3     -- the node-tier step (bkt_node_step, K3, then the mixed-
-              element epilogue and the sources) against the same route
-              on bkt_node_step_plain, from random S, memory variables
-              and mixed-element carry: the two-layer box (two Q sets),
-              40 steps in float64 (S, conv and conv_mix within 2e-13 of
-              their max) and 20 in float32 with bfloat16 memory
-              variables (1e-3); its shear-only variant in float32
-              (1e-4); the four-layer box at 2^20 elements (four Q sets,
-              49,533 mixed elements in 3 runs), 10 steps in float32
-              (1e-4 on S).  Padding stays zero.
+10. k3     -- the node-tier step route (bkt_node_step, K3, the mixed
+              elements' force formed inside, then the sources) against
+              the same route on bkt_node_step_plain (the direct form),
+              from random S, memory variables and mixed-element state:
+              the two-layer box (two Q sets), 40 steps in float64 (S,
+              conv and conv_mix within 2e-13 of their max) and 20 in
+              float32 with bfloat16 memory variables (1e-3); its
+              shear-only variant in float32 (1e-4); the four-layer box
+              at 2^20 elements (four Q sets, 49,533 mixed elements) in
+              both types of its main path: 5 steps in float64 (2e-13 on
+              S, conv and conv_mix) and 10 in float32 (1e-4 on S, 5e-3
+              on the memory variables).  Padding stays zero.
 11. k4     -- bkt_corner_step (K4) against bkt_corner_step_plain: the
               four-layer box at 62.5 m (where the rule picks the corner
               tier), 40 steps in float64 (2e-13) and 20 in float32
@@ -62,39 +64,50 @@ JSON line {"phase": ...}:
               corner tier, 10 steps in float32 (1e-4 on S).
 12. main_bktq -- phase 4 on the four-layer box at 2^20 elements: both
               types on the node tier (route cuda_bkt_node_step), K3
-              launched; then the four-layer box at 62.5 m through the
-              CLI: route cuda_bkt_corner_step, K4 launched.
+              launched once per step (800 over both types) and nothing
+              else run for the mixed elements; then the four-layer box
+              at 62.5 m through the CLI: route cuda_bkt_corner_step, K4
+              launched.
 13. accuracy_bktq -- the four-layer box at 15.625 m (131,072 elements),
               200 steps: the float32 CUDA stations within 1e-2 relative
               of the node route on the plain versions in float64.
-14. k7     -- stream_add (K7) in both forms, out of place and aliased
-              (out is a), against stream_add_plain on the probe's
-              [8, 33 x 32768] float32 arrays: bit-identical.
+14. k7     -- stream_add (K7), out of place and aliased (out is a),
+              against stream_add_plain on the probe's [8, 33 x 32768]
+              float32 arrays: bit-identical.
 15. hbm_ceiling -- K7's main path, the probe's entry point
               (hercules_tpu_torch.tools.hbm_ceiling.main), launch
               counter set to 0 just before and read just after: the
-              three legs (torch.add, stream_add, stream_add aliased),
-              ms per iteration and GB/s beside the card's name and
-              power limit.
-16. timing -- at 2^20 elements in float32, CUDA events, medians
-              of >= 20 steps after warm-up: K1 and K2 against their
-              plain versions, the K1 and K2 route steps (sampling +
-              step + sources), K5 and K6 (per step, amortised) against
-              brick_chunk_plain and bkt_chunk_plain; K2 and K6 again on
-              the soft box meshed at 2^20 elements (bfloat16 memory
-              variables, bulk attenuation on); on the four-layer box,
-              K3, the epilogue alone and the K3 route step against
-              bkt_node_step_plain, and K4 (forced) against
-              bkt_corner_step_plain.  K7's time (aliased) and torch.add's
-              are phase 15's legs.  For every kernel K1-K7: its bound
-              (utils/roofline.py: bytes and operations counted from
-              the shapes of these inputs, against the H100's data
-              sheet; K5's and K6's bytes amortised over the timed
-              chunk) and what sets it, the share of the bound its time
-              reaches, its traffic's share of the measured aliased
-              stream ceiling (phase 15), its launches on its main
-              path, and the library call's time where one PyTorch call
-              computes the same function (K7: torch.add).
+              four legs in turns (torch.add, stream_add, stream_add
+              aliased, torch.add again), ms per iteration and GB/s
+              beside the card's name and power limit.
+16. timing -- CUDA events, medians of >= 20 calls after warm-up, each
+              kernel at the shape and type of its main path's launches:
+              at 2^20 elements K1 and K2 in float64 (their step routes'
+              type) against their plain versions, K5 and K6 in float32
+              per step over one launch of the main path's 400 steps
+              against brick_chunk_plain and bkt_chunk_plain, K3 in
+              float32 and float64 on the four-layer box (bfloat16 /
+              float64 memory variables, 49,533 mixed elements) against
+              bkt_node_step_plain; K4 on the four-layer box at 62.5 m
+              (2048 elements, the corner route's main path) in float32
+              and float64, and forced at 2^20 in float32 for
+              comparison; K1 and K2 in float32 and K2/K6 on the soft box
+              (bfloat16 memory variables, bulk attenuation on) beside
+              them.  K7's time (aliased) and torch.add's are phase 15's
+              legs.  Lone calls (synchronise, events around one call,
+              median of 60): K7 and torch.add on the probe's arrays, and
+              the K1, K2 and K3 route steps (sampling + step + sources)
+              at 2^20 in float32; the host's microseconds per call of K7
+              and torch.add on [8, 1024].  For every kernel K1-K7: its
+              bound (utils/roofline.py: bytes and operations counted from the
+              shapes of these inputs, against the H100's data sheet; the
+              chunk kernels' bytes amortised over 400 steps) and what
+              sets it, the share of the bound its time reaches, its
+              traffic's share of the measured aliased stream ceiling
+              (phase 15), its launches on its main path, the time it
+              loses there (launches x steps per launch x (time - bound),
+              per type), and the library call's time where one PyTorch
+              call computes the same function (K7: torch.add).
 
 Then the kernel table as one JSON line, the card's name and power
 limit (nvidia-smi), and last {"ok": true, "device": {...}}.  Any
@@ -164,7 +177,7 @@ def main():
     from hercules_tpu_torch.solver.bricks import build_plan
     from hercules_tpu_torch.solver.fused_brick import (
         PallasBrickTables, run_pallas_solver, source_increments)
-    from hercules_tpu_torch.solver.fused_bktq import bkt_mix_epilogue
+    from hercules_tpu_torch.solver import fused_bktq
     from hercules_tpu_torch.tools import hbm_ceiling
     from hercules_tpu_torch.utils import roofline
 
@@ -260,29 +273,25 @@ def main():
 
     def node_loop(pt, state, inc, plain):
         """The node route step by step: K3 (or its plain version), the
-        mixed-element epilogue, the source adds.  Returns (the final
-        state, samples [steps, ns, 3])."""
+        mixed elements included, then the source adds.  Returns (the
+        final state, samples [steps, ns, 3])."""
         st = [x.clone() for x in state]
-        spare = [torch.empty_like(st[0]), torch.empty_like(st[1])]
+        spare = [torch.empty_like(x) for x in st]
+        names = ("out", "conv_out", "conv_mix_out")
+        args = (pt.K, pt.offs, pt.step.tab)
         samples = []
         for t in range(inc.shape[0]):
             samples.append(sample_stations(st[0], pt.st_pos, pt.st_phi))
             if plain:
-                Sn, cn = bkt_node_step_plain(st[0], st[1], pt.K, pt.offs,
-                                             pt.step.tab)
+                new = list(bkt_node_step_plain(st[0], st[1], *args,
+                                               pt.step.mix, *st[2:]))
             else:
-                Sn, cn = bkt_node_step(st[0], st[1], pt.K, pt.offs,
-                                       pt.step.tab, out=spare[0],
-                                       conv_out=spare[1])
-            new = [Sn, cn]
-            if pt.step.mix_M:
-                Sn, cm = bkt_mix_epilogue(pt.step.mix, pt.step.shear_only,
-                                          st[0], Sn, st[1], st[2],
-                                          runs=pt.step.mix_runs,
-                                          offs=pt.offs)
-                new.append(cm)
-            Sn[0:3].index_add_(1, pt.src_pos, inc[t])
-            spare, st = st[:2], new
+                new = list(bkt_node_step(
+                    st[0], st[1], *args, mix=pt.step.mix,
+                    conv_mix=st[2] if len(st) > 2 else None,
+                    **dict(zip(names, spare))))
+            new[0][0:3].index_add_(1, pt.src_pos, inc[t])
+            spare, st = st, new
         return st, torch.stack(samples)
 
     def k4_loop(pt, S, cv, inc, plain):
@@ -321,7 +330,7 @@ def main():
                         or "Compiling entry" in ln]})
 
         sim_s, plan_s, _ = box(62.5, 40, 5, "small")
-        sim_b, plan_b, _ = box(7.8125, 20, 5, "big")
+        sim_b, plan_b, _ = box(7.8125, 400, 5, "big")
         require(sim_b.mesh.lenum == 1 << 20, f"{sim_b.mesh.lenum} elements")
         dt2_s, dt2_b = sim_s.params.delta_t ** 2, sim_b.params.delta_t ** 2
 
@@ -401,14 +410,16 @@ def main():
         def main_path(phase, routes, kernels, edge=7.8125, **case):
             """The CLI on the box at ``edge`` (2^20 elements by default),
             400 steps, 5 stations, float32 then float64; every launch
-            counter set to 0 just before and read just after.  Returns
-            the launches."""
+            counter set to 0 just before each run and read just after.
+            Returns the launches of both runs, and of each run
+            (``by_type``, under "float32" and "float64")."""
             E, N = box_stats(edge)
             dt_b = box_dt(edge)
             runs = {}
-            for c in counters:
-                c.launches = 0
+            by_type = {}
             for dname in ("float32", "float64"):
+                for c in counters:
+                    c.launches = 0
                 cv, ph, nu = write_box_case(
                     os.path.join(work, f"{phase}_{dname}"), edge, 400, 5,
                     **case)
@@ -431,8 +442,11 @@ def main():
                 st = np.stack([np.loadtxt(os.path.join(
                     rundir, "stations", f"station.{i}"), skiprows=1)
                     for i in range(5)])
+                by_type[dname] = {c.__name__: c.launches for c in counters}
                 runs[dname] = (path, st, spent)
-            launches = {c.__name__: c.launches for c in counters}
+            launches = {k: by_type["float32"][k] + by_type["float64"][k]
+                        for k in by_type["float32"]}
+            launches["by_type"] = by_type
             s32, s64 = runs["float32"][1], runs["float64"][1]
             st_rel = np.abs(s32[..., 1:] - s64[..., 1:]).max() / \
                 np.abs(s64[..., 1:]).max()
@@ -484,7 +498,8 @@ def main():
         sim_sb, plan_sb, _ = box(62.5, 40, 5, "small_bkt", damping="bkt")
         sim_ss, plan_ss, _ = box(62.5, 40, 5, "soft_bkt", damping="bkt",
                                  layers=SOFT_LAYERS, freq=SOFT_FREQ)
-        sim_bb, plan_bb, _ = box(7.8125, 20, 5, "big_bkt", damping="bkt")
+        sim_bb, plan_bb, _ = box(7.8125, 400, 5, "big_bkt",
+                                 damping="bkt")
         dt2_bb = sim_bb.params.delta_t ** 2
         cases = []
         for label, sim, plan, dtype, steps, bound in (
@@ -592,7 +607,7 @@ def main():
               "steps": 200, "station_rel_err": acc, "bound": 1e-2})
         require(acc <= 1e-2, f"BKT f32 stations vs f64 plain: {acc}")
 
-        # ---- 10. K3 (and the epilogue) against the plain route ------
+        # ---- 10. K3 (the mixed elements inside) against the plain route
         two = dict(damping="bkt", layers=TWO_LAYERS, freq=SOFT_FREQ)
         four = dict(damping="bkt", layers=FOUR_Q_LAYERS,
                     freq=four_q_freq(62.5))
@@ -614,6 +629,7 @@ def main():
                 ("two", sim_2q, plan_2q, f64, 40, 2e-13, 2e-13),
                 ("two", sim_2q, plan_2q, f32, 20, 1e-3, 1e-3),
                 ("two_shear", sim_2s, plan_2s, f32, 20, 1e-4, 1e-4),
+                ("four", sim_4b, plan_4b, f64, 5, 2e-13, 2e-13),
                 ("four", sim_4b, plan_4b, f32, 10, 1e-4, 5e-3)):
             pt = tables(sim, plan, dtype)
             require(pt.bkt_tier == "node", f"{label} tier {pt.bkt_tier}")
@@ -631,7 +647,6 @@ def main():
                           "dtype": str(dtype),
                           "conv": str(pt.step.conv_dtype), "steps": steps,
                           "mixed": pt.step.mix_M,
-                          "mix_runs": len(pt.step.mix_runs or ()),
                           "rel_err": r, "max_abs_err": err,
                           "conv_rel_err": mem[0][0],
                           "conv_mix_rel_err": mem[1][0],
@@ -685,6 +700,14 @@ def main():
             "main_bktq_corner",
             ("cuda_bkt_corner_step", "cuda_bkt_corner_step"),
             ("bkt_corner_step",), edge=62.5, **four)
+        # one K3 launch per step, the mixed elements inside: the node
+        # tier keeps no correction of its own after the kernel
+        k3_by_type = {d: n["bkt_node_step"]
+                      for d, n in node_launches["by_type"].items()}
+        require(k3_by_type == {"float32": 400, "float64": 400}
+                and not hasattr(fused_bktq, "bkt_mix_epilogue"),
+                f"main_bktq: K3 launches {k3_by_type} for 400 steps of "
+                f"each type")
 
         # ---- 13. accuracy: node tier f32 CUDA against f64 plain ------
         sim_a, plan_a, _ = box(15.625, 200, 5, "accuracy_bktq",
@@ -715,17 +738,16 @@ def main():
                              device=dev)
         want = stream_add_plain(a7, b7)
         got = stream_add(a7, b7)
-        same = torch.equal(got, want)
         s7 = a7.clone()
         stream_add(s7, b7, out=s7)
         torch.cuda.synchronize()
-        same_aliased = torch.equal(s7, want)
+        same = {"bit_identical": torch.equal(got, want),
+                "aliased_bit_identical": torch.equal(s7, want)}
         err7 = max((got - want).abs().max().item(),
                    (s7 - want).abs().max().item())
         emit({"phase": "k7", "shape": list(shape7), "dtype": str(f32),
-              "bit_identical": same, "aliased_bit_identical": same_aliased,
-              "max_abs_err": err7, "launches": stream_add.launches})
-        require(same and same_aliased, "K7 vs torch.add: not bit-identical")
+              **same, "max_abs_err": err7, "launches": stream_add.launches})
+        require(all(same.values()), f"K7 vs torch.add: {same}")
         kern["stream_add_err"] = err7
 
         # ---- 15. K7's main path: the streaming-ceiling probe ---------
@@ -734,18 +756,18 @@ def main():
         k7_launches = stream_add.launches
         emit({"phase": "hbm_ceiling", **ceiling, "launches": k7_launches})
         require(k7_launches > 0, "the probe never launched K7")
-        require(len(ceiling["legs"]) == 3
+        require(len(ceiling["legs"]) == 4
                 and all(leg["GBps"] > 0 for leg in ceiling["legs"].values()),
                 f"hbm_ceiling legs {ceiling['legs']}")
         ceiling_GBps = ceiling["legs"]["stream_add aliased"]["GBps"]
         t_k7 = ceiling["legs"]["stream_add aliased"]["ms_per_iteration"]
-        t_add = ceiling["legs"]["torch.add"]["ms_per_iteration"]
+        # the library call's legs bracket K7's: the faster of the two
+        t_add = min(ceiling["legs"][k]["ms_per_iteration"]
+                    for k in ("torch.add", "torch.add again"))
 
-        # ---- 16. timings at 2^20 elements in float32 -----------------
+        # ---- 16. timings, each kernel at its main path's shape and type
         card = roofline.card()
-        pt = tables(sim_b, plan_b, f32)
-        S = random_state(pt)
-        spare = torch.empty_like(S)
+        STEPS = 400             # the main paths' steps (K5/K6: one launch)
 
         def timed(fn, reps, warm):
             """Median milliseconds of fn() over reps calls, after warm
@@ -762,54 +784,102 @@ def main():
             torch.cuda.synchronize()
             return statistics.median(a.elapsed_time(b) for a, b in evs)
 
-        ops = (pt.K, pt.offs, pt.step.ops)
-        CH = 20
-        srcf = source_increments(pt, sim_b.src_forces, dt2_b, 0, CH)
-        inc0 = srcf[0]
-        t_plain = timed(lambda: brick_step_plain(S, *ops), 30, 3)
-        t_k1 = timed(lambda: brick_step(S, *ops, out=spare), 30, 5)
+        def lone(fn, reps=60, warm=5):
+            """Median milliseconds of one call of fn() on an idle device:
+            synchronise, then events around the call."""
+            for _ in range(warm):
+                fn()
+            ts = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                fn()
+                b.record()
+                torch.cuda.synchronize()
+                ts.append(a.elapsed_time(b))
+            return statistics.median(ts)
+
+        def twice(kernel, plain, reps=30, preps=10):
+            """(kernel ms, plain ms), each timed twice in turns (kernel,
+            plain, plain, kernel); the lower of each pair."""
+            k1 = timed(kernel, reps, 5)
+            p1 = timed(plain, preps, 2)
+            p2 = timed(plain, preps, 2)
+            k2 = timed(kernel, reps, 5)
+            return [k1, k2], [p1, p2]
+
+        dts = {"float32": f32, "float64": f64}
+        # per (kernel, type): ms pair, plain ms pair, KernelCost
+        T, P, C = {}, {}, {}
+        lone_ms = {}
+
+        # K1 and K5 on the 2^20 box
+        for dname in ("float64", "float32"):
+            pt = tables(sim_b, plan_b, dts[dname])
+            S = random_state(pt)
+            spare = torch.empty_like(S)
+            ops = (pt.K, pt.offs, pt.step.ops)
+            key = ("brick_step", dname)
+            T[key], P[key] = twice(lambda: brick_step(S, *ops, out=spare),
+                                   lambda: brick_step_plain(S, *ops))
+            C[key] = roofline.route_costs(pt, sim_b.mesh.lenum)["brick_step"]
+        inc1 = source_increments(pt, sim_b.src_forces, dt2_b, 0, 1)
 
         def k1_route_step():
             sample_stations(S, pt.st_pos, pt.st_phi)
             Sn = brick_step(S, *ops, out=spare)
-            Sn[0:3].index_add_(1, pt.src_pos, inc0)
+            Sn[0:3].index_add_(1, pt.src_pos, inc1[0])
 
-        t_loop = timed(k1_route_step, 30, 5)
-        t_k5 = timed(lambda: brick_chunk(S, spare, *ops, srcf, pt.src_pos,
-                                         pt.st_pos, pt.st_phi), 25, 2) / CH
-        t_k5p = timed(lambda: brick_chunk_plain(S, *ops, srcf, pt.src_pos,
-                                                pt.st_pos, pt.st_phi),
-                      5, 1) / CH
-        t_k1_again = timed(lambda: brick_step(S, *ops, out=spare), 30, 5)
-        t_plain_again = timed(lambda: brick_step_plain(S, *ops), 30, 3)
+        route_ms = {"k1_route_step": timed(k1_route_step, 30, 5)}
+        lone_ms["k1_route_step"] = lone(k1_route_step)
+        srcf = source_increments(pt, sim_b.src_forces, dt2_b, 0, STEPS)
+        require(srcf.shape[0] == STEPS, f"{srcf.shape[0]} source steps")
+        srcf20 = srcf[:20].contiguous()
+        key = ("brick_chunk", "float32")
+        T[key] = [timed(lambda: brick_chunk(S, spare, *ops, srcf, pt.src_pos,
+                                            pt.st_pos, pt.st_phi), 3, 1)
+                  / STEPS]
+        P[key] = [timed(lambda: brick_chunk_plain(S, *ops, srcf20,
+                                                  pt.src_pos, pt.st_pos,
+                                                  pt.st_phi), 3, 1) / 20]
+        C[key] = roofline.route_costs(pt, sim_b.mesh.lenum,
+                                      chunk=STEPS)["brick_chunk"]
 
-        # the same for K2 and K6 on the BKT box (float32 conv, 6 rows)
-        ptb = tables(sim_bb, plan_bb, f32)
-        Sb, cb = random_bkt_state(ptb)
-        spb, cspb = torch.empty_like(Sb), torch.empty_like(cb)
-        bargs = (ptb.K, ptb.offs, ptb.step.fm, ptb.step.rec)
-        srcfb = source_increments(ptb, sim_bb.src_forces, dt2_bb, 0, CH)
-        t_k2p = timed(lambda: bkt_step_plain(Sb, cb, *bargs), 30, 3)
-        t_k2 = timed(lambda: bkt_step(Sb, cb, *bargs, out=spb,
-                                      conv_out=cspb), 30, 5)
+        # K2 and K6 on the 2^20 BKT box (6 rows of memory variables)
+        for dname in ("float64", "float32"):
+            ptb = tables(sim_bb, plan_bb, dts[dname])
+            Sb, cb = random_bkt_state(ptb)
+            spb, cspb = torch.empty_like(Sb), torch.empty_like(cb)
+            bargs = (ptb.K, ptb.offs, ptb.step.fm, ptb.step.rec)
+            key = ("bkt_step", dname)
+            T[key], P[key] = twice(
+                lambda: bkt_step(Sb, cb, *bargs, out=spb, conv_out=cspb),
+                lambda: bkt_step_plain(Sb, cb, *bargs))
+            C[key] = roofline.route_costs(ptb, sim_bb.mesh.lenum)["bkt_step"]
+        inc1b = source_increments(ptb, sim_bb.src_forces, dt2_bb, 0, 1)
 
         def k2_route_step():
             sample_stations(Sb, ptb.st_pos, ptb.st_phi)
             Sn, _ = bkt_step(Sb, cb, *bargs, out=spb, conv_out=cspb)
-            Sn[0:3].index_add_(1, ptb.src_pos, srcfb[0])
+            Sn[0:3].index_add_(1, ptb.src_pos, inc1b[0])
 
-        t_k2loop = timed(k2_route_step, 30, 5)
-        t_k6 = timed(lambda: bkt_chunk(Sb, spb, cb, cspb, *bargs, srcfb,
-                                       ptb.src_pos, ptb.st_pos,
-                                       ptb.st_phi), 25, 2) / CH
-        t_k6p = timed(lambda: bkt_chunk_plain(Sb, cb, *bargs, srcfb,
-                                              ptb.src_pos, ptb.st_pos,
-                                              ptb.st_phi), 5, 1) / CH
-        t_k2_again = timed(lambda: bkt_step(Sb, cb, *bargs, out=spb,
-                                            conv_out=cspb), 30, 5)
-        t_k2p_again = timed(lambda: bkt_step_plain(Sb, cb, *bargs), 30, 3)
-        # and with the bulk attenuation on: the soft box meshed at 2^20
-        # elements, 12 rows of bfloat16 memory variables
+        route_ms["k2_route_step"] = timed(k2_route_step, 30, 5)
+        lone_ms["k2_route_step"] = lone(k2_route_step)
+        srcfb = source_increments(ptb, sim_bb.src_forces, dt2_bb, 0, STEPS)
+        require(srcfb.shape[0] == STEPS, f"{srcfb.shape[0]} source steps")
+        key = ("bkt_chunk", "float32")
+        T[key] = [timed(lambda: bkt_chunk(Sb, spb, cb, cspb, *bargs, srcfb,
+                                          ptb.src_pos, ptb.st_pos,
+                                          ptb.st_phi), 3, 1) / STEPS]
+        P[key] = [timed(lambda: bkt_chunk_plain(
+            Sb, cb, *bargs, srcfb[:20].contiguous(), ptb.src_pos, ptb.st_pos,
+            ptb.st_phi), 3, 1) / 20]
+        C[key] = roofline.route_costs(ptb, sim_bb.mesh.lenum,
+                                      chunk=STEPS)["bkt_chunk"]
+        # beside them: the soft box meshed at 2^20 elements (12 rows of
+        # bfloat16 memory variables, bulk attenuation on)
         sim_bs, plan_bs, _ = box(7.8125, 20, 5, "big_soft", damping="bkt",
                                  layers=SOFT_LAYERS,
                                  freq=1200.0 / (8 * 7.8125))
@@ -820,132 +890,143 @@ def main():
         sps, csps = torch.empty_like(Ss), torch.empty_like(cs)
         sargs = (pts.K, pts.offs, pts.step.fm, pts.step.rec)
         srcfs = source_increments(pts, sim_bs.src_forces,
-                                  sim_bs.params.delta_t ** 2, 0, CH)
-        t_k2s = timed(lambda: bkt_step(Ss, cs, *sargs, out=sps,
-                                       conv_out=csps), 30, 5)
-        t_k6s = timed(lambda: bkt_chunk(Ss, sps, cs, csps, *sargs, srcfs,
-                                        pts.src_pos, pts.st_pos,
-                                        pts.st_phi), 25, 2) / CH
-        t_k2ps = timed(lambda: bkt_step_plain(Ss, cs, *sargs), 30, 3)
-        # the general-Q tiers on the four-layer box at 2^20 elements (12
-        # rows of bfloat16 memory variables; 49,533 mixed elements)
-        ptn = tables(sim_4b, plan_4b, f32)
-        Sn0, cn0, cm0 = random_bktq_state(ptn)
-        spn, cspn = torch.empty_like(Sn0), torch.empty_like(cn0)
-        nargs = (ptn.K, ptn.offs, ptn.step.tab)
-        srcfn = source_increments(ptn, sim_4b.src_forces,
-                                  sim_4b.params.delta_t ** 2, 0, 1)
+                                  sim_bs.params.delta_t ** 2, 0, 20)
+        soft_ms = {
+            "bkt_step": timed(lambda: bkt_step(Ss, cs, *sargs, out=sps,
+                                               conv_out=csps), 30, 5),
+            "bkt_step_plain": timed(lambda: bkt_step_plain(Ss, cs, *sargs),
+                                    10, 2),
+            "bkt_chunk": timed(lambda: bkt_chunk(
+                Ss, sps, cs, csps, *sargs, srcfs, pts.src_pos, pts.st_pos,
+                pts.st_phi), 10, 2) / 20}
 
-        def epilogue(runs=ptn.step.mix_runs):
-            bkt_mix_epilogue(ptn.step.mix, ptn.step.shear_only, Sn0, spn,
-                             cn0, cm0, runs=runs, offs=ptn.offs)
+        # K3 on the four-layer box at 2^20 elements (49,533 mixed
+        # elements), both types of its main path
+        for dname in ("float32", "float64"):
+            ptn = tables(sim_4b, plan_4b, dts[dname])
+            st_n = random_bktq_state(ptn)
+            sp_n = [torch.empty_like(x) for x in st_n]
+            nargs = (ptn.K, ptn.offs, ptn.step.tab)
+            outs = dict(zip(("out", "conv_out", "conv_mix_out"), sp_n))
+            key = ("bkt_node_step", dname)
+            T[key], P[key] = twice(
+                lambda: bkt_node_step(st_n[0], st_n[1], *nargs,
+                                      mix=ptn.step.mix, conv_mix=st_n[2],
+                                      **outs),
+                lambda: bkt_node_step_plain(st_n[0], st_n[1], *nargs,
+                                            ptn.step.mix, st_n[2]))
+            C[key] = roofline.route_costs(
+                ptn, sim_4b.mesh.lenum)["bkt_node_step"]
+            if dname == "float32":
+                inc1n = source_increments(ptn, sim_4b.src_forces,
+                                          sim_4b.params.delta_t ** 2, 0, 1)
 
-        def k3_route_step():
-            sample_stations(Sn0, ptn.st_pos, ptn.st_phi)
-            S1 = ptn.step(Sn0, cn0, cm0, out=spn, conv_out=cspn)[0]
-            S1[0:3].index_add_(1, ptn.src_pos, srcfn[0])
+                def k3_route_step():
+                    sample_stations(st_n[0], ptn.st_pos, ptn.st_phi)
+                    S1 = ptn.step(*st_n, **outs)[0]
+                    S1[0:3].index_add_(1, ptn.src_pos, inc1n[0])
 
-        t_k3p = timed(lambda: bkt_node_step_plain(Sn0, cn0, *nargs), 30, 3)
-        t_k3 = timed(lambda: bkt_node_step(Sn0, cn0, *nargs, out=spn,
-                                           conv_out=cspn), 30, 5)
-        t_mix = timed(epilogue, 30, 5)
-        # the gather form on the same mixed set, for comparison
-        t_mix_gather = timed(lambda: epilogue(None), 30, 5)
-        t_k3loop = timed(k3_route_step, 30, 5)
-        t_k3_again = timed(lambda: bkt_node_step(Sn0, cn0, *nargs, out=spn,
-                                                 conv_out=cspn), 30, 5)
-        t_k3p_again = timed(lambda: bkt_node_step_plain(Sn0, cn0, *nargs),
-                            30, 3)
-        ptc = tables(sim_4b, plan_4b, f32, bkt_tier="corner")
-        Sc0, cc0 = random_bktq_state(ptc)
-        spc, cspc = torch.empty_like(Sc0), torch.empty_like(cc0)
-        cargs = (ptc.K, ptc.step.bk, ptc.offs, ptc.step.fm)
-        t_k4p = timed(lambda: bkt_corner_step_plain(Sc0, cc0, *cargs), 10, 2)
-        t_k4 = timed(lambda: bkt_corner_step(Sc0, cc0, *cargs, out=spc,
-                                             conv_out=cspc), 30, 5)
-        t_k4_again = timed(lambda: bkt_corner_step(Sc0, cc0, *cargs, out=spc,
-                                                   conv_out=cspc), 30, 5)
-        t_k4p_again = timed(lambda: bkt_corner_step_plain(Sc0, cc0, *cargs),
-                            10, 2)
-        # bound, shares and launches of every kernel, from the shapes of
-        # the inputs timed above; the chunk kernels' bytes are amortised
-        # over the CH steps per launch they were timed at (the main
-        # path's launch runs all its steps: both bounds are set by the
-        # operations at 2^20 elements)
-        cost = {**roofline.route_costs(pt, sim_b.mesh.lenum, chunk=CH),
-                **roofline.route_costs(ptb, sim_bb.mesh.lenum, chunk=CH),
-                **roofline.route_costs(ptn, sim_4b.mesh.lenum),
-                **roofline.route_costs(ptc, sim_4b.mesh.lenum),
-                "stream_add": roofline.kernel_cost(
-                    "stream_add", hbm_ceiling.LEN, 0)}
-        ms = {"brick_step": min(t_k1, t_k1_again), "brick_chunk": t_k5,
-              "bkt_step": min(t_k2, t_k2_again), "bkt_chunk": t_k6,
-              "bkt_node_step": min(t_k3, t_k3_again),
-              "bkt_corner_step": min(t_k4, t_k4_again),
-              "stream_add": t_k7}
-        plain_ms = {"brick_step": min(t_plain, t_plain_again),
-                    "brick_chunk": t_k5p,
-                    "bkt_step": min(t_k2p, t_k2p_again), "bkt_chunk": t_k6p,
-                    "bkt_node_step": min(t_k3p, t_k3p_again),
-                    "bkt_corner_step": min(t_k4p, t_k4p_again),
-                    "stream_add": t_add}
-        library_ms = {k: None for k in ms}
-        library_ms["stream_add"] = plain_ms["stream_add"]
-        # each kernel's launches on its own main path
+                route_ms["k3_route_step"] = timed(k3_route_step, 30, 5)
+                lone_ms["k3_route_step"] = lone(k3_route_step)
+                mixed = ptn.step.mix_M
+
+        # K4 on the four-layer box at 62.5 m (its main path: 2048
+        # elements), both types; and forced at 2^20 in float32
+        for label, sim, plan, dname, tier in (
+                ("", sim_4q, plan_4q, "float32", None),
+                ("", sim_4q, plan_4q, "float64", None),
+                ("_2^20_forced", sim_4b, plan_4b, "float32", "corner")):
+            ptc = tables(sim, plan, dts[dname], bkt_tier=tier)
+            require(ptc.bkt_tier == "corner", f"K4 timing tier {ptc.bkt_tier}")
+            Sc0, cc0 = random_bktq_state(ptc)
+            spc, cspc = torch.empty_like(Sc0), torch.empty_like(cc0)
+            cargs = (ptc.K, ptc.step.bk, ptc.offs, ptc.step.fm)
+            key = ("bkt_corner_step" + label, dname)
+            T[key], P[key] = twice(
+                lambda: bkt_corner_step(Sc0, cc0, *cargs, out=spc,
+                                        conv_out=cspc),
+                lambda: bkt_corner_step_plain(Sc0, cc0, *cargs))
+            C[key] = roofline.route_costs(
+                ptc, sim.mesh.lenum)["bkt_corner_step"]
+
+        # K7: the probe's legs; lone calls against torch.add
+        key = ("stream_add", "float32")
+        T[key], P[key] = [t_k7], [t_add]
+        C[key] = roofline.kernel_cost("stream_add", hbm_ceiling.LEN, 0)
+        for rnd in ("", "_again"):
+            lone_ms["torch.add" + rnd] = lone(
+                lambda: torch.add(a7, b7, out=a7))
+            lone_ms["stream_add" + rnd] = lone(
+                lambda: stream_add(a7, b7, out=a7))
+        # host microseconds per call on [8, 1024] (a kernel of a few us,
+        # so the host sets the pace): the wall clock over 20,000 calls
+        xs, ys = torch.ones((8, 1024), device=dev), torch.ones((8, 1024),
+                                                               device=dev)
+
+        def host_us(fn, n=20000):
+            for _ in range(200):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            return (t1 - t0) / n * 1e6
+
+        host_us_per_call = {}
+        for rnd in ("", " again"):
+            host_us_per_call["torch.add" + rnd] = host_us(
+                lambda: torch.add(xs, ys, out=xs))
+            host_us_per_call["stream_add" + rnd] = host_us(
+                lambda: stream_add(xs, ys, out=xs))
+
+        # each kernel's launches on its own main path, by type
         own = {"brick_step": main_launches, "brick_chunk": main_launches,
                "bkt_step": bkt_launches, "bkt_chunk": bkt_launches,
                "bkt_node_step": node_launches,
                "bkt_corner_step": corner_launches}
-        launches = {k: own[k][k] for k in own}
-        launches["stream_add"] = k7_launches
-        roof = {k: {"ms": ms[k], "plain_ms": plain_ms[k],
-                    "library_ms": library_ms[k],
-                    "bytes": c.bytes, "moved": c.moved, "flop": c.flop,
-                    "bound_ms": c.bound_ms, "bound_by": c.bound_by,
-                    "share_of_bound": c.bound_ms / ms[k],
-                    "moved_GBps": c.moved / (ms[k] * 1e-3) / 1e9,
-                    "share_of_ceiling":
-                        c.moved / (ms[k] * 1e-3) / 1e9 / ceiling_GBps,
-                    "launches": launches[k],
-                    "bound_steps_per_launch":
-                        CH if k in ("brick_chunk", "bkt_chunk") else 1}
-                for k, c in cost.items()}
-        emit({"phase": "timing", "card": card,
-              "elements": sim_b.mesh.lenum, "LEN": pt.LEN,
-              "ms_per_step": {
-                  "brick_step": [t_k1, t_k1_again],
-                  "brick_step_plain": [t_plain, t_plain_again],
-                  "k1_route_step": t_loop,
-                  "brick_chunk": t_k5,
-                  "brick_chunk_plain": t_k5p,
-                  "bkt_step": [t_k2, t_k2_again],
-                  "bkt_step_plain": [t_k2p, t_k2p_again],
-                  "k2_route_step": t_k2loop,
-                  "bkt_chunk": t_k6,
-                  "bkt_chunk_plain": t_k6p,
-                  "bkt_step_bf16_kappa": t_k2s,
-                  "bkt_step_plain_bf16_kappa": t_k2ps,
-                  "bkt_chunk_bf16_kappa": t_k6s,
-                  "bkt_node_step": [t_k3, t_k3_again],
-                  "bkt_node_step_plain": [t_k3p, t_k3p_again],
-                  "bkt_mix_epilogue": t_mix,
-                  "bkt_mix_epilogue_gather_form": t_mix_gather,
-                  "k3_route_step": t_k3loop,
-                  "bkt_corner_step": [t_k4, t_k4_again],
-                  "bkt_corner_step_plain": [t_k4p, t_k4p_again]},
-              "mixed_elements": ptn.step.mix_M,
+        launches = {k: {d: v["by_type"][d][k] for d in dts}
+                    for k, v in own.items()}
+        launches["stream_add"] = {"float32": k7_launches, "float64": 0}
+        per_launch = {"brick_chunk": STEPS, "bkt_chunk": STEPS}
+        entries = {}
+        for (k, d), c in C.items():
+            t = min(T[(k, d)])
+            base = k.split("_2^20")[0]
+            n = launches[base][d] if base == k else 0
+            entries[f"{k} {d}"] = {
+                "ms": t, "ms_runs": T[(k, d)], "plain_ms": min(P[(k, d)]),
+                "bytes": c.bytes, "moved": c.moved, "flop": c.flop,
+                "bound_ms": c.bound_ms, "bound_by": c.bound_by,
+                "share_of_bound": c.bound_ms / t,
+                "moved_GBps": c.moved / (t * 1e-3) / 1e9,
+                "share_of_ceiling": c.moved / (t * 1e-3) / 1e9 / ceiling_GBps,
+                "launches": n,
+                "steps_per_launch": per_launch.get(k, 1),
+                "time_lost_ms": n * per_launch.get(k, 1) * (t - c.bound_ms)}
+        lost = {}
+        for e, v in entries.items():
+            k = e.split(" ")[0]
+            if "_2^20" not in k:
+                lost[k] = lost.get(k, 0.0) + v["time_lost_ms"]
+        # the row of each kernel: the type of its main path's launches
+        # (float64 for the K1 and K2 step routes, float32 otherwise; K3
+        # and K4 run both, their float64 entries stand beside the row)
+        row_type = {"brick_step": "float64", "bkt_step": "float64"}
+        roof = {k: {**entries[f"{k} {row_type.get(k, 'float32')}"],
+                    "launches": sum(launches[k].values()),
+                    "library_ms": t_add if k == "stream_add" else None}
+                for k in launches}
+        emit({"phase": "timing", "card": card, "steps": STEPS,
+              "entries": entries, "time_lost_ms": lost,
+              "route_ms_per_step": route_ms, "lone_call_ms": lone_ms,
+              "host_us_per_call": host_us_per_call,
+              "soft_box_ms": soft_ms, "mixed_elements": mixed,
               "stream_ceiling_GBps": ceiling_GBps,
-              "kernels": roof,
               "element_updates_per_s": {
-                  "brick_step": sim_b.mesh.lenum / (min(t_k1, t_k1_again)
-                                                    * 1e-3),
-                  "brick_chunk": sim_b.mesh.lenum / (t_k5 * 1e-3),
-                  "bkt_step": sim_bb.mesh.lenum / (min(t_k2, t_k2_again)
-                                                   * 1e-3),
-                  "bkt_chunk": sim_bb.mesh.lenum / (t_k6 * 1e-3),
-                  "k3_route_step": sim_4b.mesh.lenum / (t_k3loop * 1e-3),
-                  "bkt_corner_step": sim_4b.mesh.lenum
-                  / (min(t_k4, t_k4_again) * 1e-3)}})
+                  k: sim_b.mesh.lenum / (v * 1e-3)
+                  for k, v in route_ms.items()}})
 
         # the TPU kernel each one replaces, and its CUDA source
         ports = (

@@ -28,7 +28,7 @@
 //
 // The memory variables belong to (element, corner), so the recursion
 // must run once per element, not once per node as the force gather of
-// K1-K3 would run it.  Two passes, two launches:
+// K1 and K2 would run it.  Two passes, two launches:
 //   1. corner_elem: one thread per element column: gathers u, u- at the
 //      8 corners, runs the recursion on its R rows, writes conv' and
 //      F_e to a scratch F [24, len];
@@ -40,13 +40,11 @@
 // (neighbours' reads hit L1/L2), 192 B of conv and 80 B of bk and
 // writes 192 B of conv and 96 B of F; pass 2 reads 96 B of F, 32 B
 // of S, 16 B of K and writes 32 B: about 0.75 KB per column, 0.82 GB
-// per step at 2^20 elements, 3.6x K3's stream.  K3 alone is the faster
-// kernel, but its tier adds the torch epilogue at the mixed elements:
-// on the four-layer box at 2^20 elements in float32 (H100 80GB HBM3,
-// 700 W) this kernel took 0.556 ms per step and the node route step
-// (sampling, K3, epilogue, sources) 2.99-3.68 ms.  The tier rule stays
-// the JAX package's (node first) for parity.  Pass 1 does 24 x 48 =
-// 1152 FMAs per element.
+// per step at 2^20 elements.  On the four-layer box at 2^20 elements in
+// float32 (H100 80GB HBM3, 700 W) this kernel takes about 0.56 ms per
+// step and K3, the node tier's kernel with its mixed elements, about
+// 0.16 ms (PERF.md); the tier rule stays the JAX package's (node
+// first) for parity.  Pass 1 does 24 x 48 = 1152 FMAs per element.
 //
 // Rounding: the recursion is written as separate products and sums in
 // the plain version's order (rec_pair, under --fmad=false), and conv'

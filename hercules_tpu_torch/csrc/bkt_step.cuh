@@ -1,11 +1,9 @@
 // Per-node bodies of the node-basis BKT step, shared by bkt_step (K2, one
-// step per call), bkt_chunk (K6, one launch per chunk of steps) and
-// bkt_node (K3, the general-Q step).  K2 and K6 inline these functions
-// with the same arguments, so they run the same arithmetic in the same
-// order and give bit-identical states.  K3 runs the same recursion with
-// each node's coefficient set in place of the brick's one set, and the
-// force with the per-element mu_f and kappa_f on the output side
-// (node_force<..., PER_ELEM = true>).
+// step per call) and bkt_chunk (K6, one launch per chunk of steps).  K2
+// and K6 inline these functions with the same arguments, so they run the
+// same arithmetic in the same order and give bit-identical states.
+// bkt_node (K3, the general-Q step) uses rec_pair and the conv storage
+// helpers, with its own tiled force pass in the spectral form.
 //
 // Layout (hercules_tpu_torch/solver/fused_bkt.py):
 //   S    [8, len]: rows 0:3 = u, 3:6 = u-, 6:8 = zero rows carried
@@ -122,12 +120,9 @@ __device__ __forceinline__ void node_rec(const T* S, const CT* conv,
 }
 
 // Pass 2 at node n: the force gathered from the 8 elements sharing n,
-// then the update S -> out.  Shear-only runs read dvk = u from S.
-// PER_ELEM = false (K2, K6): fm has mu_f and kappa_f folded in and K row
-// 4 flags the valid elements.  PER_ELEM = true (K3): fm = [Kmu | Kkappa]
-// and K rows 4, 5 hold each element's mu_f and kappa_f (both 0 for
-// invalid elements): F_e = mu_f (Kmu dvs) + kappa_f (Kkappa dvk).
-template <typename T, bool KAPPA, bool PER_ELEM = false>
+// then the update S -> out.  Shear-only runs read dvk = u from S.  fm
+// has mu_f and kappa_f folded in and K row 4 flags the valid elements.
+template <typename T, bool KAPPA>
 __device__ __forceinline__ void node_force(const T* S, const T* K,
                                            const T* dv, T* out, int n,
                                            int len, const Offs& offs) {
@@ -138,16 +133,8 @@ __device__ __forceinline__ void node_force(const T* S, const T* K,
     // every corner of e must lie inside the state; valid elements
     // always do (their corners are brick nodes < nb <= len)
     if (e < 0 || e + offs.o[7] >= len) continue;
-    T mu = T(0), ka = T(0);
-    if constexpr (PER_ELEM) {
-      mu = K[4 * len + e];
-      ka = K[5 * len + e];
-      if (mu == T(0) && ka == T(0)) continue;  // padding or invalid
-    } else {
-      if (K[4 * len + e] == T(0)) continue;  // padding or invalid element
-    }
+    if (K[4 * len + e] == T(0)) continue;  // padding or invalid element
     T a[3] = {T(0), T(0), T(0)};
-    T b[3] = {T(0), T(0), T(0)};
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int col = e + offs.o[i];
@@ -159,20 +146,12 @@ __device__ __forceinline__ void node_force(const T* S, const T* K,
         for (int c = 0; c < 3; ++c) {
           const int row = (3 * j + c) * 48;
           a[c] = fma_rn(fm<T>(row + 3 * i + cc), xs, a[c]);
-          if constexpr (PER_ELEM)
-            b[c] = fma_rn(fm<T>(row + 24 + 3 * i + cc), xk, b[c]);
-          else
-            a[c] = fma_rn(fm<T>(row + 24 + 3 * i + cc), xk, a[c]);
+          a[c] = fma_rn(fm<T>(row + 24 + 3 * i + cc), xk, a[c]);
         }
       }
     }
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      if constexpr (PER_ELEM)
-        f[c] = f[c] + (mu * a[c] + ka * b[c]);
-      else
-        f[c] = f[c] + a[c];
-    }
+    for (int c = 0; c < 3; ++c) f[c] = f[c] + a[c];
   }
   const T invm = K[3 * len + n];
 #pragma unroll

@@ -41,6 +41,42 @@ def _ptr(t):
     return None if t is None or t.numel() == 0 else t.data_ptr()
 
 
+def _prepare(S, spare, conv, conv_spare, K, offs, fm, rec, srcf, src_pos,
+             st_pos, st_phi):
+    """Raise unless the arguments are what the kernel takes; returns (C
+    entry, constant bank setter, LEN, offsets, recursion scalars, kappa
+    flag, dv rows, CH, L, ns, device)."""
+    sfx = check_args("bkt_chunk", S, conv, K, offs, fm, rec, spare,
+                     conv_spare)
+    CH = srcf.shape[0]
+    L = 0 if src_pos is None else src_pos.shape[0]
+    ns = 0 if st_pos is None else st_pos.shape[0]
+    if L > 128 or ns > 128:
+        raise ValueError(f"bkt_chunk: {L} sources and {ns} stations "
+                         f"(at most 128 each)")
+    if tuple(srcf.shape) != (CH, 3, L) or srcf.dtype != S.dtype \
+            or srcf.device != S.device or not srcf.is_contiguous():
+        raise ValueError(f"bkt_chunk: srcf must be a contiguous "
+                         f"{(CH, 3, L)} {S.dtype} tensor on {S.device}")
+    if L and src_pos.device != S.device:
+        raise ValueError("bkt_chunk: src_pos must be on the state's device")
+    if ns and (tuple(st_pos.shape) != (ns, 8)
+               or tuple(st_phi.shape) != (ns, 8)
+               or st_phi.dtype != S.dtype
+               or st_pos.device != S.device
+               or st_phi.device != S.device):
+        raise ValueError("bkt_chunk: st_pos/st_phi must be [ns, 8] on "
+                         "the state's device")
+    kappa = conv.shape[0] == 12
+    return (build.entry(f"ht_bkt_chunk_{sfx}"),
+            f"ht_bkt_chunk_set_fm_{sfx[:3]}", S.shape[1],
+            build.offsets_arg(offs), rec_arg(rec, S.dtype), int(kappa),
+            6 if kappa else 3, CH, L, ns, S.device.index)
+
+
+_CHECKS = build.CheckCache(_prepare)
+
+
 def bkt_chunk(S, spare, conv, conv_spare, K, offs, fm, rec, srcf,
               src_pos=None, st_pos=None, st_phi=None):
     """CH = srcf.shape[0] steps from (S, conv).  srcf [CH, 3, L] holds
@@ -54,42 +90,23 @@ def bkt_chunk(S, spare, conv, conv_spare, K, offs, fm, rec, srcf,
     if S.device.type == "cpu":
         return bkt_chunk_plain(S, conv, K, offs, fm, rec, srcf, src_pos,
                                st_pos, st_phi)
-    sfx = check_args("bkt_chunk", S, conv, K, offs, fm, rec, spare,
-                     conv_spare)
-    CH = srcf.shape[0]
-    L = 0 if src_pos is None else src_pos.shape[0]
-    ns = 0 if st_pos is None else st_pos.shape[0]
-    if L > 128 or ns > 128:
-        raise ValueError(f"bkt_chunk: {L} sources and {ns} stations "
-                         f"(at most 128 each)")
-    if tuple(srcf.shape) != (CH, 3, L) or srcf.dtype != S.dtype \
-            or srcf.device != S.device or not srcf.is_contiguous():
-        raise ValueError(f"bkt_chunk: srcf must be a contiguous "
-                         f"{(CH, 3, L)} {S.dtype} tensor on {S.device}")
-    if ns and (tuple(st_pos.shape) != (ns, 8)
-               or tuple(st_phi.shape) != (ns, 8)
-               or st_phi.dtype != S.dtype
-               or st_pos.device != S.device
-               or st_phi.device != S.device):
-        raise ValueError("bkt_chunk: st_pos/st_phi must be [ns, 8] on "
-                         "the state's device")
+    fn, setter, LEN, offs_arg, rec_c, kappa, D, CH, L, ns, dev = _CHECKS(
+        S, spare, conv, conv_spare, K, offs, fm, tuple(rec), srcf, src_pos,
+        st_pos, st_phi)
     samples = S.new_empty((CH, ns, 3))
     if CH == 0:
         return S, conv, samples
-    kappa = conv.shape[0] == 12
-    dv = S.new_empty((6 if kappa else 3, S.shape[1]))
+    dv = S.new_empty((D, LEN))
     # the kernel indexes with 32-bit ints
     pos32 = None if not L else src_pos.to(torch.int32).contiguous()
     st32 = None if not ns else st_pos.to(torch.int32).contiguous()
     phi = None if not ns else st_phi.contiguous()
-    stream = torch.cuda.current_stream(S.device).cuda_stream
-    build.ensure_ops(f"ht_bkt_chunk_set_fm_{sfx[:3]}", fm, stream)
-    rc = getattr(build.lib(), f"ht_bkt_chunk_{sfx}")(
-        S.data_ptr(), spare.data_ptr(), conv.data_ptr(),
-        conv_spare.data_ptr(), dv.data_ptr(), K.data_ptr(), S.shape[1],
-        build.offsets_arg(offs), rec_arg(rec, S.dtype), int(kappa), CH,
-        _ptr(srcf), _ptr(pos32), L, _ptr(st32), _ptr(phi), ns,
-        _ptr(samples), S.device.index, stream)
+    stream = build.stream(S)
+    build.ensure_ops(setter, fm, stream)
+    rc = fn(S.data_ptr(), spare.data_ptr(), conv.data_ptr(),
+            conv_spare.data_ptr(), dv.data_ptr(), K.data_ptr(), LEN, offs_arg,
+            rec_c, kappa, CH, _ptr(srcf), _ptr(pos32), L, _ptr(st32),
+            _ptr(phi), ns, _ptr(samples), dev, stream)
     build.check(rc, "bkt_chunk launch")
     bkt_chunk.launches += 1
     if CH % 2:

@@ -93,6 +93,20 @@ def check_args(name, S, conv, K, bk, offs, fm, out, conv_out):
     return sfx
 
 
+def _prepare(S, conv, K, bk, offs, fm, out, conv_out):
+    """check_args, then (C entry, constant bank setter, LEN, offsets,
+    kappa flag, device index)."""
+    sfx = check_args("bkt_corner_step", S, conv, K, bk, offs, fm, out,
+                     conv_out)
+    return (build.entry(f"ht_bkt_corner_step_{sfx}"),
+            f"ht_bkt_corner_set_fm_{sfx[:3]}", S.shape[1],
+            build.offsets_arg(offs), int(conv.shape[0] == 96),
+            S.device.index)
+
+
+_CHECKS = build.CheckCache(_prepare)
+
+
 def bkt_corner_step(S, conv, K, bk, offs, fm, out=None, conv_out=None):
     """One step (S, conv) -> (out, conv_out) (new tensors unless given).
     CUDA tensors run the K4 kernels; CPU tensors run
@@ -108,16 +122,14 @@ def bkt_corner_step(S, conv, K, bk, offs, fm, out=None, conv_out=None):
         out = torch.empty_like(S)
     if conv_out is None:
         conv_out = torch.empty_like(conv)
-    sfx = check_args("bkt_corner_step", S, conv, K, bk, offs, fm, out,
-                     conv_out)
-    F = S.new_empty((24, S.shape[1]))
-    stream = torch.cuda.current_stream(S.device).cuda_stream
-    build.ensure_ops(f"ht_bkt_corner_set_fm_{sfx[:3]}", fm, stream)
-    rc = getattr(build.lib(), f"ht_bkt_corner_step_{sfx}")(
-        S.data_ptr(), conv.data_ptr(), K.data_ptr(), bk.data_ptr(),
-        out.data_ptr(), conv_out.data_ptr(), F.data_ptr(), S.shape[1],
-        build.offsets_arg(offs), int(conv.shape[0] == 96), S.device.index,
-        stream)
+    fn, setter, LEN, offs_arg, kappa, dev = _CHECKS(S, conv, K, bk, offs,
+                                                   fm, out, conv_out)
+    F = S.new_empty((24, LEN))
+    stream = build.stream(S)
+    build.ensure_ops(setter, fm, stream)
+    rc = fn(S.data_ptr(), conv.data_ptr(), K.data_ptr(), bk.data_ptr(),
+            out.data_ptr(), conv_out.data_ptr(), F.data_ptr(), LEN, offs_arg,
+            kappa, dev, stream)
     build.check(rc, "bkt_corner_step launch")
     bkt_corner_step.launches += 1
     return out, conv_out

@@ -119,6 +119,19 @@ def rec_arg(rec, dtype):
     return (ct * 18)(*vals)
 
 
+def _prepare(S, conv, K, offs, fm, rec, out, conv_out):
+    """check_args, then (C entry, constant bank setter, LEN, offsets,
+    recursion scalars, kappa flag, dv rows, device index)."""
+    sfx = check_args("bkt_step", S, conv, K, offs, fm, rec, out, conv_out)
+    kappa = conv.shape[0] == 12
+    return (build.entry(f"ht_bkt_step_{sfx}"), f"ht_bkt_step_set_fm_{sfx[:3]}",
+            S.shape[1], build.offsets_arg(offs), rec_arg(rec, S.dtype),
+            int(kappa), 6 if kappa else 3, S.device.index)
+
+
+_CHECKS = build.CheckCache(_prepare)
+
+
 def bkt_step(S, conv, K, offs, fm, rec, out=None, conv_out=None):
     """One step (S, conv) -> (out, conv_out) (new tensors unless given).
     CUDA tensors run the K2 kernels; CPU tensors run bkt_step_plain."""
@@ -133,16 +146,14 @@ def bkt_step(S, conv, K, offs, fm, rec, out=None, conv_out=None):
         out = torch.empty_like(S)
     if conv_out is None:
         conv_out = torch.empty_like(conv)
-    sfx = check_args("bkt_step", S, conv, K, offs, fm, rec, out, conv_out)
-    kappa = conv.shape[0] == 12
-    dv = S.new_empty((6 if kappa else 3, S.shape[1]))
-    stream = torch.cuda.current_stream(S.device).cuda_stream
-    build.ensure_ops(f"ht_bkt_step_set_fm_{sfx[:3]}", fm, stream)
-    rc = getattr(build.lib(), f"ht_bkt_step_{sfx}")(
-        S.data_ptr(), conv.data_ptr(), K.data_ptr(), out.data_ptr(),
-        conv_out.data_ptr(), dv.data_ptr(), S.shape[1],
-        build.offsets_arg(offs), rec_arg(rec, S.dtype), int(kappa),
-        S.device.index, stream)
+    fn, setter, LEN, offs_arg, rec_c, kappa, D, dev = _CHECKS(
+        S, conv, K, offs, fm, tuple(rec), out, conv_out)
+    dv = S.new_empty((D, LEN))
+    stream = build.stream(S)
+    build.ensure_ops(setter, fm, stream)
+    rc = fn(S.data_ptr(), conv.data_ptr(), K.data_ptr(), out.data_ptr(),
+            conv_out.data_ptr(), dv.data_ptr(), LEN, offs_arg, rec_c, kappa,
+            dev, stream)
     build.check(rc, "bkt_step launch")
     bkt_step.launches += 1
     return out, conv_out

@@ -49,6 +49,39 @@ def _ptr(t):
     return None if t is None or t.numel() == 0 else t.data_ptr()
 
 
+def _prepare(S, spare, K, offs, ops, srcf, src_pos, st_pos, st_phi):
+    """Raise unless the arguments are what the kernel takes; returns (C
+    entry, constant bank setter, LEN, offsets, CH, L, ns, device)."""
+    check_args("brick_chunk", S, K, offs, ops, spare)
+    CH = srcf.shape[0]
+    L = 0 if src_pos is None else src_pos.shape[0]
+    ns = 0 if st_pos is None else st_pos.shape[0]
+    if L > 128 or ns > 128:
+        raise ValueError(f"brick_chunk: {L} sources and {ns} stations "
+                         f"(at most 128 each)")
+    if tuple(srcf.shape) != (CH, 3, L) or srcf.dtype != S.dtype \
+            or srcf.device != S.device or not srcf.is_contiguous():
+        raise ValueError(f"brick_chunk: srcf must be a contiguous "
+                         f"{(CH, 3, L)} {S.dtype} tensor on {S.device}")
+    if L and src_pos.device != S.device:
+        raise ValueError("brick_chunk: src_pos must be on the state's "
+                         "device")
+    if ns and (tuple(st_pos.shape) != (ns, 8)
+               or tuple(st_phi.shape) != (ns, 8)
+               or st_phi.dtype != S.dtype
+               or st_pos.device != S.device
+               or st_phi.device != S.device):
+        raise ValueError("brick_chunk: st_pos/st_phi must be [ns, 8] on "
+                         "the state's device")
+    sfx = "f32" if S.dtype == torch.float32 else "f64"
+    return (build.entry(f"ht_brick_chunk_{sfx}"),
+            f"ht_brick_chunk_set_ops_{sfx}", S.shape[1],
+            build.offsets_arg(offs), CH, L, ns, S.device.index)
+
+
+_CHECKS = build.CheckCache(_prepare)
+
+
 def brick_chunk(S, spare, K, offs, ops, srcf, src_pos=None, st_pos=None,
                 st_phi=None):
     """CH = srcf.shape[0] steps from S.  srcf [CH, 3, L] holds the
@@ -61,24 +94,8 @@ def brick_chunk(S, spare, K, offs, ops, srcf, src_pos=None, st_pos=None,
     if S.device.type == "cpu":
         return brick_chunk_plain(S, K, offs, ops, srcf, src_pos, st_pos,
                                  st_phi)
-    check_args("brick_chunk", S, K, offs, ops, spare)
-    CH = srcf.shape[0]
-    L = 0 if src_pos is None else src_pos.shape[0]
-    ns = 0 if st_pos is None else st_pos.shape[0]
-    if L > 128 or ns > 128:
-        raise ValueError(f"brick_chunk: {L} sources and {ns} stations "
-                         f"(at most 128 each)")
-    if tuple(srcf.shape) != (CH, 3, L) or srcf.dtype != S.dtype \
-            or srcf.device != S.device or not srcf.is_contiguous():
-        raise ValueError(f"brick_chunk: srcf must be a contiguous "
-                         f"{(CH, 3, L)} {S.dtype} tensor on {S.device}")
-    if ns and (tuple(st_pos.shape) != (ns, 8)
-               or tuple(st_phi.shape) != (ns, 8)
-               or st_phi.dtype != S.dtype
-               or st_pos.device != S.device
-               or st_phi.device != S.device):
-        raise ValueError("brick_chunk: st_pos/st_phi must be [ns, 8] on "
-                         "the state's device")
+    fn, setter, LEN, offs_arg, CH, L, ns, dev = _CHECKS(
+        S, spare, K, offs, ops, srcf, src_pos, st_pos, st_phi)
     samples = S.new_empty((CH, ns, 3))
     if CH == 0:
         return S, samples
@@ -86,13 +103,11 @@ def brick_chunk(S, spare, K, offs, ops, srcf, src_pos=None, st_pos=None,
     pos32 = None if not L else src_pos.to(torch.int32).contiguous()
     st32 = None if not ns else st_pos.to(torch.int32).contiguous()
     phi = None if not ns else st_phi.contiguous()
-    sfx = "f32" if S.dtype == torch.float32 else "f64"
-    stream = torch.cuda.current_stream(S.device).cuda_stream
-    build.ensure_ops(f"ht_brick_chunk_set_ops_{sfx}", ops, stream)
-    rc = getattr(build.lib(), f"ht_brick_chunk_{sfx}")(
-        S.data_ptr(), spare.data_ptr(), K.data_ptr(), S.shape[1],
-        build.offsets_arg(offs), CH, _ptr(srcf), _ptr(pos32), L,
-        _ptr(st32), _ptr(phi), ns, _ptr(samples), S.device.index, stream)
+    stream = build.stream(S)
+    build.ensure_ops(setter, ops, stream)
+    rc = fn(S.data_ptr(), spare.data_ptr(), K.data_ptr(), LEN, offs_arg, CH,
+            _ptr(srcf), _ptr(pos32), L, _ptr(st32), _ptr(phi), ns,
+            _ptr(samples), dev, stream)
     build.check(rc, "brick_chunk launch")
     brick_chunk.launches += 1
     return (S if CH % 2 == 0 else spare), samples

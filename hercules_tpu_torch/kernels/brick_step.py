@@ -62,6 +62,19 @@ def check_args(name, S, K, offs, ops, out):
                          f"indexing")
 
 
+def _prepare(S, K, offs, ops, out):
+    """check_args, then (C entry, constant bank setter, LEN, offsets,
+    device index)."""
+    check_args("brick_step", S, K, offs, ops, out)
+    sfx = "f32" if S.dtype == torch.float32 else "f64"
+    return (build.entry(f"ht_brick_step_{sfx}"),
+            f"ht_brick_step_set_ops_{sfx}", S.shape[1],
+            build.offsets_arg(offs), S.device.index)
+
+
+_CHECKS = build.CheckCache(_prepare)
+
+
 def brick_step(S, K, offs, ops, out=None):
     """One step S -> out (a new tensor unless ``out`` is given).  CUDA
     tensors run the K1 kernel; CPU tensors run brick_step_plain."""
@@ -70,13 +83,11 @@ def brick_step(S, K, offs, ops, out=None):
         return res if out is None else out.copy_(res)
     if out is None:
         out = torch.empty_like(S)
-    check_args("brick_step", S, K, offs, ops, out)
-    sfx = "f32" if S.dtype == torch.float32 else "f64"
-    stream = torch.cuda.current_stream(S.device).cuda_stream
-    build.ensure_ops(f"ht_brick_step_set_ops_{sfx}", ops, stream)
-    rc = getattr(build.lib(), f"ht_brick_step_{sfx}")(
-        S.data_ptr(), K.data_ptr(), out.data_ptr(), S.shape[1],
-        build.offsets_arg(offs), S.device.index, stream)
+    fn, setter, LEN, offs_arg, dev = _CHECKS(S, K, offs, ops, out)
+    stream = build.stream(S)
+    build.ensure_ops(setter, ops, stream)
+    rc = fn(S.data_ptr(), K.data_ptr(), out.data_ptr(), LEN, offs_arg, dev,
+            stream)
     build.check(rc, "brick_step launch")
     brick_step.launches += 1
     return out

@@ -11,7 +11,12 @@ fallback: a missing toolkit or a failed build raises.
 
 The library links the CUDA runtime statically and talks to the same
 device (primary context) and streams as PyTorch: the wrappers pass
-``tensor.data_ptr()`` and ``torch.cuda.current_stream().cuda_stream``.
+``tensor.data_ptr()`` and the current stream's handle (``stream``).
+
+The launch path every wrapper shares: each C entry is resolved once,
+when the library loads (``lib()``); a wrapper's argument checks run
+once per call signature (``CheckCache``), so a repeat call with the
+same tensors does only the stream lookup and the ctypes call.
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "hercules_tpu_torch"
@@ -54,9 +61,13 @@ SIGNATURES = {
     "ht_bkt_step_set_fm_f64": [_P, _I, _P],
     "ht_bkt_chunk_set_fm_f32": [_P, _I, _P],
     "ht_bkt_chunk_set_fm_f64": [_P, _I, _P],
+    "ht_stream_add_init": [_I],
     "ht_stream_add_f32": [_P, _P, _P, _L, _P],
     "ht_stream_add_inplace_f32": [_P, _P, _L, _P],
 }
+# entries called once, with the current device's index, when the
+# library loads
+ON_LOAD = ("ht_stream_add_init",)
 # the BKT entries, one per (working type, memory-variable type) pair
 SIGNATURES.update(
     {f"ht_bkt_step_{sfx}": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _P]
@@ -68,7 +79,8 @@ SIGNATURES.update(
 SIGNATURES.update(
     {f"ht_bkt_node_set_tab_{t}": [_P, _I, _P] for t in ("f32", "f64")})
 SIGNATURES.update(
-    {f"ht_bkt_node_step_{sfx}": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P]
+    {f"ht_bkt_node_step_{sfx}": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                 _I, _P, _I, _I, _P]
      for sfx in ("f32_bf16", "f32_f32", "f64_f64")})
 SIGNATURES.update(
     {f"ht_bkt_corner_set_fm_{t}": [_P, _I, _P] for t in ("f32", "f64")})
@@ -156,7 +168,9 @@ def _compile_and_link(so, objdir):
 
 
 def lib() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library (built on first call), every entry of
+    SIGNATURES resolved with its argument types, and the ON_LOAD
+    entries run."""
     global _LIB
     if _LIB is None:
         handle = ctypes.CDLL(str(build()))
@@ -164,8 +178,74 @@ def lib() -> ctypes.CDLL:
             fn = getattr(handle, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        for name in ON_LOAD:
+            check(getattr(handle, name)(torch.cuda.current_device()), name)
         _LIB = handle
     return _LIB
+
+
+def entry(name: str):
+    """The C entry ``name``, resolved (and the library loaded) once."""
+    return getattr(lib(), name)
+
+
+# the current stream's handle and the current device without the
+# Python layers of torch.cuda (one C call each); builds without CUDA
+# lack them and never launch
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+_GET_DEVICE = getattr(torch._C, "_cuda_getDevice", None)
+
+
+def stream(t) -> int:
+    """Handle of the current CUDA stream on tensor t's device."""
+    return _RAW_STREAM(t.get_device())
+
+
+def current_device() -> int:
+    """Index of the current CUDA device."""
+    return _GET_DEVICE()
+
+
+def signature(args) -> tuple:
+    """The key a call's checks are kept under, one flat tuple: for every
+    tensor its data pointer, shape, strides, dtype and device; every
+    other argument as it is (it must be hashable)."""
+    key = []
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            key += (a.data_ptr(), a.shape, a.stride(), a.dtype, a.device)
+        else:
+            key.append(a)
+    return tuple(key)
+
+
+class CheckCache:
+    """A wrapper's argument checks, kept per call signature.
+
+    ``check(*args)`` raises on arguments its kernel does not take, else
+    returns what the launch needs besides the stream (the C entry and
+    its arguments; never None).  Calling the cache with the same
+    arguments returns that, running ``check`` only for a signature
+    (``signature``) it has not kept.  The checks may depend on nothing
+    but the signature, so a kept one stands for every call that has it:
+    a tensor that changed shape, strides, dtype, device or memory has
+    another.  A refused call raises and keeps nothing.  At most ``size``
+    signatures are kept, the oldest dropped first."""
+
+    def __init__(self, check, size=64):
+        self.check = check
+        self.size = size
+        self.kept = {}
+
+    def __call__(self, *args):
+        key = signature(args)
+        got = self.kept.get(key)
+        if got is None:
+            got = self.check(*args)
+            if len(self.kept) >= self.size:
+                del self.kept[next(iter(self.kept))]
+            self.kept[key] = got
+        return got
 
 
 def check(rc: int, what: str):
@@ -177,6 +257,17 @@ def check(rc: int, what: str):
 def offsets_arg(offs):
     """The 8 corner offsets as the C entries' host int[8]."""
     return (ctypes.c_int * 8)(*(int(o) for o in offs))
+
+
+def overlap(a, b) -> bool:
+    """True if the memory spans of tensors a and b intersect (from
+    their data pointers, sizes and strides alone)."""
+    def span(t):
+        lo = t.data_ptr()
+        n = 1 + sum((s - 1) * abs(st) for s, st in zip(t.shape, t.stride()))
+        return lo, lo + (n if t.numel() else 0) * t.element_size()
+    (a0, a1), (b0, b1) = span(a), span(b)
+    return a0 < b1 and b0 < a1
 
 
 # operator tensor last uploaded by each *_set_ops entry, with its

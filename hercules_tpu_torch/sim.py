@@ -155,7 +155,7 @@ class Simulation:
     # which route ran the last .run(): "cuda_chunk" (brick_chunk),
     # "cuda_step" (brick_step per step), "cuda_bkt_chunk" (bkt_chunk),
     # "cuda_bkt_step" (bkt_step per step), "cuda_bkt_node_step"
-    # (bkt_node_step and the mixed-element epilogue per step),
+    # (bkt_node_step per step, the mixed elements included),
     # "cuda_bkt_corner_step" (bkt_corner_step per step) or
     # "torch_plain" (the plain versions, on the CPU)
     solver_path_name: str = ""

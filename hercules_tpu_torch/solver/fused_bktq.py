@@ -1,12 +1,13 @@
-"""General-Q BKT attenuation on one brick: the node tier (K3 and the
-mixed-element epilogue), the corner tier (K4), and the choice between
-them and the uniform tier (``fused_bkt.py``).
+"""General-Q BKT attenuation on one brick: the node tier (K3, the mixed
+elements included), the corner tier (K4), and the choice between them
+and the uniform tier (``fused_bkt.py``).
 
 Counterpart of the general-Q host side of
 ``hercules_tpu/solver/pallas_brick.py``; the JAX names are kept
 (``BKN_COEF``, ``bkn_coef_keys``, ``assign_bkt_node_coeffs``,
-``bkt_nodeq_tables``, ``bkt_mix_epilogue``, ``_bkt_mix_runs``,
-``_bkt_mix_one``).
+``bkt_nodeq_tables``).  The JAX package's mixed-element epilogue
+(``bkt_mix_epilogue``) has no counterpart here: K3 forms the mixed
+elements' force itself (``kernels/bkt_node_step.py``).
 
 A real velocity model's Qs(Vs) fit gives one BKT coefficient set per
 QTABLE bin, so a layered brick carries several.  The tiers, tried in
@@ -18,8 +19,9 @@ this order (``PallasBrickTables``, pallas_brick.py:2688-2720):
    writer), so the elements whose 8 corners all carry their own set are
    exact; the "mixed" ones -- one element plane per interface in a
    layered model -- carry their own corner-basis state conv_mix [R, 8, M]
-   and a torch epilogue after each K3 launch adds FM (mu_f (dvs_e -
-   dvs_n)) (and the kappa term) to the new state.  Declined when the
+   and K3 forms their force from it (the direct form of the JAX
+   package's epilogue, FM (mu_f (dvs_e - dvs_n)) and the kappa term
+   added to the node-basis force).  Declined when the
    true mixed set exceeds NODEQ_MAX_MIXED of the valid elements, there
    are more than NODEQ_MAX_SETS sets, or an uncoalesced mixed set
    exceeds NODEQ_MAX_MIXED_ABS elements.
@@ -50,7 +52,7 @@ from torch import nn
 from ..physics.kmats import bkt_matrices_24
 
 from ..kernels.bkt_corner_step import bkt_corner_step
-from ..kernels.bkt_node_step import bkt_node_step, node_tab
+from ..kernels.bkt_node_step import bkt_node_step, node_mix, node_tab
 from .fused_bkt import (bk_row_names, bkt_conv_dtype, bkt_kappa_zero,
                         pack_bkt_constants, uniform_step_module)
 
@@ -166,9 +168,10 @@ def bkt_nodeq_tables(coef_e, muf, kaf, mm, invm, evalid, offs, shear_only,
     Returns a dict with the node assignment (always: node_src,
     mixed_cols -- the dense coalesced set when it coalesces -- M, sets,
     node_bin), "declined", and when accepted "mix_runs", K [8, LEN] and
-    the mixed-element epilogue tables mix_idx [8, M], mix_ce [RC, 1, M],
-    mix_cn [RC, 8, M], mix_invm [8, M], mix_muf, mix_kaf [M], mix_fm
-    [24, 24 | 48].  ``force`` lifts the mixed-share and scattered-size
+    the JAX package's mixed-element epilogue tables mix_idx [8, M],
+    mix_ce [RC, 1, M], mix_cn [RC, 8, M], mix_invm [8, M], mix_muf,
+    mix_kaf [M], mix_fm [24, 24 | 48] (K3 takes mixed_cols and mix_ce;
+    the tests hold the rest against the JAX package's).  ``force`` lifts the mixed-share and scattered-size
     rules (not the set count, which K3's table bounds)."""
     LEN = coef_e.shape[1]
     node_rows, node_src, mixed, sets, node_bin = \
@@ -208,110 +211,14 @@ def bkt_nodeq_tables(coef_e, muf, kaf, mm, invm, evalid, offs, shear_only,
     return out
 
 
-def _matmul_full(a, b):
-    """a @ b in the full working precision: float32 products on the card
-    never go through TF32, whatever the caller's setting (the JAX
-    package asks for Precision.HIGHEST)."""
-    prev = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision("highest")
-    try:
-        return torch.matmul(a, b)
-    finally:
-        torch.set_float32_matmul_precision(prev)
-
-
-def _mix_force(mx, sl, shear_only, u8, up8, cvg, cm):
-    """The correction of a slice ``sl`` of the mixed set: the damping
-    vectors at the 24 corner slots recomputed under the element-basis
-    state cm [R, 8, L] and under the node-basis state cvg the kernel
-    used.  Returns (dF [8, 3, L] (not yet times inv_mass), the new cm
-    [R, 8, L] in the working type)."""
-    du8 = u8 - up8
-    ce, cn = mx["mix_ce"][..., sl], mx["mix_cn"][..., sl]
-
-    def rec3(cf, s0, s1):
-        # the kernel's op order, so that matching corners cancel exactly
-        s0n = cf[1] * u8 + cf[0] * up8 + cf[4] * s0
-        s1n = cf[3] * u8 + cf[2] * up8 + cf[5] * s1
-        dv = cf[8] * du8 + u8 - cf[6] * s0n - cf[7] * s1n
-        return s0n, s1n, dv
-
-    s0e, s1e, dvs_e = rec3(ce[:9], cm[0:3], cm[3:6])
-    _, _, dvs_n = rec3(cn[:9], cvg[0:3], cvg[3:6])
-    parts = [mx["mix_muf"][sl] * (dvs_e - dvs_n)]
-    newcm = [s0e, s1e]
-    if not shear_only:
-        k0e, k1e, dvk_e = rec3(ce[9:], cm[6:9], cm[9:12])
-        _, _, dvk_n = rec3(cn[9:], cvg[6:9], cvg[9:12])
-        parts.append(mx["mix_kaf"][sl] * (dvk_e - dvk_n))
-        newcm += [k0e, k1e]
-    # [3, 8, L] component-major -> fm row order 3 j + c
-    X = torch.cat([p.transpose(0, 1).reshape(24, -1) for p in parts])
-    dF = _matmul_full(mx["mix_fm"], X)                  # [24, L]
-    return dF.reshape(8, 3, -1), torch.cat(newcm)
-
-
-def bkt_mix_epilogue(mx, shear_only, S, Sn, cv, cm, runs=None, offs=None):
-    """Exact force correction for the mixed elements of the node tier,
-    added into Sn in place.  S and cv are the state before the step (the
-    kernel's inputs), Sn the kernel's output, cm the mixed elements'
-    carried corner-basis state [R, 8, M].  With runs and offs, the dense
-    run form (static slices, _bkt_mix_runs); else the gather form
-    (_bkt_mix_one).  Returns (Sn, cm')."""
-    if runs is not None and offs is not None:
-        return _bkt_mix_runs(mx, runs, offs, shear_only, S, Sn, cv, cm)
-    return _bkt_mix_one(mx, shear_only, S, Sn, cv, cm)
-
-
-def _bkt_mix_runs(mx, runs, offs, shear_only, S, Sn, cv, cm):
-    """Dense run form: per mixed column run [c0, c0 + L), every gather
-    is a slice at corner offset o and every scatter a slice add (j
-    ascending), the same arithmetic as _bkt_mix_one."""
-    R2 = 6 if shear_only else 12
-    cdt = cm.dtype                      # carry storage type
-    cm = cm.to(S.dtype)
-    outs = []
-    for c0, m0, L in runs:
-        sl = slice(m0, m0 + L)
-        u8 = torch.stack([S[0:3, c0 + o:c0 + o + L] for o in offs], 1)
-        up8 = torch.stack([S[3:6, c0 + o:c0 + o + L] for o in offs], 1)
-        cvg = torch.stack([cv[:R2, c0 + o:c0 + o + L] for o in offs],
-                          1).to(S.dtype)                # [R2, 8, L]
-        dF, newcm = _mix_force(mx, sl, shear_only, u8, up8, cvg, cm[..., sl])
-        vals = dF * mx["mix_invm"][:, None, sl]
-        for j, o in enumerate(offs):
-            Sn[0:3, c0 + o:c0 + o + L] += vals[j]
-        outs.append(newcm)
-    return Sn, torch.cat(outs, -1).to(cdt)
-
-
-def _bkt_mix_one(mx, shear_only, S, Sn, cv, cm):
-    """Gather form, for a mixed set that does not coalesce into runs.
-    The scatter is deterministic: for one corner j the targets
-    mixed + o[j] are distinct, so each of the 8 index_add_ calls (j
-    ascending, the JAX scatter's order) adds one value per column."""
-    R2 = 6 if shear_only else 12
-    idx = mx["mix_idx"]                                 # [8, M]
-    u8 = S[0:3][:, idx]                                 # [3, 8, M]
-    up8 = S[3:6][:, idx]
-    cvg = cv[:R2][:, idx].to(S.dtype)                   # node conv, pre-step
-    cdt = cm.dtype
-    dF, newcm = _mix_force(mx, slice(None), shear_only, u8, up8, cvg,
-                           cm.to(S.dtype))
-    vals = dF * mx["mix_invm"][:, None, :]
-    for j in range(8):
-        Sn[0:3].index_add_(1, idx[j], vals[j])
-    return Sn, newcm.to(cdt)
-
-
 class BktNodeStep(nn.Module):
     """The brick's node-tier step operator: buffers K [8, LEN] and tab
-    (kernels/bkt_node_step.node_tab); ``mix`` the epilogue tables
-    (torch), ``mix_runs`` their runs (None: the gather form)."""
+    (kernels/bkt_node_step.node_tab); ``mix`` the mixed-element tables
+    (kernels/bkt_node_step.node_mix), None without mixed elements."""
 
     tier = "node"
 
-    def __init__(self, K, offs, tab, shear_only, mix, mix_runs):
+    def __init__(self, K, offs, tab, shear_only, mix):
         super().__init__()
         self.offs = tuple(int(o) for o in offs)
         self.register_buffer("K", K)
@@ -320,28 +227,23 @@ class BktNodeStep(nn.Module):
         self.conv_rows = 6 if shear_only else 12
         self.conv_dtype = bkt_conv_dtype(K.dtype, shear_only)
         self.mix = mix
-        self.mix_runs = mix_runs
-        self.mix_M = 0 if not mix else int(mix["mix_idx"].shape[1])
+        self.mix_M = 0 if mix is None else int(mix["cols"].shape[0])
 
     def state_parts(self, LEN):
         """(shape, dtype) of the state after S: conv [R, LEN] and, with
-        mixed elements, conv_mix [R, 8, M] in the same storage type (so
-        matching corners round alike on both sides of the epilogue)."""
+        mixed elements, conv_mix [R, 8, M] in the same storage type."""
         parts = [((self.conv_rows, LEN), self.conv_dtype)]
         if self.mix_M:
             parts.append(((self.conv_rows, 8, self.mix_M), self.conv_dtype))
         return parts
 
-    def forward(self, S, conv, conv_mix=None, out=None, conv_out=None):
-        """One step (K3, then the epilogue): (S', conv'[, conv_mix'])."""
-        Sn, cn = bkt_node_step(S, conv, self.K, self.offs, self.tab,
-                               out=out, conv_out=conv_out)
-        if not self.mix_M:
-            return Sn, cn
-        Sn, cmn = bkt_mix_epilogue(self.mix, self.shear_only, S, Sn, conv,
-                                   conv_mix, runs=self.mix_runs,
-                                   offs=self.offs)
-        return Sn, cn, cmn
+    def forward(self, S, conv, conv_mix=None, out=None, conv_out=None,
+                conv_mix_out=None):
+        """One step (K3, the mixed elements included): (S', conv'[,
+        conv_mix'])."""
+        return bkt_node_step(S, conv, self.K, self.offs, self.tab,
+                             mix=self.mix, conv_mix=conv_mix, out=out,
+                             conv_out=conv_out, conv_mix_out=conv_mix_out)
 
 
 class BktCornerStep(nn.Module):
@@ -404,16 +306,15 @@ def node_tables(plan, tables, LEN, offs, force=False):
 
 
 def node_step_module(nq, offs, shear_only, dtype, device):
-    """The BktNodeStep of accepted node tables ``nq``."""
+    """The BktNodeStep of accepted node tables ``nq``: the mixed set
+    (mixed_cols, coalesced or not) and its recursion rows mix_ce."""
     as_t = lambda x: torch.as_tensor(x, dtype=dtype, device=device)
     mix = None
     if nq["M"]:
-        mix = {k: as_t(nq[k]) for k in ("mix_ce", "mix_cn", "mix_invm",
-                                         "mix_muf", "mix_kaf", "mix_fm")}
-        mix["mix_idx"] = torch.as_tensor(nq["mix_idx"], device=device)
+        mix = node_mix(nq["mixed_cols"], nq["mix_ce"][:, 0, :],
+                       nq["K"].shape[1], dtype, device)
     tab = node_tab(as_t(bkt_fm()), as_t(nq["sets"]))
-    return BktNodeStep(as_t(nq["K"]), offs, tab, shear_only, mix,
-                       nq["mix_runs"])
+    return BktNodeStep(as_t(nq["K"]), offs, tab, shear_only, mix)
 
 
 def corner_step_module(plan, tables, LEN, offs, dtype, device):

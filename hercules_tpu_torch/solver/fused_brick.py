@@ -29,7 +29,7 @@ without its on-chip memory clause): float32 runs with at most 128
 sources and 128 stations take the chunk kernel -- brick_chunk (K5), or
 bkt_chunk (K6) for uniform-Q BKT -- one launch per chunk of steps;
 every other run takes the step kernel -- brick_step (K1), bkt_step
-(K2), bkt_node_step (K3, then the mixed-element epilogue) or
+(K2), bkt_node_step (K3, the mixed elements included) or
 bkt_corner_step (K4) -- once per step, with the source ``index_add_``
 and the station sampling as torch ops between steps, as the JAX package
 does them around its step kernels.  ``route_name`` names the route.
@@ -266,17 +266,17 @@ def packed_snap_of(state):
 
 
 def _step_once(pt, state, spare):
-    """One step of the step kernel from ``state`` into ``spare`` (S and
-    conv; the node tier's epilogue returns a new conv_mix).  ``state``
-    stays as it was: the epilogue reads it after the kernel."""
+    """One step of the step kernel from ``state`` into ``spare`` (S,
+    then conv, then the node tier's conv_mix)."""
     if len(state) == 1:
         return (pt.step(state[0], out=spare[0]),)
-    return pt.step(*state, out=spare[0], conv_out=spare[1])
+    outs = dict(zip(("out", "conv_out", "conv_mix_out"), spare))
+    return pt.step(*state, **outs)
 
 
 def step_advance(pt, src_forces, dt2):
     """advance(state, s, k) for the step route: k steps of K1, K2, K3
-    (with its epilogue) or K4, with the station sampling before and the
+    or K4, with the station sampling before and the
     source add after each (pallas_brick.py:3435-3460)."""
     invm_src = (None if pt.src_pos is None
                 else pt.K[pt.invm_row, pt.src_pos])

@@ -15,6 +15,9 @@ This probe measures it with the JAX tool's dataflow and sizes: an
      turn
   3. stream_add aliased: out is S (the counterpart of
      input_output_aliases={0: 0})
+  4. torch.add again, so that the library call's two legs bracket K7's
+     (the legs run in turns in one process: torch.add, K7, K7 aliased,
+     torch.add)
 
 Each iteration moves 2 reads + 1 write of the array; GB/s = those bytes
 / time.  Each run is timed with CUDA events after a warm-up run, best of
@@ -59,7 +62,7 @@ def _best(fn, n=3):
 
 
 def main():
-    """Run the three legs; returns {"card", "bytes_per_iteration",
+    """Run the four legs; returns {"card", "bytes_per_iteration",
     "iterations", "legs": {label: {"ms_per_iteration", "GBps",
     "above_peak"}}}."""
     if not torch.cuda.is_available():
@@ -88,7 +91,8 @@ def main():
     legs = {}
     for label, fn in (("torch.add", torch_add),
                       ("stream_add", out_of_place),
-                      ("stream_add aliased", aliased)):
+                      ("stream_add aliased", aliased),
+                      ("torch.add again", torch_add)):
         fn()
         torch.cuda.synchronize()
         dt = _best(fn)

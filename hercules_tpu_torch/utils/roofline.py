@@ -12,9 +12,15 @@ step:
   zero padding rows S[6:8] and K's unused rows are not counted, nor the
   operator constants of a few kB).  The bound uses this count.
 - ``moved``: what the port's kernel itself streams per step, with its
-  passes' intermediates (K2's and K3's dv, K4's element force F) and
-  the state and constants it reads again every step.  Achieved
-  bandwidth uses this count.
+  passes' intermediates (K2's dv, K4's element force F) and the state
+  and constants it reads again every step.  Achieved bandwidth uses
+  this count.
+- K3's mixed elements (``mixed``, M of them) add their corner-basis
+  state conv_mix in and out (2 R 8 M storage words) and their recursion
+  rows (9 | 18 per element) to both byte counts, and their recursion at
+  8 corners to the operations.  Which columns are mixed is M int32
+  column indices in ``bytes`` (what the function needs) and the kernel's
+  per-column slot array (4 bytes per column) in ``moved``.
 - ``flop``: the algebra each element and node needs, counted once, in
   the spectral form the TPU kernels use (``physics/kmats.py``: 8-point
   Hadamard butterflies around a multiply-add per nonzero of the sparse
@@ -95,13 +101,14 @@ class KernelCost:
 
 
 def kernel_cost(name, LEN, elements, dtype=torch.float32, conv_rows=0,
-                conv_dtype=None, bk_rows=0, chunk=1) -> KernelCost:
+                conv_dtype=None, bk_rows=0, chunk=1, mixed=0) -> KernelCost:
     """Cost per step of kernel ``name`` (a wrapper's name: brick_step,
     brick_chunk, bkt_step, bkt_chunk, bkt_node_step, bkt_corner_step,
     stream_add) on [*, LEN] arrays in ``dtype`` with ``elements`` mesh
     elements; BKT kernels take their memory variables' rows and storage
     type (``conv_rows``, ``conv_dtype``), K4 its coefficient rows
-    (``bk_rows``), the chunk kernels the steps per launch (``chunk``)."""
+    (``bk_rows``), the chunk kernels the steps per launch (``chunk``),
+    K3 its mixed elements (``mixed``)."""
     w = torch.empty((), dtype=dtype).element_size()
     L, E = int(LEN), int(elements)
     if name == "stream_add":
@@ -114,6 +121,11 @@ def kernel_cost(name, LEN, elements, dtype=torch.float32, conv_rows=0,
     pairs = conv_rows // (48 if name == "bkt_corner_step" else 6)
     D = 3 * pairs                       # rows of dv (K2, K3)
     rec = L * 3 * (1 + PAIR_FLOP * pairs)   # du once, then the pairs
+    M = int(mixed)
+    # K3's mixed set: conv_mix in and out, the rows; its membership as
+    # the M column indices (bytes) or the slot of every column (moved)
+    mix = 2 * conv_rows * 8 * M * c + (3 * conv_rows // 2) * M * w
+    member, slots = (4 * M, 4 * L) if M else (0, 0)
     el, bkt = element_flop(False), element_flop(True)
     step = {
         # S (u, u-) 6 rows in, K 7 rows in, S' 6 rows out; the kernel
@@ -125,12 +137,14 @@ def kernel_cost(name, LEN, elements, dtype=torch.float32, conv_rows=0,
         # 6 rows and writes dv, pass 2 reads S 8, K 5, dv, writes S' 8
         "bkt_step": (17 * L * w + conv, (27 + 2 * D) * L * w + conv,
                      E * bkt + rec + L * UPDATE_FLOP),
-        # S 6, K 7 (mm, inv_mass, mu_f, kappa_f, set index), S' 6; pass
-        # 1 reads S 6, the set index, writes dv; pass 2 reads S 8, K 6,
-        # dv, writes S' 8
-        "bkt_node_step": (19 * L * w + conv, (29 + 2 * D) * L * w + conv,
-                          E * (bkt + 24) + rec
-                          + L * UPDATE_FLOP),
+        # S 6, K 7 (mm, inv_mass, mu_f, kappa_f, set index), S' 6; the
+        # kernel reads S 6 and the set index (recursion), mu_f and
+        # kappa_f (element force), S 8 and K 4 (update), writes S' 8;
+        # each mixed element runs the recursion at its 8 corners
+        "bkt_node_step": (19 * L * w + conv + mix + member,
+                          29 * L * w + conv + mix + slots,
+                          E * (bkt + 24) + rec + L * UPDATE_FLOP
+                          + M * 8 * 3 * (1 + PAIR_FLOP * pairs)),
         # S 6, K 4, bk rows, S' 6; pass 1 reads S 6, bk, writes F 24
         # rows; pass 2 reads F, S 8, K 4, writes S' 8; the recursion
         # runs on each element's 8 corners (24 rows per pair) after
@@ -164,6 +178,8 @@ def route_costs(pt, elements, chunk=1) -> dict:
                  "corner": ("bkt_corner_step",)}[pt.bkt_tier]
         if pt.bkt_tier == "corner":
             kw["bk_rows"] = step.bk.shape[0]
+        if pt.bkt_tier == "node":
+            kw["mixed"] = step.mix_M
     return {n: kernel_cost(n, chunk=chunk, **kw) for n in names}
 
 

@@ -1,11 +1,14 @@
 """General-Q BKT attenuation on one brick: the port's node tier (K3's
-plain version and the mixed-element epilogue) and corner tier (K4's
-plain version) against the JAX package's, on the CPU (float64).
+plain version, the mixed elements in their direct form) and corner tier
+(K4's plain version) against the JAX package's (the node kernel plus its
+mixed-element epilogue), on the CPU (float64).
 
 Fixtures: the two-layer box (two Q sets, 271 mixed elements in one run:
 the node tier), its shear-only variant (``use_infinite_qk``), and the
 four-layer box at 62.5 m (four Q sets, 37 % of the elements mixed: the
 node tier declines, the corner tier runs it)."""
+
+import os
 
 import numpy as np
 import pytest
@@ -24,7 +27,8 @@ from hercules_tpu_torch.fixtures import (FOUR_Q_LAYERS, SOFT_FREQ,
 from hercules_tpu_torch.kernels.bkt_corner_step import (
     bkt_corner_step, bkt_corner_step_plain)
 from hercules_tpu_torch.kernels.bkt_node_step import (bkt_node_step,
-                                                      bkt_node_step_plain)
+                                                      bkt_node_step_plain,
+                                                      node_mix)
 from hercules_tpu_torch.solver import fused_bktq
 from hercules_tpu_torch.solver.bricks import build_plan
 from hercules_tpu_torch.solver.fused_brick import (PallasBrickTables,
@@ -133,11 +137,17 @@ def test_node_tables_match_jax(case, monkeypatch):
         np.testing.assert_array_equal(K[:, :nb], np.asarray(jpt.bkn_K)[:, :nb])
         np.testing.assert_array_equal(K[6, nb:], len(jpt.bkn_sets))
         assert not K[:6, nb:].any() and not K[7].any()
-        assert pt.step.mix_runs == jpt.mix_runs
+        # the brick's tables (node_tables) against the JAX ones, and the
+        # step module's mixed set from them
+        bq = fused_bktq.node_tables(plan, sim.tables, LEN, offs)
+        assert bq["mix_runs"] == jpt.mix_runs
         for k in MIX_KEYS:
-            np.testing.assert_array_equal(pt.step.mix[k].numpy(),
-                                          np.asarray(getattr(jpt, k)),
+            np.testing.assert_array_equal(bq[k], np.asarray(getattr(jpt, k)),
                                           err_msg=k)
+        np.testing.assert_array_equal(pt.step.mix["cols"].numpy(),
+                                      jpt.bkn_mixed_cols)
+        np.testing.assert_array_equal(pt.step.mix["ce"].numpy(),
+                                      np.asarray(jpt.mix_ce)[:, 0, :])
 
 
 def test_plain_route_matches_jax(case, monkeypatch):
@@ -215,32 +225,68 @@ def test_node_tier_matches_corner_tier(case):
                                atol=5e-13 * max(np.abs(samp_c).max(), 1))
 
 
-def test_mix_runs_equal_gather_form(case):
-    """The epilogue's dense run form against its gather form (the same
-    tables with mix_runs dropped): the same trajectory within 1e-14."""
+def test_direct_form_matches_jax_epilogue(case, monkeypatch):
+    """The port's node tier forms the mixed elements' force in its direct
+    form; the JAX package adds a correction after its node kernel, in
+    its dense run form (the tables' mix_runs) or its gather form
+    (mix_runs=None).  From one random state, 3 steps of each (the JAX
+    kernel in interpret mode) agree within 1e-13 of each field's max:
+    the two-layer boxes and the four-layer box forced to the node tier
+    (bridged columns in its coalesced mixed set)."""
+    name, sim, plan, jtab, jplan = case
+    jpt = _jax_tables(jplan, jtab, monkeypatch, "node")
+    assert _jax_tier(jpt) == "node" and jpt.mix_runs
+    nb = plan.bricks[0].nb
+    S_j, conv_j = _random_jax_state(jpt, nb, np.random.default_rng(3),
+                                    "node")
+    x = (jnp.zeros((0, 3)), jnp.int32(0))
+    pt = PallasBrickTables(plan, sim.tables, dtype=torch.float64,
+                           bkt_tier="node", device="cpu")
+    state = (torch.as_tensor(state_from_jax(S_j, plan)),) + tuple(
+        torch.as_tensor(m) for m in conv_from_jax(conv_j, plan))
+    for _ in range(3):
+        state = pt.step(*state)
+    for runs in (jpt.mix_runs, None):
+        jpt.mix_runs = runs
+        step, consts = jpb._make_packed_bkt_node_step(jpt, interpret=True)
+        carry = (jnp.asarray(S_j),) + tuple(jnp.asarray(c) for c in conv_j)
+        for _ in range(3):
+            carry, _ = step(consts, carry, x)
+        ref = [state_from_jax(np.asarray(carry[0]), plan)[0:6]]
+        ref += conv_from_jax(tuple(carry[1:]), plan)
+        assert len(ref) == len(state) == 3
+        for a, b in zip(state, ref):
+            a = a.numpy()[:b.shape[0]]
+            np.testing.assert_allclose(a, b, rtol=0,
+                                       atol=1e-13 * np.abs(b).max(),
+                                       err_msg=f"mix_runs={runs}")
+
+
+def test_mix_slots_match_mixed_cols(case):
+    """The step module's slot array names each mixed element's place in
+    conv_mix: slot[mixed_cols[m]] = m, -1 at every other column; its rows
+    are the element columns' own recursion rows."""
     name, sim, plan, _, _ = case
     pt = PallasBrickTables(plan, sim.tables, dtype=torch.float64,
                            bkt_tier="node", device="cpu")
-    assert pt.step.mix_runs
-    rng = np.random.default_rng(3)
-    S = torch.zeros((8, pt.LEN), dtype=torch.float64)
-    S[0:6, :pt.nb] = torch.as_tensor(rng.standard_normal((6, pt.nb)))
-    cv = torch.zeros((pt.step.conv_rows, pt.LEN), dtype=torch.float64)
-    cv[:, :pt.nb] = torch.as_tensor(
-        rng.standard_normal((pt.step.conv_rows, pt.nb)))
-    cm = torch.as_tensor(rng.standard_normal(
-        (pt.step.conv_rows, 8, pt.step.mix_M)))
-    runs = pt.step.mix_runs
-    res = {}
-    for form in ("runs", "gather"):
-        pt.step.mix_runs = runs if form == "runs" else None
-        state = (S, cv, cm)
-        for _ in range(12):
-            state = pt.step(*state)
-        res[form] = state
-    for a, b in zip(res["runs"], res["gather"]):
-        scale = b.abs().max().item()
-        np.testing.assert_allclose(a, b, rtol=0, atol=1e-14 * scale)
+    nq = fused_bktq.node_tables(plan, sim.tables, pt.LEN, pt.offs,
+                                force=True)
+    mix = pt.step.mix
+    cols = nq["mixed_cols"]
+    assert pt.step.mix_M == nq["M"] == len(cols) > 0
+    np.testing.assert_array_equal(mix["cols"].numpy(), cols)
+    slot = mix["slot"].numpy()
+    assert slot.dtype == np.int32 and slot.shape == (pt.LEN,)
+    np.testing.assert_array_equal(slot[cols], np.arange(len(cols)))
+    rest = np.ones(pt.LEN, bool)
+    rest[cols] = False
+    assert (slot[rest] == -1).all()
+    coef_e = fused_bktq.nodeq_inputs(plan, sim.tables, pt.LEN)[0]
+    np.testing.assert_array_equal(mix["ce"].numpy(), coef_e[:, cols])
+    # node_mix builds the same from the columns and rows alone
+    again = node_mix(cols, coef_e[:, cols], pt.LEN, torch.float64, "cpu")
+    for k in ("cols", "slot", "ce"):
+        assert torch.equal(again[k], mix[k]), k
 
 
 def _random_jax_state(jpt, nb, rng, tier):
@@ -301,10 +347,11 @@ def test_single_step_matches_jax(case, tier, monkeypatch):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_wrappers_on_cpu_run_plain(case, dtype):
-    """bkt_node_step and bkt_corner_step on CPU tensors are the plain
-    versions, with or without outputs given, and count no launch; the
-    padding stays zero; float32 keeps the corner conv in bfloat16 (shear-
-    only too) and the node conv as the uniform tier does."""
+    """bkt_node_step (with its mixed elements and their conv_mix) and
+    bkt_corner_step on CPU tensors are the plain versions, with or
+    without outputs given, and count no launch; the padding stays zero;
+    float32 keeps the corner conv in bfloat16 (shear-only too) and the
+    node conv and conv_mix as the uniform tier does."""
     name, sim, plan, _, _ = case
     before = (bkt_node_step.launches, bkt_corner_step.launches)
     rng = np.random.default_rng(2)
@@ -322,21 +369,32 @@ def test_wrappers_on_cpu_run_plain(case, dtype):
         cv[:, :pt.nb] = torch.as_tensor(1e-3 * rng.standard_normal(
             (pt.step.conv_rows, pt.nb)))
         cv = cv.to(want)
+        kw = {}
         if tier == "node":
             args = (pt.K, pt.offs, pt.step.tab)
             plain, wrapper = bkt_node_step_plain, bkt_node_step
+            cm = torch.as_tensor(1e-3 * rng.standard_normal(
+                (pt.step.conv_rows, 8, pt.step.mix_M)), dtype=dtype)
+            kw = {"mix": pt.step.mix, "conv_mix": cm.to(want)}
         else:
             args = (pt.K, pt.step.bk, pt.offs, pt.step.fm)
             plain, wrapper = bkt_corner_step_plain, bkt_corner_step
-        ref = plain(S, cv, *args)
-        got = wrapper(S, cv, *args)
-        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
-        out, cout = torch.empty_like(S), torch.empty_like(cv)
-        got = wrapper(S, cv, *args, out=out, conv_out=cout)
-        assert got[0] is out and got[1] is cout
-        assert torch.equal(out, ref[0]) and torch.equal(cout, ref[1])
-        assert ref[1].dtype == want
+        ref = plain(S, cv, *args, **kw)
+        assert len(ref) == (3 if tier == "node" else 2)
+        got = wrapper(S, cv, *args, **kw)
+        assert len(got) == len(ref)
+        assert all(torch.equal(g, r) for g, r in zip(got, ref))
+        outs = [torch.empty_like(r) for r in ref]
+        names = ("out", "conv_out", "conv_mix_out")
+        got = wrapper(S, cv, *args, **kw, **dict(zip(names, outs)))
+        assert all(g is o for g, o in zip(got, outs))
+        assert all(torch.equal(o, r) for o, r in zip(outs, ref))
+        assert all(r.dtype == want for r in ref[1:])
         assert not ref[0][:, pt.nb:].any() and not ref[1][:, pt.nb:].any()
+        if tier == "node":
+            # the step module is one wrapper call
+            mod = pt.step(S, cv, kw["conv_mix"])
+            assert all(torch.equal(m, r) for m, r in zip(mod, ref))
     assert (bkt_node_step.launches, bkt_corner_step.launches) == before
 
 
@@ -365,3 +423,54 @@ def test_unique_rows_equals_numpy(n_distinct):
     ref_sets, ref_inv = np.unique(rows, axis=0, return_inverse=True)
     np.testing.assert_array_equal(sets, ref_sets)
     np.testing.assert_array_equal(inv, ref_inv.ravel())
+
+
+def _spectral_header():
+    """The (KMU, KKAPPA) entry lists of csrc/bkt_spectral.cuh."""
+    import re
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "hercules_tpu_torch", "csrc",
+        "bkt_spectral.cuh")
+    text = open(path).read()
+    lists = []
+    for name in ("HT_BKT_SPECTRAL_MU", "HT_BKT_SPECTRAL_KAPPA"):
+        body = text.split(f"#define {name}(X)")[1].split("\n\n")[0]
+        lists.append([(int(a), int(b), int(c), int(d), float(v))
+                      for a, b, c, d, v in re.findall(
+                          r"X\((\d), (\d), (\d), (\d), ([-0-9.e]+)\)", body)])
+    return lists
+
+
+def test_spectral_header_matches_factors():
+    """K3's element force uses the spectral factors as compiled-in
+    constants: the header's lists are the port's spectral_bkt_factors()
+    bit for bit, and the kernel's sequence (Hadamard butterflies, a
+    multiply-add per nonzero, the inverse butterflies) reproduces KMU
+    and KKAPPA on random vectors within 1e-14."""
+    from hercules_tpu_torch.physics.kmats import (bkt_matrices_24,
+                                                  hadamard8_stages,
+                                                  spectral_bkt_factors)
+    header = _spectral_header()
+    assert header == [list(f) for f in spectral_bkt_factors()]
+    assert [len(f) for f in header] == [45, 24]
+
+    def hadamard(x):
+        x = x.copy()
+        for stage in hadamard8_stages():
+            for j, h in stage:
+                if j < h:
+                    x[3 * j:3 * j + 3], x[3 * h:3 * h + 3] = (
+                        x[3 * j:3 * j + 3] + x[3 * h:3 * h + 3],
+                        x[3 * j:3 * j + 3] - x[3 * h:3 * h + 3])
+        return x
+
+    rng = np.random.default_rng(11)
+    for ents, M in zip(header, bkt_matrices_24()):
+        for _ in range(4):
+            x = rng.standard_normal(24)
+            s = hadamard(x)
+            y = np.zeros(24)
+            for mo, co, mi, ci, v in ents:
+                y[3 * mo + co] += v * s[3 * mi + ci]
+            np.testing.assert_allclose(hadamard(y), M @ x, rtol=0,
+                                       atol=1e-14 * np.abs(M @ x).max())

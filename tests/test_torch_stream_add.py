@@ -91,15 +91,24 @@ def test_probe_shape():
 # the hand counts of the timings so far, and its operations per element
 # and per column: the spectral force (330 elastic, 426 BKT), W (72),
 # the update (15), the recursion (3 x (1 + 16 per pair)), K3's set
-# scaling (24), K4's corner recursion (48 + 24 x 16 per pair))
+# scaling (24), K4's corner recursion (48 + 24 x 16 per pair)).  K3
+# streams no dv since its force pass moved into its one launch.
 HAND_COUNTS = [
     ("brick_step", {}, 23, 330 + 72, 15),
     ("bkt_step", dict(conv_rows=6, conv_dtype=torch.float32), 45, 426,
      15 + 3 * 17),
-    ("bkt_node_step", dict(conv_rows=12, conv_dtype=torch.bfloat16), 53,
+    ("bkt_node_step", dict(conv_rows=12, conv_dtype=torch.bfloat16), 41,
      426 + 24, 15 + 3 * 33),
     ("bkt_corner_step", dict(conv_rows=96, conv_dtype=torch.bfloat16,
                              bk_rows=20), 190, 426 + 48 + 24 * 16 * 2, 15)]
+# K3 with the four-layer box's mixed set at 2^20 elements: conv_mix in
+# and out (2 x 12 x 8 bfloat16 values) and the 18 recursion rows in
+# float32; the membership as M int32 columns (the function) or an int32
+# slot of every column (the kernel); the recursion at 8 corners x 3
+# components x (1 + 2 x 16) per mixed element
+MIXED = 49533
+MIXED_BYTES = MIXED * (2 * 12 * 8 * 2 + 18 * 4)
+MIXED_FLOP = MIXED * 8 * 3 * 33
 
 
 @pytest.mark.parametrize("name,kw,rows,per_element,per_column", HAND_COUNTS,
@@ -114,6 +123,24 @@ def test_roofline_hand_counts(name, kw, rows, per_element, per_column):
     # at 2^20 elements every step kernel streams more than it computes
     assert c.bound_by == "bytes"
     assert c.bound_ms == 1e3 * max(c.bytes / 3.35e12, c.flop / 67e12)
+
+
+def test_roofline_hand_count_mixed():
+    """K3's mixed set adds its state and rows to both byte counts, its
+    membership as M column indices to the function's bytes and as the
+    slot array to the kernel's traffic, and its corner recursion to the
+    operations: about 23 MB, for a bound of about 157 MB (0.047 ms) at
+    2^20 elements."""
+    L, E = 1082368, 1 << 20
+    kw = dict(conv_rows=12, conv_dtype=torch.bfloat16)
+    base = roofline.kernel_cost("bkt_node_step", L, E, **kw)
+    c = roofline.kernel_cost("bkt_node_step", L, E, mixed=MIXED, **kw)
+    assert c.bytes - base.bytes == MIXED_BYTES + 4 * MIXED
+    assert c.moved - base.moved == MIXED_BYTES + 4 * L
+    assert c.moved == 41 * L * 4 + MIXED_BYTES + 4 * L
+    assert c.flop == (426 + 24) * E + (15 + 3 * 33) * L + MIXED_FLOP
+    assert 156e6 < c.bytes < 158e6 and c.bound_by == "bytes"
+    assert 0.0467 < c.bound_ms < 0.0470
 
 
 def test_element_flop_counts_the_spectral_factors():

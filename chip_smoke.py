@@ -7,7 +7,9 @@ run from the root of a checkout on a machine with an NVIDIA H100 (or
 another sm_90a card) and the CUDA toolkit.  Phases, each printing one
 JSON line {"phase": ...}:
 
-1. build   -- compile hercules_tpu_torch/csrc/*.cu with nvcc.
+1. build   -- compile hercules_tpu_torch/csrc/*.cu with nvcc; the
+              registers of the tiled BKT kernels (K2, K3, K6) from the
+              ptxas -v log.
 2. k1      -- brick_step (K1) against brick_step_plain on the card: the
               2048-element box, 40 steps in float64 (bound
               2e-13 max|u|) and 20 in float32 (1e-4 max|u|); the
@@ -33,7 +35,8 @@ JSON line {"phase": ...}:
               conv within 2e-13 of their max) and 20 in float32 (1e-4);
               the soft box (bulk attenuation on), float64 (2e-13) and
               float32 with bfloat16 conv (1e-3); the 2^20-element BKT
-              box, 10 steps in float32 (1e-4).  Padding stays zero.
+              box, 5 steps in float64 (2e-13) and 10 in float32 (1e-4).
+              Padding stays zero.
 7. k6      -- bkt_chunk (K6) against the K2 step loop on the BKT box
               and the soft box, chunks of 16, 37 steps, float64 and
               float32: S and conv bit-identical, samples within 1e-12
@@ -101,13 +104,16 @@ JSON line {"phase": ...}:
               and torch.add on [8, 1024].  For every kernel K1-K7: its
               bound (utils/roofline.py: bytes and operations counted from the
               shapes of these inputs, against the H100's data sheet; the
-              chunk kernels' bytes amortised over 400 steps) and what
+              chunk kernels' bytes amortised over 400 steps only where
+              their state fits the 50 MB L2, not at 2^20) and what
               sets it, the share of the bound its time reaches, its
               traffic's share of the measured aliased stream ceiling
               (phase 15), its launches on its main path, the time it
               loses there (launches x steps per launch x (time - bound),
               per type), and the library call's time where one PyTorch
-              call computes the same function (K7: torch.add).
+              call computes the same function (K7: torch.add); K6's
+              step beside the K2 route step (float32, back to back), the
+              routing rule's two times.
 
 Then the kernel table as one JSON line, the card's name and power
 limit (nvidia-smi), and last {"ok": true, "device": {...}}.  Any
@@ -123,6 +129,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import shutil
 import statistics
 import sys
@@ -144,6 +151,24 @@ def emit(obj):
 def require(cond, msg):
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def tile_registers(log):
+    """{kernel<T,CT,kappa>: registers} of the tiled BKT kernels (K2, K3,
+    K6) from the ptxas -v output in the build log."""
+    types = {"f": "float", "d": "double", "13__nv_bfloat16": "bf16"}
+    regs, entry = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            entry = re.search(r"(bkt_(?:step|chunk|node)_kernel)I([fd])"
+                              r"([fd]|13__nv_bfloat16)Lb([01])E", m.group(1))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and entry:
+            k, t, ct, kappa = entry.groups()
+            regs[f"{k}<{types[t]},{types[ct]},{kappa}>"] = int(m.group(1))
+            entry = None
+    return regs
 
 
 def main():
@@ -244,7 +269,7 @@ def main():
 
     def k2_loop(pt, S, cv, inc, plain):
         """K2 (or its plain version) step by step with the source adds."""
-        args = (pt.K, pt.offs, pt.step.fm, pt.step.rec)
+        args = (pt.K, pt.offs, pt.step.scales, pt.step.rec)
         S, cv = S.clone(), cv.clone()
         spare, cspare = torch.empty_like(S), torch.empty_like(cv)
         for t in range(inc.shape[0]):
@@ -325,6 +350,7 @@ def main():
         log = so.with_suffix(".log").read_text()
         emit({"phase": "build", "seconds": time.perf_counter() - t0,
               "nvcc_seconds": build.build_seconds, "library": so.name,
+              "tile_registers": tile_registers(log),
               "ptxas": [ln.strip() for ln in log.splitlines()
                         if "registers" in ln or "spill" in ln
                         or "Compiling entry" in ln]})
@@ -507,6 +533,7 @@ def main():
                 ("box", sim_sb, plan_sb, f32, 20, 1e-4),
                 ("soft", sim_ss, plan_ss, f64, 40, 2e-13),
                 ("soft", sim_ss, plan_ss, f32, 20, 1e-3),
+                ("box", sim_bb, plan_bb, f64, 5, 2e-13),
                 ("box", sim_bb, plan_bb, f32, 10, 1e-4)):
             pt = tables(sim, plan, dtype)
             S0, cv0 = random_bkt_state(pt)
@@ -560,7 +587,7 @@ def main():
         pt = tables(sim_bb, plan_bb, f32)
         S0, cv0 = random_bkt_state(pt)
         srcf = source_increments(pt, sim_bb.src_forces, dt2_bb, 0, 10)
-        bargs = (pt.K, pt.offs, pt.step.fm, pt.step.rec)
+        bargs = (pt.K, pt.offs, pt.step.scales, pt.step.rec)
         Sk, ck, smp_k = bkt_chunk(S0.clone(), torch.empty_like(S0),
                                   cv0.clone(), torch.empty_like(cv0), *bargs,
                                   srcf, pt.src_pos, pt.st_pos, pt.st_phi)
@@ -579,6 +606,33 @@ def main():
         require(r <= 1e-4 and rc_ <= 1e-4 and srel <= 1e-4,
                 f"K6 vs plain {cases[-1]}")
         kern["bkt_chunk_err"] = err
+        # the same buffers and the same src_pos tensor, its values moved
+        # in place between two launches: K6 adds at the new nodes
+        pt = tables(sim_sb, plan_sb, f64)
+        S0, cv0 = random_bkt_state(pt)
+        srcf = source_increments(pt, sim_sb.src_forces,
+                                 sim_sb.params.delta_t ** 2, 0, 10)
+        bargs = (pt.K, pt.offs, pt.step.scales, pt.step.rec)
+        pos = pt.src_pos.clone()
+        Sa, Sb_, ca, cb_ = (torch.empty_like(S0), torch.empty_like(S0),
+                            torch.empty_like(cv0), torch.empty_like(cv0))
+        for shift in (0, 1):
+            pos.copy_((pt.src_pos + shift) % pt.nb)
+            Sa.copy_(S0)
+            ca.copy_(cv0)
+            Sk, ck, _ = bkt_chunk(Sa, Sb_, ca, cb_, *bargs, srcf, pos,
+                                  pt.st_pos, pt.st_phi)
+        Sp, cp, _ = bkt_chunk_plain(S0.clone(), cv0.clone(), *bargs, srcf,
+                                    pos, pt.st_pos, pt.st_phi)
+        torch.cuda.synchronize()
+        r, err = rel(Sk, Sp)
+        rc_, _ = crel(ck, cp)
+        cases.append({"case": "box, sources moved in place",
+                      "elements": sim_sb.mesh.lenum, "dtype": str(f64),
+                      "steps": 10, "vs": "bkt_chunk_plain", "rel_err": r,
+                      "max_abs_err": err, "conv_rel_err": rc_,
+                      "bound": 2e-13})
+        require(r <= 2e-13 and rc_ <= 2e-13, f"K6 vs plain {cases[-1]}")
         emit({"phase": "k6", "cases": cases, "launches": bkt_chunk.launches})
 
         # ---- 8. the BKT main path through the CLI --------------------
@@ -598,9 +652,9 @@ def main():
         zero = torch.zeros((8, pt.LEN), dtype=f64, device=dev)
         zconv = torch.zeros((pt.step.conv_rows, pt.LEN), dtype=f64,
                             device=dev)
-        _, _, s64 = bkt_chunk_plain(zero, zconv, pt.K, pt.offs, pt.step.fm,
-                                    pt.step.rec, srcf, pt.src_pos,
-                                    pt.st_pos, pt.st_phi)
+        _, _, s64 = bkt_chunk_plain(zero, zconv, pt.K, pt.offs,
+                                    pt.step.scales, pt.step.rec, srcf,
+                                    pt.src_pos, pt.st_pos, pt.st_phi)
         s64 = s64.cpu().numpy()
         acc = float(np.abs(s32 - s64).max() / np.abs(s64).max())
         emit({"phase": "accuracy_bkt", "elements": sim_a.mesh.lenum,
@@ -852,7 +906,7 @@ def main():
             ptb = tables(sim_bb, plan_bb, dts[dname])
             Sb, cb = random_bkt_state(ptb)
             spb, cspb = torch.empty_like(Sb), torch.empty_like(cb)
-            bargs = (ptb.K, ptb.offs, ptb.step.fm, ptb.step.rec)
+            bargs = (ptb.K, ptb.offs, ptb.step.scales, ptb.step.rec)
             key = ("bkt_step", dname)
             T[key], P[key] = twice(
                 lambda: bkt_step(Sb, cb, *bargs, out=spb, conv_out=cspb),
@@ -872,7 +926,8 @@ def main():
         key = ("bkt_chunk", "float32")
         T[key] = [timed(lambda: bkt_chunk(Sb, spb, cb, cspb, *bargs, srcfb,
                                           ptb.src_pos, ptb.st_pos,
-                                          ptb.st_phi), 3, 1) / STEPS]
+                                          ptb.st_phi), 3, 1)
+                  / STEPS]
         P[key] = [timed(lambda: bkt_chunk_plain(
             Sb, cb, *bargs, srcfb[:20].contiguous(), ptb.src_pos, ptb.st_pos,
             ptb.st_phi), 3, 1) / 20]
@@ -888,12 +943,13 @@ def main():
         require(pts.step.conv_dtype == torch.bfloat16, "soft conv type")
         Ss, cs = random_bkt_state(pts)
         sps, csps = torch.empty_like(Ss), torch.empty_like(cs)
-        sargs = (pts.K, pts.offs, pts.step.fm, pts.step.rec)
+        sargs = (pts.K, pts.offs, pts.step.scales, pts.step.rec)
         srcfs = source_increments(pts, sim_bs.src_forces,
                                   sim_bs.params.delta_t ** 2, 0, 20)
         soft_ms = {
             "bkt_step": timed(lambda: bkt_step(Ss, cs, *sargs, out=sps,
-                                               conv_out=csps), 30, 5),
+                                               conv_out=csps),
+                              30, 5),
             "bkt_step_plain": timed(lambda: bkt_step_plain(Ss, cs, *sargs),
                                     10, 2),
             "bkt_chunk": timed(lambda: bkt_chunk(
@@ -1023,6 +1079,11 @@ def main():
               "route_ms_per_step": route_ms, "lone_call_ms": lone_ms,
               "host_us_per_call": host_us_per_call,
               "soft_box_ms": soft_ms, "mixed_elements": mixed,
+              # the routing rule of fused_brick.chunk_applies: K6 carries
+              # float32 uniform-Q BKT while its step beats the K2 route's
+              "k6_step_vs_k2_route_step_ms": {
+                  "bkt_chunk float32": min(T[("bkt_chunk", "float32")]),
+                  "k2_route_step float32": route_ms["k2_route_step"]},
               "stream_ceiling_GBps": ceiling_GBps,
               "element_updates_per_s": {
                   k: sim_b.mesh.lenum / (v * 1e-3)

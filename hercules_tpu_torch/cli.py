@@ -122,6 +122,56 @@ def main(argv=None):
             with open(path, "w") as f:
                 f.write(buf.getvalue())
 
+    # the JAX CLI's optional outputs, in its order
+    # (hercules_tpu/cli.py:124-180)
+    if p.print_matrix_k:
+        # print_K_stdoutput (psolve.c:3184)
+        from .utils.stats import print_k_matrices
+        print_k_matrices()
+
+    if (p.schedule_print_file or p.schedule_print_stdout
+            or p.schedule_print_error_check):
+        from .solver.bricks import build_plan
+        from .utils.stats import schedule_stats
+        try:
+            plan = build_plan(sim.mesh)
+        except RuntimeError:
+            plan = None
+        buf = io.StringIO()
+        schedule_stats(sim.mesh, plan, out=buf,
+                       error_check=bool(p.schedule_print_error_check))
+        if p.schedule_print_stdout:
+            sys.stdout.write(buf.getvalue())
+        if p.schedule_print_file:
+            path = p.stat_schedule_filename
+            if not os.path.isabs(path):
+                path = os.path.join(rundir, path)
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+            with open(path, "w") as f:
+                f.write(buf.getvalue())
+
+    if p.damping_statistics:
+        from .utils.stats import critical_t_stats, damping_histograms
+        buf = io.StringIO()
+        critical_t_stats(sim.mesh, p, out=buf)
+        damping_histograms(sim.mesh, p, out=buf)
+        mon.print(buf.getvalue())
+
+    if p.mesh_coordinates_for_matlab.lower() == "yes":
+        # saveMeshCoordinatesForMatlab (meshformatlab.c:30-250): the
+        # corners bound the dumped region, the whole domain when absent
+        from .io.matlab import write_matlab_mesh
+        mdir = p.mesh_coordinates_directory_for_matlab or "matlab"
+        if not os.path.isabs(mdir):
+            mdir = os.path.join(rundir, mdir)
+        bbox = None
+        if p.mesh_corners_matlab is not None:
+            c = p.mesh_corners_matlab
+            bbox = (c[0], c[2], c[1], c[3], c[4], c[5])
+        nml = write_matlab_mesh(mdir, sim.mesh, p, bbox=bbox)
+        mon.print(f"matlab mesh coordinates written: {mdir} "
+                  f"({nml} elements)\n")
+
     if p.output_mesh and (mesh_out or p.mesh_etree_output_file):
         from .io.meshout import write_mesh_etree
         path = mesh_out or p.mesh_etree_output_file

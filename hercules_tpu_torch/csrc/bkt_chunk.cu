@@ -8,55 +8,82 @@
 // updates them in place, sound there only because TPU tiles run in
 // order.
 //
-// What bounds it on an H100: the per-step work is K2's (bkt_step.cu:
-// 195-221 MB of device-memory traffic per step at 2^20 elements in
-// float32 and 1152 FMAs per node).  The two state buffers, the two conv
-// buffers, dv and K (169-182 MB at 2^20 elements) do not fit the 50 MB
-// L2, so unlike the TPU kernel this one streams them through device
-// memory every step; what it removes is the two launches per step, the
-// separate source and sampling kernels, and their host round trips.
-// Each step pays three grid-wide barriers instead.
+// What bounds it on an H100: memory, as K2 (bkt_step.cu): S, conv and K
+// come to 100 MB and more at 2^20 elements, twice the 50 MB L2, so the
+// state streams through device memory every step.  What the launch
+// removes is one launch per step, the separate source and sampling
+// kernels, and their host round trips.
 //
-// Design: K5's (brick_chunk.cu).  The grid is exactly as large as the
-// card can hold at once, launched with cudaLaunchCooperativeKernel so
-// that grid.sync() is legal.  S and conv ping-pong between two buffers
-// each.  Per step t:
+// Design: K2's tiled step (bkt_tile.cuh) inside a grid that is exactly
+// as large as the card holds at once, launched with
+// cudaLaunchCooperativeKernel so that grid.sync() is legal.  Where the
+// card holds a block for every tile, the slabs are as deep as it takes
+// to give each resident block at most one work item (at 2^20 elements
+// in float32: 380 items of 17 planes on 396 blocks, where K2's 8-plane
+// slabs would leave a third round to a sixth of the blocks and repeat
+// a halo plane every 8 planes).  S and conv ping-pong between two
+// buffers each.  Per step t:
 //   1. threads 0..3*ns-1 write the station samples of the state before
 //      the step, sum_j phi_sj S[c, pos_sj] in j order;
-//   2. every thread runs node_rec (bkt_step.cuh) over its grid-stride
-//      columns: conv_cur -> conv_nxt and dv;
-//   3. grid.sync();
-//   4. every thread runs node_force over its columns: S_cur -> S_nxt;
-//   5. grid.sync();
-//   6. threads 0..3*L-1 add the pre-scaled source increments to S_nxt;
-//      the first source at each position adds every source at that
-//      position in source order;
-//   7. grid.sync(); swap buffers.
+//   2. each block takes work items grid-stride and runs the tile step
+//      from (S_cur, conv_cur) into (S_nxt, conv_nxt).  A tile's halo is
+//      recomputed from S_cur and conv_cur, so no block reads what
+//      another block writes in the same step.  The thread that updates
+//      a source node adds that node's pre-scaled increments to the new
+//      displacement before storing it: the host lists each tile's
+//      sources in source order (tile_ptr, tile_src), so sources sharing
+//      a position are added one after another in source order;
+//   3. grid.sync(); swap buffers.
+// One barrier per step.  The state buffers are read with plain
+// (coherent) loads: other blocks wrote them before the barrier.
 #include <cooperative_groups.h>
 
-#include "bkt_step.cuh"
+#include "bkt_tile.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
+// The source hook of one work item in step t: the increments inc
+// [3, nsrc] of this step at src_pos; list [count] the sources of the
+// item's tile (those on other slabs match no node of the item).
+template <typename T>
+struct ItemSources {
+  const int* list;
+  int count;
+  const int* pos;
+  const T* inc;
+  int nsrc;
+
+  __device__ __forceinline__ void operator()(int n, T* un) const {
+    for (int i = 0; i < count; ++i) {
+      const int m = list[i];
+      if (pos[m] == n)
+#pragma unroll
+        for (int c = 0; c < 3; ++c) un[c] = un[c] + inc[c * nsrc + m];
+    }
+  }
+};
 
 template <typename T, typename CT, bool KAPPA>
-__global__ void __launch_bounds__(kThreads)
-    bkt_chunk_kernel(T* Sa, T* Sb, CT* Ca, CT* Cb, T* dv,
-                     const T* __restrict__ K, int len, ht::Offs offs,
-                     ht::BktRec<T> r, int ch,
-                     const T* __restrict__ srcf,       // [ch, 3, nsrc]
-                     const int* __restrict__ src_pos,  // [nsrc]
+__global__ void __launch_bounds__(ht::kThreads, sizeof(T) == 4 ? 3 : 1)
+    bkt_chunk_kernel(T* Sa, T* Sb, CT* Ca, CT* Cb, const T* __restrict__ K,
+                     int len, ht::Geom g, ht::BktRec<T> r, T mu_f, T kappa_f,
+                     int ch,
+                     const T* __restrict__ srcf,         // [ch, 3, nsrc]
+                     const int* __restrict__ src_pos,    // [nsrc]
                      int nsrc,
-                     const int* __restrict__ st_pos,   // [nst, 8]
-                     const T* __restrict__ st_phi,     // [nst, 8]
+                     const int* __restrict__ tile_ptr,   // [tiles + 1]
+                     const int* __restrict__ tile_src,   // [nsrc]
+                     const int* __restrict__ st_pos,     // [nst, 8]
+                     const T* __restrict__ st_phi,       // [nst, 8]
                      int nst,
-                     T* __restrict__ samples) {        // [ch, nst, 3]
+                     T* __restrict__ samples) {          // [ch, nst, 3]
+  extern __shared__ __align__(16) unsigned char smem[];
   cg::grid_group grid = cg::this_grid();
   const int tid = blockIdx.x * blockDim.x + threadIdx.x;
-  const int stride = gridDim.x * blockDim.x;
+  const int items = ht::tile_items(g);
+  const int tiles = g.tiles_x * g.tiles_y;
   T* cur = Sa;
   T* nxt = Sb;
   CT* ccur = Ca;
@@ -70,23 +97,14 @@ __global__ void __launch_bounds__(kThreads)
                          acc);
       samples[(t * nst + s) * 3 + c] = acc;
     }
-    for (int n = tid; n < len; n += stride)
-      ht::node_rec<T, CT, KAPPA>(cur, ccur, cnxt, dv, n, len, r.v);
-    grid.sync();
-    for (int n = tid; n < len; n += stride)
-      ht::node_force<T, KAPPA>(cur, K, dv, nxt, n, len, offs);
-    grid.sync();
-    if (tid < 3 * nsrc) {
-      const int l = tid / 3, c = tid % 3;
-      const int p = src_pos[l];
-      bool first = true;
-      for (int m = 0; m < l; ++m) first = first && src_pos[m] != p;
-      if (first) {
-        T v = nxt[c * len + p];
-        for (int m = l; m < nsrc; ++m)
-          if (src_pos[m] == p) v = v + srcf[(t * 3 + c) * nsrc + m];
-        nxt[c * len + p] = v;
-      }
+    for (int item = blockIdx.x; item < items; item += gridDim.x) {
+      const int tile = item % tiles;
+      const ItemSources<T> src{tile_src + tile_ptr[tile],
+                               tile_ptr[tile + 1] - tile_ptr[tile], src_pos,
+                               srcf + t * 3 * nsrc, nsrc};
+      ht::bkt_tile_step<T, CT, KAPPA>(cur, ccur, K, nxt, cnxt, len, g, r,
+                                      mu_f, kappa_f, item,
+                                      reinterpret_cast<T*>(smem), src);
     }
     grid.sync();
     T* tmp = cur;
@@ -99,11 +117,13 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <typename T, typename CT, bool KAPPA>
-int launch_k(T* Sa, T* Sb, CT* Ca, CT* Cb, T* dv, const T* K, int len,
-             const int* offs, const T* rec, int ch, const T* srcf,
-             const int* src_pos, int nsrc, const int* st_pos,
+int launch_k(T* Sa, T* Sb, CT* Ca, CT* Cb, const T* K, int len,
+             ht::Geom g, const T* rec, int ch, const T* srcf,
+             const int* src_pos, int nsrc, const int* tile_ptr,
+             const int* tile_src, const int* st_pos,
              const T* st_phi, int nst, T* samples, int device,
              cudaStream_t stream) {
+  auto kernel = bkt_chunk_kernel<T, CT, KAPPA>;
   int coop = 0, sms = 0, per_sm = 0;
   cudaError_t err =
       cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
@@ -111,96 +131,107 @@ int launch_k(T* Sa, T* Sb, CT* Ca, CT* Cb, T* dv, const T* K, int len,
   if (!coop) return static_cast<int>(cudaErrorNotSupported);
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, bkt_chunk_kernel<T, CT, KAPPA>, kThreads, 0);
+  int smem = ht::tile_smem_bytes<T>();
+  static unsigned opted = 0;
+  err = ht::opt_in_smem(kernel, smem, device, &opted);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // the resident blocks at this kernel's registers and shared memory
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      ht::kThreads, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  ht::Offs o = ht::make_offs(offs);
+  const int per_tile = sms * per_sm / (g.tiles_x * g.tiles_y);
+  if (per_tile >= 1) g.slab = (g.nplanes + per_tile - 1) / per_tile;
+  const int items = ht::tile_items(g);
+  const int blocks = sms * per_sm < items ? sms * per_sm : items;
   ht::BktRec<T> r = ht::make_rec<T>(rec);
-  void* args[] = {&Sa,   &Sb,      &Ca,   &Cb,     &dv,     &K,   &len,
-                  &o,    &r,       &ch,   &srcf,   &src_pos, &nsrc,
-                  &st_pos, &st_phi, &nst, &samples};
-  err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(bkt_chunk_kernel<T, CT, KAPPA>),
-      dim3(sms * per_sm), dim3(kThreads), args, 0, stream);
+  T mu_f = rec[18], kappa_f = rec[19];
+  void* args[] = {&Sa,       &Sb,      &Ca,     &Cb,       &K,
+                  &len,      &g,       &r,
+                  &mu_f,     &kappa_f, &ch,     &srcf,     &src_pos,
+                  &nsrc,     &tile_ptr, &tile_src, &st_pos,  &st_phi,
+                  &nst,      &samples};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel),
+                                    dim3(blocks), dim3(ht::kThreads), args,
+                                    smem, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, typename CT>
-int launch(T* Sa, T* Sb, void* Ca, void* Cb, T* dv, const T* K, int len,
+int launch(T* Sa, T* Sb, void* Ca, void* Cb, const T* K, int len,
            const int* offs, const T* rec, int kappa, int ch, const T* srcf,
-           const int* src_pos, int nsrc, const int* st_pos, const T* st_phi,
-           int nst, T* samples, int device, void* stream) {
+           const int* src_pos, int nsrc, const int* tile_ptr,
+           const int* tile_src, const int* st_pos,
+           const T* st_phi, int nst, T* samples, int device, void* stream) {
+  ht::Geom g;
+  if (device < 0 || device >= 32 || !ht::make_geom(offs, len, &g))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   CT* ca = static_cast<CT*>(Ca);
   CT* cb = static_cast<CT*>(Cb);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kappa)
-    return launch_k<T, CT, true>(Sa, Sb, ca, cb, dv, K, len, offs, rec, ch,
-                                 srcf, src_pos, nsrc, st_pos, st_phi, nst,
-                                 samples, device, s);
-  return launch_k<T, CT, false>(Sa, Sb, ca, cb, dv, K, len, offs, rec, ch,
-                                srcf, src_pos, nsrc, st_pos, st_phi, nst,
-                                samples, device, s);
-}
-
-template <typename T>
-int set_fm(const T* dev_fm, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(
-      ht::set_fm<T>(dev_fm, static_cast<cudaStream_t>(stream)));
+    return launch_k<T, CT, true>(Sa, Sb, ca, cb, K, len, g, rec, ch, srcf,
+                                 src_pos, nsrc, tile_ptr, tile_src,
+                                 st_pos, st_phi, nst, samples, device, s);
+  return launch_k<T, CT, false>(Sa, Sb, ca, cb, K, len, g, rec, ch, srcf,
+                                src_pos, nsrc, tile_ptr, tile_src,
+                                st_pos, st_phi, nst, samples, device, s);
 }
 
 }  // namespace
 
 // C entries (ctypes): every pointer except `offs` (8 host ints) and
-// `rec` (18 host values of the working type) is a device pointer (null
-// where the count is 0); the suffix names the working type and the conv
-// storage type; `kappa` selects the 12-row state.  The return value is
-// a cudaError_t (0 = success).  After ch steps S and conv are in Sa and
-// Ca when ch is even, in Sb and Cb when it is odd.
+// `rec` (20 host values of the working type, as ht_bkt_step_*) is a
+// device pointer (null where the count is 0); tile_ptr [tiles + 1] and
+// tile_src [nsrc] list each tile's sources in source order
+// (kernels/tiles.py:tile_sources); the suffix names the working
+// type and the conv storage type; `kappa` selects the 12-row state.
+// The return value is a cudaError_t (0 = success).  After ch steps S
+// and conv are in Sa and Ca when ch is even, in Sb and Cb when it is
+// odd.
 extern "C" {
 
-int ht_bkt_chunk_set_fm_f32(const float* fm, int device, void* stream) {
-  return set_fm<float>(fm, device, stream);
-}
-int ht_bkt_chunk_set_fm_f64(const double* fm, int device, void* stream) {
-  return set_fm<double>(fm, device, stream);
-}
 int ht_bkt_chunk_f32_bf16(float* Sa, float* Sb, void* Ca, void* Cb,
-                          float* dv, const float* K, int len,
-                          const int* offs, const float* rec, int kappa,
-                          int ch, const float* srcf, const int* src_pos,
-                          int nsrc, const int* st_pos, const float* st_phi,
-                          int nst, float* samples, int device,
-                          void* stream) {
-  return launch<float, __nv_bfloat16>(Sa, Sb, Ca, Cb, dv, K, len, offs, rec,
-                                      kappa, ch, srcf, src_pos, nsrc, st_pos,
+                          const float* K, int len, const int* offs,
+                          const float* rec, int kappa, int ch,
+                          const float* srcf, const int* src_pos, int nsrc,
+                          const int* tile_ptr, const int* tile_src,
+                          const int* st_pos,
+                          const float* st_phi, int nst, float* samples,
+                          int device, void* stream) {
+  return launch<float, __nv_bfloat16>(Sa, Sb, Ca, Cb, K, len, offs, rec,
+                                      kappa, ch, srcf, src_pos, nsrc,
+                                      tile_ptr, tile_src, st_pos,
                                       st_phi, nst, samples, device, stream);
 }
 int ht_bkt_chunk_f32_f32(float* Sa, float* Sb, void* Ca, void* Cb,
-                         float* dv, const float* K, int len, const int* offs,
+                         const float* K, int len, const int* offs,
                          const float* rec, int kappa, int ch,
                          const float* srcf, const int* src_pos, int nsrc,
-                         const int* st_pos, const float* st_phi, int nst,
-                         float* samples, int device, void* stream) {
-  return launch<float, float>(Sa, Sb, Ca, Cb, dv, K, len, offs, rec, kappa,
-                              ch, srcf, src_pos, nsrc, st_pos, st_phi, nst,
-                              samples, device, stream);
+                         const int* tile_ptr, const int* tile_src,
+                         const int* st_pos,
+                         const float* st_phi, int nst, float* samples,
+                         int device, void* stream) {
+  return launch<float, float>(Sa, Sb, Ca, Cb, K, len, offs, rec, kappa, ch,
+                              srcf, src_pos, nsrc, tile_ptr, tile_src,
+                              st_pos, st_phi, nst, samples, device,
+                              stream);
 }
 int ht_bkt_chunk_f64_f64(double* Sa, double* Sb, void* Ca, void* Cb,
-                         double* dv, const double* K, int len,
-                         const int* offs, const double* rec, int kappa,
-                         int ch, const double* srcf, const int* src_pos,
-                         int nsrc, const int* st_pos, const double* st_phi,
-                         int nst, double* samples, int device,
-                         void* stream) {
-  return launch<double, double>(Sa, Sb, Ca, Cb, dv, K, len, offs, rec, kappa,
-                                ch, srcf, src_pos, nsrc, st_pos, st_phi, nst,
-                                samples, device, stream);
+                         const double* K, int len, const int* offs,
+                         const double* rec, int kappa, int ch,
+                         const double* srcf, const int* src_pos, int nsrc,
+                         const int* tile_ptr, const int* tile_src,
+                         const int* st_pos,
+                         const double* st_phi, int nst, double* samples,
+                         int device, void* stream) {
+  return launch<double, double>(Sa, Sb, Ca, Cb, K, len, offs, rec, kappa,
+                                ch, srcf, src_pos, nsrc, tile_ptr, tile_src,
+                                st_pos, st_phi, nst, samples, device,
+                                stream);
 }
 
 }  // extern "C"

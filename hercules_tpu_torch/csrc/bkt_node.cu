@@ -82,10 +82,25 @@
 // storage type once, on store; the force in the spectral form's own
 // order (the plain version multiplies the dense matrices), so it agrees
 // with the plain version to rounding, not bit for bit.
-#include "bkt_spectral.cuh"
-#include "bkt_step.cuh"
+#include "bkt_tile.cuh"
 
 namespace {
+
+// the tile geometry, its constants and the spectral element force
+// (bkt_tile.cuh), shared with K2 and K6
+using ht::element_force_spectral;
+using ht::Geom;
+using ht::kF;
+using ht::kThreads;
+using ht::make_geom;
+using ht::NN;
+using ht::NX;
+using ht::opt_in_smem;
+using ht::OX;
+using ht::OY;
+using ht::tile_items;
+using ht::tile_smem_bytes;
+using ht::TX;
 
 // the most distinct coefficient sets a brick may have (len(QTABLE));
 // the table holds one more, zero row
@@ -103,81 +118,6 @@ template <> __device__ __forceinline__ float setv<float>(int i) {
 template <> __device__ __forceinline__ double setv<double>(int i) {
   return c_sets_f64[i];
 }
-
-// x <- H x over the 8 corners, per component, in place: the butterfly
-// stages of physics/kmats.py:hadamard8_stages (lo + hi, lo - hi).
-template <typename T>
-__device__ __forceinline__ void hadamard8(T* x) {
-#pragma unroll
-  for (int k = 0; k < 3; ++k)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      if (!(j >> k & 1)) {
-        const int h = j | (1 << k);
-#pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          const T lo = x[3 * j + c], hi = x[3 * h + c];
-          x[3 * j + c] = lo + hi;
-          x[3 * h + c] = lo - hi;
-        }
-      }
-}
-
-// One element's force f [24] = mu Kmu xs + ka Kkappa xk in the spectral
-// form: the transforms of xs and xk (in place), a multiply-add per
-// nonzero of the sparse factors (bkt_spectral.cuh, immediate operands),
-// the scaling, and the inverse transform.
-template <typename T>
-__device__ __forceinline__ void element_force_spectral(T* xs, T* xk, T mu,
-                                                       T ka, T* f) {
-  hadamard8(xs);
-  hadamard8(xk);
-  T ym[24], yk[24];
-#pragma unroll
-  for (int i = 0; i < 24; ++i) ym[i] = yk[i] = T(0);
-#define HT_ACC_MU(mo, co, mi, ci, v) \
-  ym[3 * mo + co] = ht::fma_rn(T(v), xs[3 * mi + ci], ym[3 * mo + co]);
-#define HT_ACC_KAPPA(mo, co, mi, ci, v) \
-  yk[3 * mo + co] = ht::fma_rn(T(v), xk[3 * mi + ci], yk[3 * mo + co]);
-  HT_BKT_SPECTRAL_MU(HT_ACC_MU)
-  HT_BKT_SPECTRAL_KAPPA(HT_ACC_KAPPA)
-#undef HT_ACC_MU
-#undef HT_ACC_KAPPA
-#pragma unroll
-  for (int i = 0; i < 24; ++i) f[i] = mu * ym[i] + ka * yk[i];
-  hadamard8(f);
-}
-
-// The block's tile: TX x TY elements, one per thread; the owned nodes
-// are the (TX - 1) x (TY - 1) lowest corners of all but the first
-// column and row; the damping vectors cover (TX + 1) x (TY + 1) nodes.
-constexpr int TX = 32;
-constexpr int TY = 8;
-constexpr int kThreads = TX * TY;
-constexpr int OX = TX - 1;
-constexpr int OY = TY - 1;
-constexpr int NX = TX + 1;
-constexpr int NN = NX * (TY + 1);
-constexpr int kF = 12 * kThreads;  // the force rows of 4 corners
-// planes of the node grid each block marches through (4 was no faster
-// on an H100, 16 slower in float32; PERF.md).  The kernel reads it from
-// Geom: compiled into the march's trip count, it made the float32
-// kernel take 144 registers instead of 128 on an H100, one block per SM
-// instead of two, and 41 % slower (PERF.md).
-constexpr int kSlab = 8;
-
-// Geometry of the flat node grid and of the tiles, from the corner
-// offsets (make_geom).  Per corner j with offset (dx, dy, da) in tile
-// coordinates: cda = da, nof = its node in the dv tile relative to the
-// element's lowest corner, gof = the element n - o[j] in the element
-// tile relative to node n's thread, fdst = rows 3j..3j+2 of the force in
-// the shared half of its plane (da = 0: the element's plane, 1: the
-// next one).
-struct Geom {
-  int o[8];
-  int s_mid, s_out, nx, ny, nplanes, tiles_x, tiles_y, slab;
-  int cda[8], nof[8], gof[8], fdst[8];
-};
 
 template <typename T, typename CT, bool KAPPA>
 __global__ void __launch_bounds__(kThreads)
@@ -383,66 +323,17 @@ __global__ void __launch_bounds__(kThreads)
   gather_plane(a1 - 1);
 }
 
-// Geom of a brick's corner offsets, or false when they are not the 8
-// corners of a flat grid (a stride of 1, a mid stride, a plane stride
-// that the mid stride divides at least twice).
-bool make_geom(const int* o, int len, Geom* g) {
-  int s[3] = {o[1], o[2], o[4]};
-  for (int i = 0; i < 2; ++i)
-    for (int k = 0; k < 2 - i; ++k)
-      if (s[k] > s[k + 1]) {
-        const int t = s[k];
-        s[k] = s[k + 1];
-        s[k + 1] = t;
-      }
-  if (o[0] != 0 || s[0] != 1 || s[1] < 2 || s[2] % s[1] != 0 ||
-      s[2] / s[1] < 2 || len < 1)
-    return false;
-  for (int j = 0; j < 8; ++j) {
-    const int want = ((j & 1) ? o[1] : 0) + ((j & 2) ? o[2] : 0) +
-                     ((j & 4) ? o[4] : 0);
-    if (o[j] != want) return false;
-    g->o[j] = o[j];
-  }
-  g->s_mid = s[1];
-  g->s_out = s[2];
-  g->nx = s[1];
-  g->ny = s[2] / s[1];
-  g->nplanes = (len + s[2] - 1) / s[2];
-  g->tiles_x = (g->nx + OX - 1) / OX;
-  g->tiles_y = (g->ny + OY - 1) / OY;
-  g->slab = kSlab < g->nplanes ? kSlab : g->nplanes;
-  int lo = 0, hi = 0;
-  for (int j = 0; j < 8; ++j) {
-    const int da = o[j] / s[2], r = o[j] % s[2];
-    const int dy = r / s[1], dx = r % s[1];
-    g->cda[j] = da;
-    g->nof[j] = dy * NX + dx;
-    g->gof[j] = dy * TX + dx;
-    g->fdst[j] = (da ? hi++ : lo++) * 3 * kThreads;
-  }
-  return lo == 4 && hi == 4;
-}
-
 template <typename T, typename CT, bool KAPPA>
 int launch_k(const T* S, const CT* conv, const T* K, T* out, CT* conv_out,
              const int* slot, const T* mce, const CT* cmix, CT* cmix_out,
              int M, int len, const Geom& g, int device, cudaStream_t s) {
-  const int smem = (2 * 6 * NN + 3 * kF) * static_cast<int>(sizeof(T));
-  // above 48 KB only after opting in, once per device
+  const int smem = tile_smem_bytes<T>();
   static unsigned opted = 0;
-  if (!(opted >> device & 1u)) {
-    cudaError_t err = cudaFuncSetAttribute(
-        bkt_node_kernel<T, CT, KAPPA>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    opted |= 1u << device;
-  }
-  const long long blocks = static_cast<long long>(g.tiles_x) * g.tiles_y *
-                           ((g.nplanes + g.slab - 1) / g.slab);
-  bkt_node_kernel<T, CT, KAPPA><<<static_cast<unsigned>(blocks), kThreads,
-      smem, s>>>(S, conv, K, out, conv_out, slot, mce, cmix, cmix_out, M,
-                 len, g);
+  cudaError_t err =
+      opt_in_smem(bkt_node_kernel<T, CT, KAPPA>, smem, device, &opted);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  bkt_node_kernel<T, CT, KAPPA><<<tile_items(g), kThreads, smem, s>>>(
+      S, conv, K, out, conv_out, slot, mce, cmix, cmix_out, M, len, g);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -7,10 +7,13 @@ CPU tensors.  It counts its kernel launches in ``bkt_chunk.launches``.
 
 Per step t, in this order (as brick_chunk, K5): the station samples of
 the state before the step (``samples[t]``), the step itself (K2's
-body), then the source increments ``srcf[t]`` added at ``src_pos``
-(sources sharing a position are added one after another in source
-order).  The increments are pre-scaled by the caller: f(t) dt^2
+tiled body), then the source increments ``srcf[t]`` added at
+``src_pos`` (sources sharing a position are added one after another in
+source order).  The increments are pre-scaled by the caller: f(t) dt^2
 rounded to the working type, then times inv_mass at the source node.
+On the card the thread that updates a source node adds them; the host
+lists each tile's sources (``tiles.tile_sources``) once for each
+``src_pos`` tensor and version (``source_lists``).
 """
 
 from __future__ import annotations
@@ -20,16 +23,17 @@ import torch
 from . import build
 from .bkt_step import bkt_step_plain, check_args, rec_arg
 from .brick_chunk import sample_stations
+from .tiles import tile_sources
 
 
-def bkt_chunk_plain(S, conv, K, offs, fm, rec, srcf, src_pos, st_pos,
+def bkt_chunk_plain(S, conv, K, offs, scales, rec, srcf, src_pos, st_pos,
                     st_phi):
     """A loop of bkt_step_plain with the kernel's sampling and injection
     order.  Returns (S, conv after CH steps, samples [CH, ns, 3])."""
     samples = []
     for t in range(srcf.shape[0]):
         samples.append(sample_stations(S, st_pos, st_phi))
-        S, conv = bkt_step_plain(S, conv, K, offs, fm, rec)
+        S, conv = bkt_step_plain(S, conv, K, offs, scales, rec)
         if src_pos is not None:
             S[0:3].index_add_(1, src_pos, srcf[t])
     ns = 0 if st_pos is None else st_pos.shape[0]
@@ -41,12 +45,12 @@ def _ptr(t):
     return None if t is None or t.numel() == 0 else t.data_ptr()
 
 
-def _prepare(S, spare, conv, conv_spare, K, offs, fm, rec, srcf, src_pos,
-             st_pos, st_phi):
+def _prepare(S, spare, conv, conv_spare, K, offs, scales, rec, srcf,
+             src_pos, st_pos, st_phi):
     """Raise unless the arguments are what the kernel takes; returns (C
-    entry, constant bank setter, LEN, offsets, recursion scalars, kappa
-    flag, dv rows, CH, L, ns, device)."""
-    sfx = check_args("bkt_chunk", S, conv, K, offs, fm, rec, spare,
+    entry, LEN, offsets, kernel scalars, kappa flag, CH, L, ns, device).
+    It reads no tensor's values: the cache keeps it by signature."""
+    sfx = check_args("bkt_chunk", S, conv, K, offs, scales, rec, spare,
                      conv_spare)
     CH = srcf.shape[0]
     L = 0 if src_pos is None else src_pos.shape[0]
@@ -67,46 +71,69 @@ def _prepare(S, spare, conv, conv_spare, K, offs, fm, rec, srcf, src_pos,
                or st_phi.device != S.device):
         raise ValueError("bkt_chunk: st_pos/st_phi must be [ns, 8] on "
                          "the state's device")
-    kappa = conv.shape[0] == 12
-    return (build.entry(f"ht_bkt_chunk_{sfx}"),
-            f"ht_bkt_chunk_set_fm_{sfx[:3]}", S.shape[1],
-            build.offsets_arg(offs), rec_arg(rec, S.dtype), int(kappa),
-            6 if kappa else 3, CH, L, ns, S.device.index)
+    return (build.entry(f"ht_bkt_chunk_{sfx}"), S.shape[1],
+            build.offsets_arg(offs), rec_arg(rec, scales, S.dtype),
+            int(conv.shape[0] == 12), CH, L, ns, S.device.index)
 
 
 _CHECKS = build.CheckCache(_prepare)
 
+# the last source_lists result, with the src_pos tensor it was made from
+# and that tensor's version counter: the lists are read from src_pos's
+# values, so they are kept by the tensor itself (held here, so that its
+# memory is not handed to another tensor) and not by its address
+_SOURCES = {}
 
-def bkt_chunk(S, spare, conv, conv_spare, K, offs, fm, rec, srcf,
+
+def source_lists(src_pos, offs, LEN, device):
+    """(int32 positions or None, tile_ptr, tile_src) of the sources at
+    src_pos [L] (or None) on ``device``, as the kernel takes them (see
+    tiles.tile_sources); made again unless src_pos is the tensor of the
+    last call, unmodified, on the same grid and device."""
+    key = (offs, LEN, device)
+    held = _SOURCES.get("last")
+    if (held is not None and held[0] is src_pos and held[1] == key
+            and (src_pos is None or held[2] == src_pos._version)):
+        return held[3]
+    L = 0 if src_pos is None else src_pos.shape[0]
+    ptr, order = tile_sources(offs, [] if not L else src_pos.cpu().numpy())
+    as_dev = lambda a: torch.as_tensor(a, dtype=torch.int32, device=device)
+    # the kernel indexes with 32-bit ints
+    got = (None if not L else as_dev(src_pos), as_dev(ptr), as_dev(order))
+    _SOURCES["last"] = (src_pos, key,
+                        None if src_pos is None else src_pos._version, got)
+    return got
+
+
+def bkt_chunk(S, spare, conv, conv_spare, K, offs, scales, rec, srcf,
               src_pos=None, st_pos=None, st_phi=None):
-    """CH = srcf.shape[0] steps from (S, conv).  srcf [CH, 3, L] holds
-    the pre-scaled source increments for the L positions src_pos [L]
-    (int64); st_pos [ns, 8] (int64) and st_phi [ns, 8] place the
-    stations.  On CUDA, (S, spare) and (conv, conv_spare) are the
-    kernel's ping-pong buffers and all four are overwritten.
+    """CH = srcf.shape[0] steps from (S, conv), with the operator's
+    scales and recursion scalars as bkt_step takes them.  srcf
+    [CH, 3, L] holds the pre-scaled source increments for the L
+    positions src_pos [L] (int64); st_pos [ns, 8] (int64) and st_phi
+    [ns, 8] place the stations.  On CUDA, (S, spare) and (conv,
+    conv_spare) are the kernel's ping-pong buffers and all four are
+    overwritten.
 
     Returns (the tensors holding the final S and conv, samples
     [CH, ns, 3])."""
     if S.device.type == "cpu":
-        return bkt_chunk_plain(S, conv, K, offs, fm, rec, srcf, src_pos,
-                               st_pos, st_phi)
-    fn, setter, LEN, offs_arg, rec_c, kappa, D, CH, L, ns, dev = _CHECKS(
-        S, spare, conv, conv_spare, K, offs, fm, tuple(rec), srcf, src_pos,
-        st_pos, st_phi)
+        return bkt_chunk_plain(S, conv, K, offs, scales, rec, srcf,
+                               src_pos, st_pos, st_phi)
+    fn, LEN, offs_arg, rec_c, kappa, CH, L, ns, dev = _CHECKS(
+        S, spare, conv, conv_spare, K, offs, tuple(scales), tuple(rec),
+        srcf, src_pos, st_pos, st_phi)
+    pos32, tile_ptr, tile_src = source_lists(src_pos, offs, LEN, S.device)
     samples = S.new_empty((CH, ns, 3))
     if CH == 0:
         return S, conv, samples
-    dv = S.new_empty((D, LEN))
-    # the kernel indexes with 32-bit ints
-    pos32 = None if not L else src_pos.to(torch.int32).contiguous()
     st32 = None if not ns else st_pos.to(torch.int32).contiguous()
     phi = None if not ns else st_phi.contiguous()
-    stream = build.stream(S)
-    build.ensure_ops(setter, fm, stream)
     rc = fn(S.data_ptr(), spare.data_ptr(), conv.data_ptr(),
-            conv_spare.data_ptr(), dv.data_ptr(), K.data_ptr(), LEN, offs_arg,
-            rec_c, kappa, CH, _ptr(srcf), _ptr(pos32), L, _ptr(st32),
-            _ptr(phi), ns, _ptr(samples), dev, stream)
+            conv_spare.data_ptr(), K.data_ptr(), LEN, offs_arg, rec_c, kappa,
+            CH, _ptr(srcf), _ptr(pos32), L, tile_ptr.data_ptr(),
+            _ptr(tile_src), _ptr(st32), _ptr(phi), ns,
+            _ptr(samples), dev, build.stream(S))
     build.check(rc, "bkt_chunk launch")
     bkt_chunk.launches += 1
     if CH % 2:

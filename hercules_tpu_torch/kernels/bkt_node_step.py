@@ -28,6 +28,7 @@ import torch
 
 from . import build
 from .bkt_step import CONV_TYPES, bkt_recursion_plain, check_layout
+from .tiles import brick_strides
 
 # the most coefficient sets a brick may have (len(QTABLE)); the table
 # holds one more row, zero, for nodes with no adjacent element
@@ -108,21 +109,6 @@ def bkt_node_step_plain(S, conv, K, offs, tab, mix=None, conv_mix=None):
     if M:
         return Sn, cn.to(conv.dtype), cmn.to(conv_mix.dtype)
     return Sn, cn.to(conv.dtype)
-
-
-def brick_strides(offs):
-    """(mid stride, plane stride) of the flat node grid whose element
-    corners are ``offs``; raises unless offs are the 8 corners of such a
-    grid (one stride 1, one the inner extent, one a plane of at least
-    two rows), which the kernel reads as planes of tiles."""
-    s = sorted((offs[1], offs[2], offs[4]))
-    corners = tuple((j & 1) * offs[1] + (j >> 1 & 1) * offs[2]
-                    + (j >> 2 & 1) * offs[4] for j in range(8))
-    if (tuple(offs) != corners or s[0] != 1 or s[1] < 2
-            or s[2] % s[1] or s[2] // s[1] < 2):
-        raise ValueError(f"bkt_node_step: corner offsets {offs} are not "
-                         f"those of a brick's node grid")
-    return s[1], s[2]
 
 
 def check_args(S, conv, K, offs, tab, out, conv_out, slot, ce, conv_mix,

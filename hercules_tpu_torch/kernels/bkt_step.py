@@ -1,23 +1,32 @@
 """K2: one step of a uniform-Q BKT brick (node-basis memory variables).
 
-``bkt_step`` launches the CUDA kernels of ``csrc/bkt_step.cu`` on CUDA
+``bkt_step`` launches the CUDA kernel of ``csrc/bkt_step.cu`` on CUDA
 tensors and runs ``bkt_step_plain``, the same step in plain PyTorch, on
 CPU tensors.  It counts its launches in ``bkt_step.launches`` (one per
-step: the recursion pass and the force pass go out together).
+step).
 
 Layout (see ``solver/fused_bkt.py``): S [8, LEN] = (u, u-, 0, 0),
 conv [6 | 12, LEN] = (s0, s1[, k0, k1]) x 3 components in the storage
 type, K [8, LEN] = (mass_minusaM x 3, inv_mass, element valid, 0...),
-fm [24, 48], rec the 9 | 18 recursion scalars.
+``scales`` = (mu_f, kappa_f) the operator's two scales in float64, rec
+the 9 | 18 recursion scalars.  The plain version multiplies by fm =
+[mu_f Kmu | kappa_f Kkappa] [24, 48] (``bkt_operator``: folded in
+float64, then cast, as the JAX package folds it); the kernel takes the
+scales rounded to the working type and forms the element force in the
+spectral form.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
+import numpy as np
 import torch
 
+from ..physics.kmats import bkt_matrices_24
 from . import build
+from .tiles import brick_strides
 
 # (working type, conv storage type) pairs the kernels take, and the
 # suffix of their C entries
@@ -49,10 +58,25 @@ def bkt_recursion_plain(S, conv, rec):
     return torch.cat([s0n, s1n, k0n, k1n]), dvs, dvk
 
 
-def bkt_step_plain(S, conv, K, offs, fm, rec):
+@functools.lru_cache(maxsize=None)
+def _unit_operators():
+    return bkt_matrices_24()
+
+
+def bkt_operator(scales, dtype=torch.float64, device="cpu"):
+    """fm = [mu_f Kmu | kappa_f Kkappa] [24, 48] of scales = (mu_f,
+    kappa_f): folded in float64, then cast to ``dtype``."""
+    kmu, kk = _unit_operators()
+    fm = np.concatenate([scales[0] * kmu, scales[1] * kk], axis=1)
+    return torch.as_tensor(fm, dtype=dtype, device=device)
+
+
+def bkt_step_plain(S, conv, K, offs, scales, rec):
     """The step as the node recursion, 8 shifted slices, one [24, 48] @
-    [48, E] product and 24 shifted adds.  conv' rounds to the storage
-    type once, on return.  Returns (S', conv')."""
+    [48, E] product (bkt_operator of ``scales``) and 24 shifted adds.
+    conv' rounds to the storage type once, on return.  Returns (S',
+    conv')."""
+    fm = bkt_operator(scales, S.dtype, S.device)
     LEN = S.shape[1]
     E = LEN - offs[7]                  # element columns whose corners fit
     u, up = S[0:3], S[3:6]
@@ -89,7 +113,7 @@ def check_layout(name, specs, outputs, offs, LEN, rows):
         raise ValueError(f"{name}: {LEN} columns exceed 32-bit indexing")
 
 
-def check_args(name, S, conv, K, offs, fm, rec, out, conv_out):
+def check_args(name, S, conv, K, offs, scales, rec, out, conv_out):
     """Raise unless the tensors are what the kernels take; returns the
     C entry suffix."""
     dev, dt = S.device, S.dtype
@@ -104,39 +128,45 @@ def check_args(name, S, conv, K, offs, fm, rec, out, conv_out):
     if R not in (6, 12) or len(rec) != 3 * R // 2:
         raise ValueError(f"{name}: conv has {R} rows and rec {len(rec)} "
                          f"values (6 and 9, or 12 and 18)")
+    if len(scales) != 2:
+        raise ValueError(f"{name}: scales must be (mu_f, kappa_f), got "
+                         f"{scales}")
     check_layout(name, (("S", S, (8, LEN), dt), ("K", K, (8, LEN), dt),
-                        ("fm", fm, (24, 48), dt), ("out", out, (8, LEN), dt),
+                        ("out", out, (8, LEN), dt),
                         ("conv", conv, (R, LEN), conv.dtype),
                         ("conv_out", conv_out, (R, LEN), conv.dtype)),
                  ((out, S), (conv_out, conv)), offs, LEN, 12)
+    brick_strides(offs)
     return sfx
 
 
-def rec_arg(rec, dtype):
-    """The recursion scalars as the C entries' host array of 18."""
+def rec_arg(rec, scales, dtype):
+    """The C entries' host array of 20 in the working type: the
+    recursion scalars (the kappa ones zero when shear-only), then mu_f
+    and kappa_f, each rounded to nearest."""
     ct = ctypes.c_float if dtype == torch.float32 else ctypes.c_double
-    vals = list(rec) + [0.0] * (18 - len(rec))
-    return (ct * 18)(*vals)
+    vals = list(rec) + [0.0] * (18 - len(rec)) + list(scales)
+    return (ct * 20)(*vals)
 
 
-def _prepare(S, conv, K, offs, fm, rec, out, conv_out):
-    """check_args, then (C entry, constant bank setter, LEN, offsets,
-    recursion scalars, kappa flag, dv rows, device index)."""
-    sfx = check_args("bkt_step", S, conv, K, offs, fm, rec, out, conv_out)
-    kappa = conv.shape[0] == 12
-    return (build.entry(f"ht_bkt_step_{sfx}"), f"ht_bkt_step_set_fm_{sfx[:3]}",
-            S.shape[1], build.offsets_arg(offs), rec_arg(rec, S.dtype),
-            int(kappa), 6 if kappa else 3, S.device.index)
+def _prepare(S, conv, K, offs, scales, rec, out, conv_out):
+    """check_args, then (C entry, LEN, offsets, kernel scalars, kappa
+    flag, device index)."""
+    sfx = check_args("bkt_step", S, conv, K, offs, scales, rec, out,
+                     conv_out)
+    return (build.entry(f"ht_bkt_step_{sfx}"), S.shape[1],
+            build.offsets_arg(offs), rec_arg(rec, scales, S.dtype),
+            int(conv.shape[0] == 12), S.device.index)
 
 
 _CHECKS = build.CheckCache(_prepare)
 
 
-def bkt_step(S, conv, K, offs, fm, rec, out=None, conv_out=None):
+def bkt_step(S, conv, K, offs, scales, rec, out=None, conv_out=None):
     """One step (S, conv) -> (out, conv_out) (new tensors unless given).
-    CUDA tensors run the K2 kernels; CPU tensors run bkt_step_plain."""
+    CUDA tensors run the K2 kernel; CPU tensors run bkt_step_plain."""
     if S.device.type == "cpu":
-        Sn, cn = bkt_step_plain(S, conv, K, offs, fm, rec)
+        Sn, cn = bkt_step_plain(S, conv, K, offs, scales, rec)
         if out is not None:
             Sn = out.copy_(Sn)
         if conv_out is not None:
@@ -146,14 +176,11 @@ def bkt_step(S, conv, K, offs, fm, rec, out=None, conv_out=None):
         out = torch.empty_like(S)
     if conv_out is None:
         conv_out = torch.empty_like(conv)
-    fn, setter, LEN, offs_arg, rec_c, kappa, D, dev = _CHECKS(
-        S, conv, K, offs, fm, tuple(rec), out, conv_out)
-    dv = S.new_empty((D, LEN))
-    stream = build.stream(S)
-    build.ensure_ops(setter, fm, stream)
+    fn, LEN, offs_arg, rec_c, kappa, dev = _CHECKS(
+        S, conv, K, offs, tuple(scales), tuple(rec), out, conv_out)
     rc = fn(S.data_ptr(), conv.data_ptr(), K.data_ptr(), out.data_ptr(),
-            conv_out.data_ptr(), dv.data_ptr(), LEN, offs_arg, rec_c, kappa,
-            dev, stream)
+            conv_out.data_ptr(), LEN, offs_arg, rec_c, kappa, dev,
+            build.stream(S))
     build.check(rc, "bkt_step launch")
     bkt_step.launches += 1
     return out, conv_out

@@ -57,10 +57,6 @@ SIGNATURES = {
                            _I, _P, _I, _P],
     "ht_brick_chunk_f64": [_P, _P, _P, _I, _P, _I, _P, _P, _I, _P, _P,
                            _I, _P, _I, _P],
-    "ht_bkt_step_set_fm_f32": [_P, _I, _P],
-    "ht_bkt_step_set_fm_f64": [_P, _I, _P],
-    "ht_bkt_chunk_set_fm_f32": [_P, _I, _P],
-    "ht_bkt_chunk_set_fm_f64": [_P, _I, _P],
     "ht_stream_add_init": [_I],
     "ht_stream_add_f32": [_P, _P, _P, _L, _P],
     "ht_stream_add_inplace_f32": [_P, _P, _L, _P],
@@ -70,11 +66,11 @@ SIGNATURES = {
 ON_LOAD = ("ht_stream_add_init",)
 # the BKT entries, one per (working type, memory-variable type) pair
 SIGNATURES.update(
-    {f"ht_bkt_step_{sfx}": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _P]
+    {f"ht_bkt_step_{sfx}": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _P]
      for sfx in ("f32_bf16", "f32_f32", "f64_f64")})
 SIGNATURES.update(
-    {f"ht_bkt_chunk_{sfx}": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I,
-                             _P, _P, _I, _P, _P, _I, _P, _I, _P]
+    {f"ht_bkt_chunk_{sfx}": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _P,
+                             _P, _I, _P, _P, _P, _P, _I, _P, _I, _P]
      for sfx in ("f32_bf16", "f32_f32", "f64_f64")})
 SIGNATURES.update(
     {f"ht_bkt_node_set_tab_{t}": [_P, _I, _P] for t in ("f32", "f64")})

@@ -20,9 +20,12 @@ Layout (column n = node n of the brick, as in ``fused_brick.py``):
 - S [8, LEN]: u, u-, 0, 0.
 - K [8, LEN]: rows 0:3 = mass_minusaM, 3 = inv_mass, 4 = element
   valid (1.0 for the element whose lowest corner is column n), 5:8 = 0.
-- fm [24, 48] = [mu_f Kmu | kappa_f Kkappa] (``bkt_matrices_24``),
-  folded in float64 and then cast: the element force is fm @ [dvs at
-  the 8 corners; dvk at the 8 corners].
+- scales = (mu_f, kappa_f) in float64, the operator's one source: the
+  plain version's element force is fm @ [dvs at the 8 corners; dvk at
+  the 8 corners] with fm = [mu_f Kmu | kappa_f Kkappa] [24, 48]
+  (``kernels.bkt_step.bkt_operator``: folded in float64, then cast);
+  the kernels take the scales rounded to the working type and the
+  operators in their spectral form.
 - rec: the 9 shear recursion scalars (c1 c2 c3 c4 e0 e1 a0 a1 coef),
   then the 9 kappa ones when kappa is active, in the working type.
 
@@ -36,10 +39,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..physics.kmats import bkt_matrices_24
-
 from ..kernels.bkt_chunk import bkt_chunk
-from ..kernels.bkt_step import bkt_step
+from ..kernels.bkt_step import bkt_operator, bkt_step
 
 # row order of the BKT coefficient table (pallas_brick.py:52-56)
 BK_ROWS = ("shear_c1", "shear_c2", "shear_c3", "shear_c4",
@@ -88,13 +89,6 @@ def detect_bkt_uniform(bkt_tables, eidx, evalid, shear_only):
     return scal
 
 
-def bkt_operator(scal):
-    """fm = [mu_f Kmu | kappa_f Kkappa], [24, 48] float64."""
-    kmu, kk = bkt_matrices_24()
-    return np.concatenate([scal["mu_f"] * kmu, scal["kappa_f"] * kk],
-                          axis=1)
-
-
 def recursion_scalars(scal, shear_only):
     """The 9 (shear-only) or 18 recursion scalars in BK_ROWS order."""
     return tuple(scal[k] for k in bk_row_names(shear_only)[:-2])
@@ -112,22 +106,28 @@ def pack_bkt_constants(plan, tables, LEN):
 
 
 class BktStep(nn.Module):
-    """The brick's uniform-Q BKT step operator: buffers K [8, LEN] and
-    fm [24, 48]; ``rec`` the recursion scalars rounded to the working
-    type; conv rows and storage type fixed by ``shear_only``."""
+    """The brick's uniform-Q BKT step operator: buffer K [8, LEN];
+    ``scales`` (mu_f, kappa_f) in float64 and ``rec`` the recursion
+    scalars rounded to the working type; conv rows and storage type
+    fixed by ``shear_only``."""
 
     tier = "uniform"
 
-    def __init__(self, K, offs, fm, rec, shear_only):
+    def __init__(self, K, offs, scales, rec, shear_only):
         super().__init__()
         self.offs = tuple(int(o) for o in offs)
         self.register_buffer("K", K)
-        self.register_buffer("fm", fm)
         np_dt = np.float32 if K.dtype == torch.float32 else np.float64
+        self.scales = tuple(float(v) for v in scales)
         self.rec = tuple(float(np_dt(v)) for v in rec)
         self.shear_only = shear_only
         self.conv_rows = 6 if shear_only else 12
         self.conv_dtype = bkt_conv_dtype(K.dtype, shear_only)
+
+    @property
+    def fm(self):
+        """The plain version's [24, 48] operator in the working type."""
+        return bkt_operator(self.scales, self.K.dtype, self.K.device)
 
     def state_parts(self, LEN):
         """(shape, dtype) of the state after S: conv [R, LEN]."""
@@ -135,7 +135,7 @@ class BktStep(nn.Module):
 
     def forward(self, S, conv, out=None, conv_out=None):
         """One step (K2): (S', conv')."""
-        return bkt_step(S, conv, self.K, self.offs, self.fm, self.rec,
+        return bkt_step(S, conv, self.K, self.offs, self.scales, self.rec,
                         out=out, conv_out=conv_out)
 
     def chunk(self, S, conv, srcf, src_pos=None, st_pos=None,
@@ -144,7 +144,8 @@ class BktStep(nn.Module):
         Returns (S', conv', samples)."""
         return bkt_chunk(S, torch.empty_like(S), conv,
                          torch.empty_like(conv), self.K, self.offs,
-                         self.fm, self.rec, srcf, src_pos, st_pos, st_phi)
+                         self.scales, self.rec, srcf, src_pos, st_pos,
+                         st_phi)
 
 
 def uniform_step_module(plan, tables, LEN, offs, dtype, device):
@@ -157,5 +158,5 @@ def uniform_step_module(plan, tables, LEN, offs, dtype, device):
         return None
     K = pack_bkt_constants(plan, tables, LEN)
     as_t = lambda x: torch.as_tensor(x, dtype=dtype, device=device)
-    return BktStep(as_t(K), offs, as_t(bkt_operator(scal)),
+    return BktStep(as_t(K), offs, (scal["mu_f"], scal["kappa_f"]),
                    recursion_scalars(scal, shear_only), shear_only), K

@@ -12,9 +12,10 @@ step:
   zero padding rows S[6:8] and K's unused rows are not counted, nor the
   operator constants of a few kB).  The bound uses this count.
 - ``moved``: what the port's kernel itself streams per step, with its
-  passes' intermediates (K2's dv, K4's element force F) and the state
-  and constants it reads again every step.  Achieved bandwidth uses
-  this count.
+  passes' intermediates (K4's element force F) and the state and
+  constants it reads again in the same step (the tiled K2, K3 and K6
+  read S once for the recursion and again for the update).  Achieved
+  bandwidth uses this count.
 - K3's mixed elements (``mixed``, M of them) add their corner-basis
   state conv_mix in and out (2 R 8 M storage words) and their recursion
   rows (9 | 18 per element) to both byte counts, and their recursion at
@@ -28,11 +29,14 @@ step:
   dense [24, 48] product's 2,304), not the kernels' repeated per-node
   work.
 
-The chunk kernels (K5, K6) take ``chunk`` steps in one launch and read
-their state and constants once per launch, so their ``bytes`` is the
-step kernel's divided by ``chunk``; their ``flop`` and ``moved`` are
-per step.  Their sources and samples (at most 128 columns each) are
-left out.
+The chunk kernels (K5, K6) take ``chunk`` steps in one launch.  Where
+their state and constants (S, conv and K as the kernel holds them) fit
+the card's L2 cache, they need to read them from device memory only once
+per launch, and their ``bytes`` is the step kernel's divided by
+``chunk``; where they do not (at 2^20 elements they come to 69 MB and
+more, against 50 MB), every step streams them, and ``bytes`` is the
+step kernel's.  Their ``flop`` and ``moved`` are per step.  Their
+sources and samples (at most 128 columns each) are left out.
 
 The bound is max(bytes / 3.35 TB/s, flop / peak), the peak being the
 H100 SXM data sheet's non-tensor rate for the arithmetic type (67
@@ -50,8 +54,10 @@ import torch
 
 from ..physics.kmats import spectral_bkt_factors, spectral_factors
 
-# H100 SXM data sheet (700 W): HBM3 rate, non-tensor arithmetic rates
+# H100 SXM data sheet (700 W): HBM3 rate, non-tensor arithmetic rates,
+# L2 cache (50 MB)
 PEAK_BYTES_PER_S = 3.35e12
+L2_BYTES = 50 * 2 ** 20
 PEAK_FLOP_PER_S = {torch.float32: 67e12, torch.float64: 34e12}
 
 # one 8-point Hadamard over the corners of a 24-vector: 3 butterfly
@@ -119,7 +125,6 @@ def kernel_cost(name, LEN, elements, dtype=torch.float32, conv_rows=0,
     # memory-variable pairs: 1 shear-only, 2 with kappa (6 | 12 rows per
     # node, or 48 | 96 per element in K4's corner basis)
     pairs = conv_rows // (48 if name == "bkt_corner_step" else 6)
-    D = 3 * pairs                       # rows of dv (K2, K3)
     rec = L * 3 * (1 + PAIR_FLOP * pairs)   # du once, then the pairs
     M = int(mixed)
     # K3's mixed set: conv_mix in and out, the rows; its membership as
@@ -133,9 +138,10 @@ def kernel_cost(name, LEN, elements, dtype=torch.float32, conv_rows=0,
         # at the 8 corners
         "brick_step": (19 * L * w, 23 * L * w,
                        E * (el + 24 * 3) + L * UPDATE_FLOP),
-        # S 6, K 5 (mm, inv_mass, element valid), S' 6; pass 1 reads S
-        # 6 rows and writes dv, pass 2 reads S 8, K 5, dv, writes S' 8
-        "bkt_step": (17 * L * w + conv, (27 + 2 * D) * L * w + conv,
+        # S 6, K 5 (mm, inv_mass, element valid), S' 6; the kernel reads
+        # S 6 (recursion), the element-valid row (element force), S 8
+        # and K 4 (update), writes S' 8
+        "bkt_step": (17 * L * w + conv, 27 * L * w + conv,
                      E * bkt + rec + L * UPDATE_FLOP),
         # S 6, K 7 (mm, inv_mass, mu_f, kappa_f, set index), S' 6; the
         # kernel reads S 6 and the set index (recursion), mu_f and
@@ -157,7 +163,10 @@ def kernel_cost(name, LEN, elements, dtype=torch.float32, conv_rows=0,
     chunked = {"brick_chunk": "brick_step", "bkt_chunk": "bkt_step"}
     if name in chunked:
         nbytes, moved, flop = step[chunked[name]]
-        return KernelCost(name, nbytes / chunk, moved, flop, dtype)
+        # S and K [8, LEN] each, and conv
+        if 16 * L * w + conv // 2 <= L2_BYTES:
+            nbytes /= chunk
+        return KernelCost(name, nbytes, moved, flop, dtype)
     if name not in step:
         raise ValueError(f"no cost model for kernel {name!r}")
     return KernelCost(name, *step[name], dtype)

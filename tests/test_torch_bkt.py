@@ -19,8 +19,10 @@ from hercules_tpu_torch.fixtures import (SOFT_FREQ, SOFT_LAYERS,
 from hercules_tpu_torch.kernels.bkt_chunk import (bkt_chunk,
                                                   bkt_chunk_plain)
 from hercules_tpu_torch.kernels.bkt_step import (bkt_recursion_plain,
-                                                 bkt_step, bkt_step_plain)
+                                                 bkt_step, bkt_step_plain,
+                                                 rec_arg)
 from hercules_tpu_torch.kernels.brick_chunk import sample_stations
+from hercules_tpu_torch.physics.kmats import bkt_matrices_24
 from hercules_tpu_torch.solver import fused_bkt
 from hercules_tpu_torch.solver.bricks import build_plan
 from hercules_tpu_torch.solver.fused_brick import (PallasBrickTables,
@@ -185,7 +187,7 @@ def test_chunk_plain_equals_step_loop(case):
                            dtype=torch.float64, device="cpu")
     S0, cv0 = _random_state(pt, 1, 1e-3)
     srcf = source_increments(pt, forces, sim.params.delta_t ** 2, 0, T)
-    args = (pt.K, pt.offs, pt.step.fm, pt.step.rec)
+    args = (pt.K, pt.offs, pt.step.scales, pt.step.rec)
     S, cv, samples = S0, cv0, []
     for t in range(T):
         samples.append(sample_stations(S, pt.st_pos, pt.st_phi))
@@ -220,7 +222,7 @@ def test_wrappers_on_cpu_run_plain(case, dtype):
     _, sim, plan, _, _ = case
     pt = PallasBrickTables(plan, sim.tables, dtype=dtype, device="cpu")
     S, cv = _random_state(pt, 2, 1e-3)
-    args = (pt.K, pt.offs, pt.step.fm, pt.step.rec)
+    args = (pt.K, pt.offs, pt.step.scales, pt.step.rec)
     before = (bkt_step.launches, bkt_chunk.launches)
     ref = bkt_step_plain(S, cv, *args)
     for got in (bkt_step(S, cv, *args), pt.step(S, cv)):
@@ -235,6 +237,42 @@ def test_wrappers_on_cpu_run_plain(case, dtype):
     assert torch.equal(Sc, Sp) and torch.equal(cvc, cvp)
     assert (bkt_step.launches, bkt_chunk.launches) == before
     assert not ref[0][:, pt.nb:].any() and not ref[1][:, pt.nb:].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_scales_give_fm(case, dtype):
+    """BktStep.scales are the brick's mu_f and kappa_f in float64, the
+    one source of both operators: the plain version's fm is them times
+    bkt_matrices_24(), folded in float64 and then cast, and the kernels
+    receive them rounded to the working type (the last two of the C
+    entries' 20 scalars).  In float64 the kernels' scales times the
+    matrices give fm exactly; in float32 to one rounding of the
+    product."""
+    _, sim, plan, _, _ = case
+    pt = PallasBrickTables(plan, sim.tables, dtype=dtype, device="cpu")
+    step = pt.step
+    scal = fused_bkt.detect_bkt_uniform(sim.tables.bkt, plan.eidx_cat,
+                                        plan.evalid_cat, step.shear_only)
+    assert step.scales == (scal["mu_f"], scal["kappa_f"])
+    sent = list(rec_arg(step.rec, step.scales, dtype))
+    assert sent[:len(step.rec)] == list(step.rec)
+    assert sent[len(step.rec):18] == [0.0] * (18 - len(step.rec))
+    mu, ka = sent[18:]
+    np_dt = np.float32 if dtype == torch.float32 else np.float64
+    assert (mu, ka) == tuple(float(np_dt(v)) for v in step.scales)
+    assert mu != 0
+    kmu, kk = bkt_matrices_24()
+    fm = step.fm.numpy()
+    assert fm.dtype == np_dt
+    np.testing.assert_array_equal(
+        fm, np.concatenate([scal["mu_f"] * kmu, scal["kappa_f"] * kk],
+                           axis=1).astype(np_dt))
+    got = np.concatenate([mu * kmu, ka * kk], axis=1)
+    if dtype == torch.float64:
+        assert np.array_equal(got, fm)
+    else:
+        np.testing.assert_allclose(got.astype(np.float32), fm, rtol=2 ** -23,
+                                   atol=0)
 
 
 def test_float32_soft_box_stores_bfloat16(case):

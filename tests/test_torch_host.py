@@ -173,6 +173,20 @@ def test_physics_equal(twin):
                 "critical_dt_factors")
 
 
+def test_matlab_mesh_equal(twin, tmp_path):
+    """The MATLAB mesh files are byte for byte the JAX package's, for the
+    whole domain and for a box of corners."""
+    from hercules_tpu.io.matlab import write_matlab_mesh as jax_write
+    from hercules_tpu_torch.io.matlab import write_matlab_mesh
+    for bbox in (None, (0.0, 500.0, 250.0, 1000.0, 0.0, 125.0)):
+        mine, ref = tmp_path / "port", tmp_path / "jax"
+        n = write_matlab_mesh(str(mine), twin.mesh, twin.params, bbox=bbox)
+        assert n == jax_write(str(ref), twin.jmesh, twin.jparams, bbox=bbox)
+        assert 0 < n <= twin.mesh.lenum
+        for f in ("mesh_coordinates.0", "mesh_data.0"):
+            assert (mine / f).read_bytes() == (ref / f).read_bytes(), f
+
+
 def test_mesh_etree_round_trip_equal(twin, tmp_path):
     """The mesh written as an etree is byte for byte the JAX package's,
     and reads back the same through either reader."""

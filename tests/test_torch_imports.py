@@ -40,6 +40,7 @@ MODULES = ("hercules_tpu_torch", "hercules_tpu_torch.cli",
            "hercules_tpu_torch.source.model",
            "hercules_tpu_torch.source.extended",
            "hercules_tpu_torch.io.monitor", "hercules_tpu_torch.io.meshout",
+           "hercules_tpu_torch.io.matlab",
            "hercules_tpu_torch.utils.stats",
            "hercules_tpu_torch.utils.roofline",
            "hercules_tpu_torch.tools.makecvm",
@@ -58,6 +59,7 @@ MODULES = ("hercules_tpu_torch", "hercules_tpu_torch.cli",
            "hercules_tpu_torch.kernels.bkt_node_step",
            "hercules_tpu_torch.kernels.bkt_corner_step",
            "hercules_tpu_torch.kernels.stream_add",
+           "hercules_tpu_torch.kernels.tiles",
            "hercules_tpu_torch.utils.timers")
 
 
@@ -113,7 +115,7 @@ def test_non_cpu_tensor_never_runs_plain(call):
     S, K, offs, ops = _args("meta")
     conv = torch.zeros((6, 1024), device="meta")
     fm = torch.zeros((24, 48), device="meta")
-    rec = (0.0,) * 9
+    scales, rec = (1.0, 0.0), (0.0,) * 9
     srcf = torch.zeros((4, 3, 0), device="meta")
     before = _launches()
     with pytest.raises(ValueError, match="no kernel"):
@@ -122,7 +124,7 @@ def test_non_cpu_tensor_never_runs_plain(call):
         elif call == "brick_chunk":
             brick_chunk(S, torch.empty_like(S), K, offs, ops, srcf)
         elif call == "bkt_step":
-            bkt_step(S, conv, K, offs, fm, rec)
+            bkt_step(S, conv, K, offs, scales, rec)
         elif call == "bkt_node_step":
             bkt_node_step(S, conv, K, offs,
                           torch.zeros(TAB_SIZE, device="meta"))
@@ -133,7 +135,7 @@ def test_non_cpu_tensor_never_runs_plain(call):
             stream_add(S, K, out=S)
         else:
             bkt_chunk(S, torch.empty_like(S), conv, torch.empty_like(conv),
-                      K, offs, fm, rec, srcf)
+                      K, offs, scales, rec, srcf)
     assert _launches() == before
 
 

@@ -91,11 +91,13 @@ def test_probe_shape():
 # the hand counts of the timings so far, and its operations per element
 # and per column: the spectral force (330 elastic, 426 BKT), W (72),
 # the update (15), the recursion (3 x (1 + 16 per pair)), K3's set
-# scaling (24), K4's corner recursion (48 + 24 x 16 per pair)).  K3
-# streams no dv since its force pass moved into its one launch.
+# scaling (24), K4's corner recursion (48 + 24 x 16 per pair)).  K2
+# and K3 stream no dv since their force passes moved into their one
+# launch: K2 reads S 6, K 1 (force), S 8 and K 4 (update), writes S' 8
+# and moves conv 6 rows in and out.
 HAND_COUNTS = [
     ("brick_step", {}, 23, 330 + 72, 15),
-    ("bkt_step", dict(conv_rows=6, conv_dtype=torch.float32), 45, 426,
+    ("bkt_step", dict(conv_rows=6, conv_dtype=torch.float32), 39, 426,
      15 + 3 * 17),
     ("bkt_node_step", dict(conv_rows=12, conv_dtype=torch.bfloat16), 41,
      426 + 24, 15 + 3 * 33),
@@ -156,7 +158,9 @@ def test_element_flop_counts_the_spectral_factors():
 
 
 def test_roofline_chunk_amortises():
-    L, E = 1082368, 1 << 20
+    """On the 2048-element box (its state far inside the L2 cache) the
+    chunk kernels read their state once per launch."""
+    L, E = 3072, 2048
     step = roofline.kernel_cost("brick_step", L, E)
     chunk = roofline.kernel_cost("brick_chunk", L, E, chunk=20)
     assert chunk.bytes == step.bytes / 20
@@ -166,6 +170,31 @@ def test_roofline_chunk_amortises():
     assert f64.flop == step.flop and f64.bytes == 2 * step.bytes
     with pytest.raises(ValueError, match="no cost model"):
         roofline.kernel_cost("brick_stp", L, E)
+
+
+@pytest.mark.parametrize("name,conv_rows", [("brick_chunk", 0),
+                                            ("bkt_chunk", 6),
+                                            ("bkt_chunk", 12)])
+def test_roofline_chunk_amortises_only_in_l2(name, conv_rows):
+    """A chunk kernel's bytes are amortised over its steps only while S
+    and K [8, LEN] each and conv fit the 50 MB L2 cache: just inside
+    the cache by the launch, just outside by the step, and at 2^20
+    elements (69 MB and more) by the step."""
+    kw = dict(conv_rows=conv_rows, conv_dtype=torch.float32)
+    per_col = 4 * (16 + conv_rows)            # float32 bytes per column
+    assert roofline.L2_BYTES == 50 * 2 ** 20
+    inside = roofline.L2_BYTES // per_col
+    for L, fits in ((inside, True), (inside + 1, False),
+                    (1082368, False)):
+        E = L // 2
+        step = roofline.kernel_cost(name.replace("chunk", "step"), L, E,
+                                    **kw)
+        chunk = roofline.kernel_cost(name, L, E, chunk=400, **kw)
+        assert chunk.bytes == (step.bytes / 400 if fits else step.bytes)
+        assert (chunk.moved, chunk.flop) == (step.moved, step.flop)
+    big = roofline.kernel_cost(name, 1082368, 1 << 20, chunk=400, **kw)
+    assert big.bound_by == "bytes"
+    assert 16 * 1082368 * 4 > 69e6 > roofline.L2_BYTES
 
 
 def test_route_costs_of_tables(tmp_path):

@@ -8,14 +8,19 @@ another sm_90a card) and the CUDA toolkit.  Phases, each printing one
 JSON line {"phase": ...}:
 
 1. build   -- compile hercules_tpu_torch/csrc/*.cu with nvcc; the
-              registers of the tiled BKT kernels (K2, K3, K6) from the
-              ptxas -v log.
+              registers of the tiled kernels (K1 and K5 by type, K2,
+              K3 and K6 by type, memory-variable type and kappa) from
+              the ptxas -v log.
 2. k1      -- brick_step (K1) against brick_step_plain on the card: the
-              2048-element box, 40 steps in float64 (bound
-              2e-13 max|u|) and 20 in float32 (1e-4 max|u|); the
+              2048-element box and the four-layer Rayleigh box at
+              62.5 m (one brick, 2048 elements with four different c1,
+              c2 and beta: a tile reading another element's
+              coefficients fails here), 40 steps in float64 (bound
+              2e-13 max|u|) and 20 in float32 (1e-4 max|u|) each; the
               2^20-element box, 10 steps in float32 (1e-4 max|u|).
 3. k5      -- brick_chunk (K5) against the K1 step loop on the
-              2048-element box, chunks of 16 steps, 37 steps: states
+              2048-element box and the four-layer Rayleigh box, chunks
+              of 16 steps, 37 steps, float64 and float32: states
               bit-identical, samples within 1e-12 (float64) / 1e-5
               (float32) relative; and K5 against brick_chunk_plain at
               2^20 elements, 10 steps in float32 (1e-4 max|u|).
@@ -111,9 +116,10 @@ JSON line {"phase": ...}:
               (phase 15), its launches on its main path, the time it
               loses there (launches x steps per launch x (time - bound),
               per type), and the library call's time where one PyTorch
-              call computes the same function (K7: torch.add); K6's
-              step beside the K2 route step (float32, back to back), the
-              routing rule's two times.
+              call computes the same function (K7: torch.add); K5's
+              step beside the K1 route step and K6's beside the K2
+              route step (float32, back to back), the routing rule's
+              times.
 
 Then the kernel table as one JSON line, the card's name and power
 limit (nvidia-smi), and last {"ok": true, "device": {...}}.  Any
@@ -154,19 +160,28 @@ def require(cond, msg):
 
 
 def tile_registers(log):
-    """{kernel<T,CT,kappa>: registers} of the tiled BKT kernels (K2, K3,
-    K6) from the ptxas -v output in the build log."""
+    """{kernel<T[,CT,kappa]>: registers} of the tiled kernels (K1, K5:
+    kernel<T>; K2, K3, K6: kernel<T,CT,kappa>) from the ptxas -v output
+    in the build log."""
     types = {"f": "float", "d": "double", "13__nv_bfloat16": "bf16"}
     regs, entry = {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
-            entry = re.search(r"(bkt_(?:step|chunk|node)_kernel)I([fd])"
-                              r"([fd]|13__nv_bfloat16)Lb([01])E", m.group(1))
+            bkt = re.search(r"(bkt_(?:step|chunk|node)_kernel)I([fd])"
+                            r"([fd]|13__nv_bfloat16)Lb([01])E", m.group(1))
+            brick = re.search(r"(brick_(?:step|chunk)_kernel)I([fd])E",
+                              m.group(1))
+            entry = None
+            if bkt:
+                k, t, ct, kappa = bkt.groups()
+                entry = f"{k}<{types[t]},{types[ct]},{kappa}>"
+            elif brick:
+                k, t = brick.groups()
+                entry = f"{k}<{types[t]}>"
         m = re.search(r"Used (\d+) registers", ln)
         if m and entry:
-            k, t, ct, kappa = entry.groups()
-            regs[f"{k}<{types[t]},{types[ct]},{kappa}>"] = int(m.group(1))
+            regs[entry] = int(m.group(1))
             entry = None
     return regs
 
@@ -359,13 +374,24 @@ def main():
         sim_b, plan_b, _ = box(7.8125, 400, 5, "big")
         require(sim_b.mesh.lenum == 1 << 20, f"{sim_b.mesh.lenum} elements")
         dt2_s, dt2_b = sim_s.params.delta_t ** 2, sim_b.params.delta_t ** 2
+        # the four-layer box with Rayleigh damping: one brick whose
+        # elements carry four different (c1, c2, beta)
+        sim_l, plan_l, _ = box(62.5, 40, 5, "layered", damping="rayleigh",
+                               layers=FOUR_Q_LAYERS, freq=four_q_freq(62.5))
+        dt2_l = sim_l.params.delta_t ** 2
+        pt = tables(sim_l, plan_l, f64)
+        valid = pt.K[0] != 0
+        require(all(len(torch.unique(pt.K[r][valid])) == 4
+                    for r in range(3)), "layered box coefficients")
 
         # ---- 2. K1 against its plain version ------------------------
         cases = []
-        for sim, plan, dtype, steps, bound, dt2 in (
-                (sim_s, plan_s, f64, 40, 2e-13, dt2_s),
-                (sim_s, plan_s, f32, 20, 1e-4, dt2_s),
-                (sim_b, plan_b, f32, 10, 1e-4, dt2_b)):
+        for label, sim, plan, dtype, steps, bound, dt2 in (
+                ("box", sim_s, plan_s, f64, 40, 2e-13, dt2_s),
+                ("box", sim_s, plan_s, f32, 20, 1e-4, dt2_s),
+                ("layered", sim_l, plan_l, f64, 40, 2e-13, dt2_l),
+                ("layered", sim_l, plan_l, f32, 20, 1e-4, dt2_l),
+                ("box", sim_b, plan_b, f32, 10, 1e-4, dt2_b)):
             pt = tables(sim, plan, dtype)
             S0 = random_state(pt)
             inc = source_increments(pt, sim.src_forces, dt2, 0, steps)
@@ -373,8 +399,8 @@ def main():
             Sp = k1_loop(pt, S0, inc, plain=True)
             torch.cuda.synchronize()
             r, err = rel(Sk, Sp)
-            cases.append({"elements": sim.mesh.lenum, "dtype": str(dtype),
-                          "steps": steps, "rel_err": r,
+            cases.append({"case": label, "elements": sim.mesh.lenum,
+                          "dtype": str(dtype), "steps": steps, "rel_err": r,
                           "max_abs_err": err, "bound": bound})
             require(r <= bound, f"K1 vs plain {cases[-1]}")
             require(not Sk[:, pt.nb:].any(), "K1 moved the padding")
@@ -384,28 +410,30 @@ def main():
 
         # ---- 3. K5 against the K1 step loop and its plain version ----
         cases = []
-        for dtype, sbound in ((f64, 1e-12), (f32, 1e-5)):
-            pt = tables(sim_s, plan_s, dtype)
-            S0 = random_state(pt)
-            res = {}
-            for route in ("chunk", "step"):
-                (u, up), smp = run_pallas_solver(
-                    plan_s, sim_s.tables, sim_s.src_ids, sim_s.src_forces,
-                    37, sim_s.params.delta_t, st_nodes=sim_s.stations.nodes,
-                    st_phi=sim_s.stations.phi, dtype=dtype, device=dev,
-                    chunk=16, state=S0, route=route)
-                res[route] = (torch.cat([u, up]), smp)
-            Sc, Ss = res["chunk"][0], res["step"][0]
-            same = torch.equal(Sc, Ss)
-            r, err = rel(Sc, Ss)
-            sc = np.abs(res["step"][1]).max()
-            srel = np.abs(res["chunk"][1] - res["step"][1]).max() / sc
-            cases.append({"elements": sim_s.mesh.lenum, "dtype": str(dtype),
-                          "steps": 37, "chunk": 16, "bit_identical": same,
-                          "rel_err": r, "samples_rel_err": float(srel)})
-            require(same or r <= (1e-14 if dtype == f64 else 1e-6),
-                    f"K5 vs K1 loop {cases[-1]}")
-            require(srel <= sbound, f"K5 samples {cases[-1]}")
+        for label, sim, plan in (("box", sim_s, plan_s),
+                                 ("layered", sim_l, plan_l)):
+            for dtype, sbound in ((f64, 1e-12), (f32, 1e-5)):
+                pt = tables(sim, plan, dtype)
+                S0 = random_state(pt)
+                res = {}
+                for route in ("chunk", "step"):
+                    (u, up), smp = run_pallas_solver(
+                        plan, sim.tables, sim.src_ids, sim.src_forces, 37,
+                        sim.params.delta_t, st_nodes=sim.stations.nodes,
+                        st_phi=sim.stations.phi, dtype=dtype, device=dev,
+                        chunk=16, state=S0, route=route)
+                    res[route] = (torch.cat([u, up]), smp)
+                Sc, Ss = res["chunk"][0], res["step"][0]
+                same = torch.equal(Sc, Ss)
+                r, err = rel(Sc, Ss)
+                sc = np.abs(res["step"][1]).max()
+                srel = np.abs(res["chunk"][1] - res["step"][1]).max() / sc
+                cases.append({"case": label, "elements": sim.mesh.lenum,
+                              "dtype": str(dtype), "steps": 37, "chunk": 16,
+                              "bit_identical": same, "rel_err": r,
+                              "samples_rel_err": float(srel)})
+                require(same, f"K5 vs K1 loop {cases[-1]}")
+                require(srel <= sbound, f"K5 samples {cases[-1]}")
         pt = tables(sim_b, plan_b, f32)
         S0 = random_state(pt)
         srcf = source_increments(pt, sim_b.src_forces, dt2_b, 0, 10)
@@ -1074,6 +1102,10 @@ def main():
                     "launches": sum(launches[k].values()),
                     "library_ms": t_add if k == "stream_add" else None}
                 for k in launches}
+        # the routing rule of fused_brick.chunk_applies: K5 carries
+        # float32 elastic runs while its step beats the K1 route's
+        k5_vs_k1 = {"brick_chunk float32": min(T[("brick_chunk", "float32")]),
+                    "k1_route_step float32": route_ms["k1_route_step"]}
         emit({"phase": "timing", "card": card, "steps": STEPS,
               "entries": entries, "time_lost_ms": lost,
               "route_ms_per_step": route_ms, "lone_call_ms": lone_ms,
@@ -1084,6 +1116,7 @@ def main():
               "k6_step_vs_k2_route_step_ms": {
                   "bkt_chunk float32": min(T[("bkt_chunk", "float32")]),
                   "k2_route_step float32": route_ms["k2_route_step"]},
+              "k5_step_vs_k1_route_step_ms": k5_vs_k1,
               "stream_ceiling_GBps": ceiling_GBps,
               "element_updates_per_s": {
                   k: sim_b.mesh.lenum / (v * 1e-3)

@@ -16,13 +16,11 @@
 //
 // Design: K2's tiled step (bkt_tile.cuh) inside a grid that is exactly
 // as large as the card holds at once, launched with
-// cudaLaunchCooperativeKernel so that grid.sync() is legal.  Where the
-// card holds a block for every tile, the slabs are as deep as it takes
-// to give each resident block at most one work item (at 2^20 elements
-// in float32: 380 items of 17 planes on 396 blocks, where K2's 8-plane
-// slabs would leave a third round to a sixth of the blocks and repeat
-// a halo plane every 8 planes).  S and conv ping-pong between two
-// buffers each.  Per step t:
+// cudaLaunchCooperativeKernel so that grid.sync() is legal, with slabs
+// deepened until each resident block has at most one work item where
+// the card holds a block for every tile (bkt_tile.cuh:chunk_grid, K5's
+// rule too).  S and conv ping-pong between two buffers each.  Per step
+// t:
 //   1. threads 0..3*ns-1 write the station samples of the state before
 //      the step, sum_j phi_sj S[c, pos_sj] in j order;
 //   2. each block takes work items grid-stride and runs the tile step
@@ -43,27 +41,6 @@
 namespace cg = cooperative_groups;
 
 namespace {
-
-// The source hook of one work item in step t: the increments inc
-// [3, nsrc] of this step at src_pos; list [count] the sources of the
-// item's tile (those on other slabs match no node of the item).
-template <typename T>
-struct ItemSources {
-  const int* list;
-  int count;
-  const int* pos;
-  const T* inc;
-  int nsrc;
-
-  __device__ __forceinline__ void operator()(int n, T* un) const {
-    for (int i = 0; i < count; ++i) {
-      const int m = list[i];
-      if (pos[m] == n)
-#pragma unroll
-        for (int c = 0; c < 3; ++c) un[c] = un[c] + inc[c * nsrc + m];
-    }
-  }
-};
 
 template <typename T, typename CT, bool KAPPA>
 __global__ void __launch_bounds__(ht::kThreads, sizeof(T) == 4 ? 3 : 1)
@@ -99,7 +76,7 @@ __global__ void __launch_bounds__(ht::kThreads, sizeof(T) == 4 ? 3 : 1)
     }
     for (int item = blockIdx.x; item < items; item += gridDim.x) {
       const int tile = item % tiles;
-      const ItemSources<T> src{tile_src + tile_ptr[tile],
+      const ht::ItemSources<T> src{tile_src + tile_ptr[tile],
                                tile_ptr[tile + 1] - tile_ptr[tile], src_pos,
                                srcf + t * 3 * nsrc, nsrc};
       ht::bkt_tile_step<T, CT, KAPPA>(cur, ccur, K, nxt, cnxt, len, g, r,
@@ -140,10 +117,7 @@ int launch_k(T* Sa, T* Sb, CT* Ca, CT* Cb, const T* K, int len,
                                                       ht::kThreads, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const int per_tile = sms * per_sm / (g.tiles_x * g.tiles_y);
-  if (per_tile >= 1) g.slab = (g.nplanes + per_tile - 1) / per_tile;
-  const int items = ht::tile_items(g);
-  const int blocks = sms * per_sm < items ? sms * per_sm : items;
+  const int blocks = ht::chunk_grid(&g, sms * per_sm);
   ht::BktRec<T> r = ht::make_rec<T>(rec);
   T mu_f = rec[18], kappa_f = rec[19];
   void* args[] = {&Sa,       &Sb,      &Ca,     &Cb,       &K,

@@ -19,7 +19,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "brick_step.cuh"
+#include "common.cuh"
 
 // Internal linkage throughout (unnamed namespace): each translation unit
 // owns its constant bank and its set_fm writes that bank.

@@ -1,9 +1,10 @@
 // The tiled BKT step body on a brick's flat node grid, shared by
 // bkt_step (K2, one launch per step), bkt_chunk (K6, a persistent
-// launch per chunk of steps) and, for its geometry and element force,
-// bkt_node (K3).  K2 and K6 inline bkt_tile_step with the same
-// arguments, so they run the same arithmetic in the same order and give
-// bit-identical states.
+// launch per chunk of steps) and, for its geometry and tiles, bkt_node
+// (K3, with the element force) and the elastic march of brick_tile.cuh
+// (K1, K5, with hadamard8, the chunk grid and the source hooks).  K2
+// and K6 inline bkt_tile_step with the same arguments, so they run the
+// same arithmetic in the same order and give bit-identical states.
 //
 // Layout (hercules_tpu_torch/solver/fused_bkt.py):
 //   S    [8, len]: rows 0:3 = u, 3:6 = u-, 6:8 = zero rows carried
@@ -200,11 +201,48 @@ __host__ __device__ __forceinline__ int tile_items(const Geom& g) {
   return g.tiles_x * g.tiles_y * ((g.nplanes + g.slab - 1) / g.slab);
 }
 
-// The source hook of a step without sources (K2: the step route adds
-// them after the kernel).
+// The chunk kernels' grid (K5, K6): `resident` blocks, as many as the
+// card holds at once.  Where it holds a block for every tile, the slabs
+// are deepened until each resident block has at most one work item (at
+// 2^20 elements in float32: 380 items of 17 planes on 396 blocks, where
+// 8-plane slabs would leave a third round to a sixth of the blocks and
+// repeat a halo plane every 8 planes).  Returns the blocks to launch.
+inline int chunk_grid(Geom* g, int resident) {
+  const int per_tile = resident / (g->tiles_x * g->tiles_y);
+  if (per_tile >= 1) g->slab = (g->nplanes + per_tile - 1) / per_tile;
+  const int items = tile_items(*g);
+  return resident < items ? resident : items;
+}
+
+// The source hook of a step without sources (K1, K2: the step routes
+// add them after the kernel).
 struct NoSources {
   template <typename T>
   __device__ __forceinline__ void operator()(int, T*) const {}
+};
+
+// The source hook of one work item in step t of a chunk kernel (K5,
+// K6): the increments inc [3, nsrc] of this step at src_pos; list
+// [count] the sources of the item's tile (those on other slabs match no
+// node of the item), in source order (kernels/tiles.py:tile_sources),
+// so sources sharing a position are added one after another in source
+// order.
+template <typename T>
+struct ItemSources {
+  const int* list;
+  int count;
+  const int* pos;
+  const T* inc;
+  int nsrc;
+
+  __device__ __forceinline__ void operator()(int n, T* un) const {
+    for (int i = 0; i < count; ++i) {
+      const int m = list[i];
+      if (pos[m] == n)
+#pragma unroll
+        for (int c = 0; c < 3; ++c) un[c] = un[c] + inc[c * nsrc + m];
+    }
+  }
 };
 
 // One step of work item `item` by the calling block: (S, conv) ->

@@ -5,67 +5,60 @@
 // packed_state=True, launched by build_call_packed /
 // _build_call_packed_impl (the packed [8, LEN] state/constant layout).
 //
-// What bounds it on an H100: at 2^20 elements in float32 one step
-// streams S in (8 rows), S out (8 rows) and K (7 rows): 23 rows x 4 B
-// x 1.08M columns = 99.6 MB of device memory, and it does about
-// 2.3 kFLOP of FP32 FMAs per element (the 48x24 operator) -- memory
-// and FP32 arithmetic are roughly balanced.  The gather form below
-// repeats each element's 48 state reads for the 8 nodes that share
-// it; those repeats are served by L1/L2 (neighbouring threads read
-// neighbouring columns), so the device-memory traffic stays near the
-// 99.6 MB floor while L1 load throughput and FMA issue share the
-// bound.
+// Design (H100): one launch per step, one block per work item (a 31 x 7
+// node tile on a slab of 8 planes) running brick_tile.cuh's march: u
+// and du on the tile plus a one-node halo into shared memory, each
+// element's force once in the spectral form, a fixed-order gather and
+// the update at the owned nodes from the same shared state.  Launch
+// bounds hold three blocks per SM in float32 (80 registers; four, at
+// 64, were slower) and two in float64 (128 registers; without the bound
+// it took 142, one block per SM, and was slower; PERF.md).  Slabs
+// deepened to one wave of blocks, as K5's, were slower in float64 and
+// no faster in float32.
 //
-// Design: one thread per node column, the shared per-node body of
-// brick_step.cuh (force gathered from the 8 elements that share the
-// node -- no atomics, no state carried between blocks), the 48x24
-// operator in constant memory.  Later work: stage each block's element
-// window in shared memory so W is formed once per element.
-#include "brick_step.cuh"
+// What bounds it: memory.  The function reads S (6 rows) and K (7 rows)
+// once and writes S' (6 rows) once: 164.5 MB per step at 2^20 elements
+// in float64 (0.049 ms at 3.35 TB/s); the kernel streams 23 rows (S 8
+// in and out, K 7).  Its 402 operations per element (W and the force in
+// the spectral form) are 0.013 ms of the float64 peak.
+#include "brick_tile.cuh"
 
 namespace {
 
 template <typename T>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(ht::kThreads, sizeof(T) == 4 ? 3 : 2)
     brick_step_kernel(const T* __restrict__ S, const T* __restrict__ K,
-                      T* __restrict__ out, int len, ht::Offs offs) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n < len) ht::node_step<T>(S, K, out, n, len, offs);
+                      T* __restrict__ out, int len, ht::Geom g) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  ht::brick_tile_step<T>(S, K, out, len, g, blockIdx.x,
+                         reinterpret_cast<T*>(smem), ht::NoSources());
 }
 
 template <typename T>
 int launch(const T* S, const T* K, T* out, int len, const int* offs,
            int device, void* stream) {
+  ht::Geom g;
+  if (device < 0 || device >= 32 || !ht::make_geom(offs, len, &g))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int threads = 256;
-  const int blocks = (len + threads - 1) / threads;
-  brick_step_kernel<T><<<blocks, threads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      S, K, out, len, ht::make_offs(offs));
+  const int smem = ht::tile_smem_bytes<T>();
+  static unsigned opted = 0;
+  err = ht::opt_in_smem(brick_step_kernel<T>, smem, device, &opted);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  brick_step_kernel<T><<<ht::tile_items(g), ht::kThreads, smem,
+                         static_cast<cudaStream_t>(stream)>>>(S, K, out, len,
+                                                              g);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int set_ops(const T* dev_ops, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(
-      ht::set_ops<T>(dev_ops, static_cast<cudaStream_t>(stream)));
 }
 
 }  // namespace
 
 // C entries (ctypes): every pointer except `offs` (8 host ints) is a
-// device pointer; the return value is a cudaError_t (0 = success).
+// device pointer; the return value is a cudaError_t (0 = success;
+// cudaErrorInvalidValue for offsets that are not a brick's).
 extern "C" {
 
-int ht_brick_step_set_ops_f32(const float* ops, int device, void* stream) {
-  return set_ops<float>(ops, device, stream);
-}
-int ht_brick_step_set_ops_f64(const double* ops, int device, void* stream) {
-  return set_ops<double>(ops, device, stream);
-}
 int ht_brick_step_f32(const float* S, const float* K, float* out, int len,
                       const int* offs, int device, void* stream) {
   return launch<float>(S, K, out, len, offs, device, stream);

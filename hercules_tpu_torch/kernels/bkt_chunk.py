@@ -23,7 +23,7 @@ import torch
 from . import build
 from .bkt_step import bkt_step_plain, check_args, rec_arg
 from .brick_chunk import sample_stations
-from .tiles import tile_sources
+from .tiles import source_lists
 
 
 def bkt_chunk_plain(S, conv, K, offs, scales, rec, srcf, src_pos, st_pos,
@@ -77,33 +77,6 @@ def _prepare(S, spare, conv, conv_spare, K, offs, scales, rec, srcf,
 
 
 _CHECKS = build.CheckCache(_prepare)
-
-# the last source_lists result, with the src_pos tensor it was made from
-# and that tensor's version counter: the lists are read from src_pos's
-# values, so they are kept by the tensor itself (held here, so that its
-# memory is not handed to another tensor) and not by its address
-_SOURCES = {}
-
-
-def source_lists(src_pos, offs, LEN, device):
-    """(int32 positions or None, tile_ptr, tile_src) of the sources at
-    src_pos [L] (or None) on ``device``, as the kernel takes them (see
-    tiles.tile_sources); made again unless src_pos is the tensor of the
-    last call, unmodified, on the same grid and device."""
-    key = (offs, LEN, device)
-    held = _SOURCES.get("last")
-    if (held is not None and held[0] is src_pos and held[1] == key
-            and (src_pos is None or held[2] == src_pos._version)):
-        return held[3]
-    L = 0 if src_pos is None else src_pos.shape[0]
-    ptr, order = tile_sources(offs, [] if not L else src_pos.cpu().numpy())
-    as_dev = lambda a: torch.as_tensor(a, dtype=torch.int32, device=device)
-    # the kernel indexes with 32-bit ints
-    got = (None if not L else as_dev(src_pos), as_dev(ptr), as_dev(order))
-    _SOURCES["last"] = (src_pos, key,
-                        None if src_pos is None else src_pos._version, got)
-    return got
-
 
 def bkt_chunk(S, spare, conv, conv_spare, K, offs, scales, rec, srcf,
               src_pos=None, st_pos=None, st_phi=None):

@@ -7,11 +7,14 @@ on CPU tensors.  It counts its kernel launches in
 ``brick_chunk.launches``.
 
 Per step t, in this order: the station samples of the state before
-the step (``samples[t]``), the step itself (K1's body), then the
+the step (``samples[t]``), the step itself (K1's tiled body), then the
 source increments ``srcf[t]`` added at ``src_pos`` (sources sharing a
 position are added one after another in source order).  The
 increments are pre-scaled by the caller: f(t) dt^2 rounded to the
-working type, then times inv_mass at the source node.
+working type, then times inv_mass at the source node.  On the card the
+thread that updates a source node adds them; the host lists each
+tile's sources once for each ``src_pos`` tensor and version
+(``tiles.source_lists``).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch
 
 from . import build
 from .brick_step import brick_step_plain, check_args
+from .tiles import source_lists
 
 
 def sample_stations(S, st_pos, st_phi):
@@ -49,10 +53,11 @@ def _ptr(t):
     return None if t is None or t.numel() == 0 else t.data_ptr()
 
 
-def _prepare(S, spare, K, offs, ops, srcf, src_pos, st_pos, st_phi):
+def _prepare(S, spare, K, offs, srcf, src_pos, st_pos, st_phi):
     """Raise unless the arguments are what the kernel takes; returns (C
-    entry, constant bank setter, LEN, offsets, CH, L, ns, device)."""
-    check_args("brick_chunk", S, K, offs, ops, spare)
+    entry, LEN, offsets, CH, L, ns, device).  It reads no tensor's
+    values: the cache keeps it by signature."""
+    check_args("brick_chunk", S, K, offs, spare)
     CH = srcf.shape[0]
     L = 0 if src_pos is None else src_pos.shape[0]
     ns = 0 if st_pos is None else st_pos.shape[0]
@@ -74,8 +79,7 @@ def _prepare(S, spare, K, offs, ops, srcf, src_pos, st_pos, st_phi):
         raise ValueError("brick_chunk: st_pos/st_phi must be [ns, 8] on "
                          "the state's device")
     sfx = "f32" if S.dtype == torch.float32 else "f64"
-    return (build.entry(f"ht_brick_chunk_{sfx}"),
-            f"ht_brick_chunk_set_ops_{sfx}", S.shape[1],
+    return (build.entry(f"ht_brick_chunk_{sfx}"), S.shape[1],
             build.offsets_arg(offs), CH, L, ns, S.device.index)
 
 
@@ -87,27 +91,27 @@ def brick_chunk(S, spare, K, offs, ops, srcf, src_pos=None, st_pos=None,
     """CH = srcf.shape[0] steps from S.  srcf [CH, 3, L] holds the
     pre-scaled source increments for the L positions src_pos [L]
     (int64); st_pos [ns, 8] (int64) and st_phi [ns, 8] place the
-    stations.  On CUDA, S and ``spare`` (same shape) are the kernel's
+    stations.  ``ops`` is the plain version's operator (CPU tensors
+    only).  On CUDA, S and ``spare`` (same shape) are the kernel's
     ping-pong buffers and both are overwritten.
 
     Returns (the tensor holding the final state, samples [CH, ns, 3])."""
     if S.device.type == "cpu":
         return brick_chunk_plain(S, K, offs, ops, srcf, src_pos, st_pos,
                                  st_phi)
-    fn, setter, LEN, offs_arg, CH, L, ns, dev = _CHECKS(
-        S, spare, K, offs, ops, srcf, src_pos, st_pos, st_phi)
+    offs = tuple(offs)
+    fn, LEN, offs_arg, CH, L, ns, dev = _CHECKS(
+        S, spare, K, offs, srcf, src_pos, st_pos, st_phi)
+    pos32, tile_ptr, tile_src = source_lists(src_pos, offs, LEN, S.device)
     samples = S.new_empty((CH, ns, 3))
     if CH == 0:
         return S, samples
     # the kernel indexes with 32-bit ints
-    pos32 = None if not L else src_pos.to(torch.int32).contiguous()
     st32 = None if not ns else st_pos.to(torch.int32).contiguous()
     phi = None if not ns else st_phi.contiguous()
-    stream = build.stream(S)
-    build.ensure_ops(setter, ops, stream)
     rc = fn(S.data_ptr(), spare.data_ptr(), K.data_ptr(), LEN, offs_arg, CH,
-            _ptr(srcf), _ptr(pos32), L, _ptr(st32), _ptr(phi), ns,
-            _ptr(samples), dev, stream)
+            _ptr(srcf), _ptr(pos32), L, tile_ptr.data_ptr(), _ptr(tile_src),
+            _ptr(st32), _ptr(phi), ns, _ptr(samples), dev, build.stream(S))
     build.check(rc, "brick_chunk launch")
     brick_chunk.launches += 1
     return (S if CH % 2 == 0 else spare), samples

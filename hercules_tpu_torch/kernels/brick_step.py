@@ -8,7 +8,10 @@ PyTorch, on a CPU tensor.  It counts its kernel launches in
 Layout (see ``solver/fused_brick.py``): S [8, LEN] = (u, u-, 0, 0),
 K [8, LEN] = (c1, c2, beta, mass_minusaM x 3, inv_mass, 0), ops
 [48, 24] = -[M1; M2]; element e has its corners at columns
-e + offs[j].
+e + offs[j], the 8 corners of a brick's flat node grid.  The plain
+version multiplies by ops; the kernel forms each element's force in the
+spectral form of M1 and M2 (``csrc/elastic_spectral.cuh``), so it takes
+no operator.
 """
 
 from __future__ import annotations
@@ -16,6 +19,8 @@ from __future__ import annotations
 import torch
 
 from . import build
+from .bkt_step import check_layout
+from .tiles import brick_strides
 
 
 def brick_step_plain(S, K, offs, ops):
@@ -37,38 +42,28 @@ def brick_step_plain(S, K, offs, ops):
     return torch.cat([un, u, S[6:8]])
 
 
-def check_args(name, S, K, offs, ops, out):
-    """Raise unless the tensors are what the kernels take."""
+def check_args(name, S, K, offs, out):
+    """Raise unless the arguments are what the kernels take: offs the
+    corners of a brick's node grid (checked first, on any device), S, K
+    and out contiguous [8, LEN] tensors of one type (float32 or float64)
+    on one CUDA device, out apart from S."""
+    brick_strides(offs)
     dev, dt = S.device, S.dtype
     if dev.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {dev}")
     if dt not in (torch.float32, torch.float64):
         raise TypeError(f"{name}: dtype {dt} (float32 or float64)")
     LEN = S.shape[1] if S.dim() == 2 else -1
-    for arg, t, shape in (("S", S, (8, LEN)), ("K", K, (8, LEN)),
-                          ("ops", ops, (48, 24)), ("out", out, (8, LEN))):
-        if t.device != dev or t.dtype != dt:
-            raise ValueError(f"{name}: {arg} is {t.dtype} on "
-                             f"{t.device}, expected {dt} on {dev}")
-        if tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(f"{name}: {arg} must be a contiguous "
-                             f"{shape} tensor, got {tuple(t.shape)}")
-    if out.data_ptr() == S.data_ptr():
-        raise ValueError(f"{name}: out must not alias S")
-    if len(offs) != 8 or not 0 <= offs[7] < LEN:
-        raise ValueError(f"{name}: bad corner offsets {offs}")
-    if 8 * LEN >= 2 ** 31:
-        raise ValueError(f"{name}: {LEN} columns exceed 32-bit "
-                         f"indexing")
+    check_layout(name, (("S", S, (8, LEN), dt), ("K", K, (8, LEN), dt),
+                        ("out", out, (8, LEN), dt)),
+                 ((out, S),), offs, LEN, 8)
 
 
-def _prepare(S, K, offs, ops, out):
-    """check_args, then (C entry, constant bank setter, LEN, offsets,
-    device index)."""
-    check_args("brick_step", S, K, offs, ops, out)
+def _prepare(S, K, offs, out):
+    """check_args, then (C entry, LEN, offsets, device index)."""
+    check_args("brick_step", S, K, offs, out)
     sfx = "f32" if S.dtype == torch.float32 else "f64"
-    return (build.entry(f"ht_brick_step_{sfx}"),
-            f"ht_brick_step_set_ops_{sfx}", S.shape[1],
+    return (build.entry(f"ht_brick_step_{sfx}"), S.shape[1],
             build.offsets_arg(offs), S.device.index)
 
 
@@ -77,17 +72,16 @@ _CHECKS = build.CheckCache(_prepare)
 
 def brick_step(S, K, offs, ops, out=None):
     """One step S -> out (a new tensor unless ``out`` is given).  CUDA
-    tensors run the K1 kernel; CPU tensors run brick_step_plain."""
+    tensors run the K1 kernel; CPU tensors run brick_step_plain (the one
+    user of ``ops``)."""
     if S.device.type == "cpu":
         res = brick_step_plain(S, K, offs, ops)
         return res if out is None else out.copy_(res)
     if out is None:
         out = torch.empty_like(S)
-    fn, setter, LEN, offs_arg, dev = _CHECKS(S, K, offs, ops, out)
-    stream = build.stream(S)
-    build.ensure_ops(setter, ops, stream)
+    fn, LEN, offs_arg, dev = _CHECKS(S, K, tuple(offs), out)
     rc = fn(S.data_ptr(), K.data_ptr(), out.data_ptr(), LEN, offs_arg, dev,
-            stream)
+            build.stream(S))
     build.check(rc, "brick_step launch")
     brick_step.launches += 1
     return out

@@ -47,16 +47,12 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry points and their ctypes argument types (pointers and the
 # stream as c_void_p, so 64-bit values are not cut to an int)
 SIGNATURES = {
-    "ht_brick_step_set_ops_f32": [_P, _I, _P],
-    "ht_brick_step_set_ops_f64": [_P, _I, _P],
     "ht_brick_step_f32": [_P, _P, _P, _I, _P, _I, _P],
     "ht_brick_step_f64": [_P, _P, _P, _I, _P, _I, _P],
-    "ht_brick_chunk_set_ops_f32": [_P, _I, _P],
-    "ht_brick_chunk_set_ops_f64": [_P, _I, _P],
-    "ht_brick_chunk_f32": [_P, _P, _P, _I, _P, _I, _P, _P, _I, _P, _P,
-                           _I, _P, _I, _P],
-    "ht_brick_chunk_f64": [_P, _P, _P, _I, _P, _I, _P, _P, _I, _P, _P,
-                           _I, _P, _I, _P],
+    "ht_brick_chunk_f32": [_P, _P, _P, _I, _P, _I, _P, _P, _I, _P, _P, _P,
+                           _P, _I, _P, _I, _P],
+    "ht_brick_chunk_f64": [_P, _P, _P, _I, _P, _I, _P, _P, _I, _P, _P, _P,
+                           _P, _I, _P, _I, _P],
     "ht_stream_add_init": [_I],
     "ht_stream_add_f32": [_P, _P, _P, _L, _P],
     "ht_stream_add_inplace_f32": [_P, _P, _L, _P],
@@ -266,9 +262,10 @@ def overlap(a, b) -> bool:
     return a0 < b1 and b0 < a1
 
 
-# operator tensor last uploaded by each *_set_ops entry, with its
-# version counter: the constant bank is refreshed only when a different
-# (or modified) tensor is passed.  Holding the tensor keeps its device
+# operator tensor last uploaded by each constant-bank setter (K3's
+# ht_bkt_node_set_tab_*, K4's ht_bkt_corner_set_fm_*), with its version
+# counter: the constant bank is refreshed only when a different (or
+# modified) tensor is passed.  Holding the tensor keeps its device
 # address from being reused by another allocation.
 _UPLOADED = {}
 

@@ -1,19 +1,22 @@
 """The tiles of ``csrc/bkt_tile.cuh`` as the host needs them: the corner
-offsets the BKT kernels take, and K6's per-tile source lists.
+offsets the tiled kernels take, and the chunk kernels' per-tile source
+lists.
 
-K2, K3 and K6 read the node grid as planes: of the three strides of the
-corner offsets one is 1 (the inner axis), one the inner extent (the mid
-stride) and one a plane (the plane stride).  A block's tile owns OX x OY
-nodes (inner x mid) on every plane of its slab; the tiles of a plane are
-numbered inner axis first (``make_geom``).  K6's host side lists each
-tile's sources (``tile_sources``), so that the thread that updates a
-source node adds its increments.  The slab depths and the work items
-live in the kernels alone.
+K1, K2, K3, K5 and K6 read the node grid as planes: of the three
+strides of the corner offsets one is 1 (the inner axis), one the inner
+extent (the mid stride) and one a plane (the plane stride).  A block's
+tile owns OX x OY nodes (inner x mid) on every plane of its slab; the
+tiles of a plane are numbered inner axis first (``make_geom``).  The
+chunk kernels' host side lists each tile's sources (``tile_sources``,
+kept per ``src_pos`` tensor and version by ``source_lists``), so that
+the thread that updates a source node adds its increments.  The slab
+depths and the work items live in the kernels alone.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 # threads of a block: one per element of a TX x TY element tile; the
 # owned nodes are all but its first column and row (bkt_tile.cuh)
@@ -61,3 +64,30 @@ def tile_sources(offs, src_pos):
     counts = np.bincount(tiles, minlength=tx * ty)
     ptr = np.concatenate([[0], np.cumsum(counts)])
     return ptr.astype(np.int32), order.astype(np.int32)
+
+
+# the last source_lists result, with the src_pos tensor it was made from
+# and that tensor's version counter: the lists are read from src_pos's
+# values, so they are kept by the tensor itself (held here, so that its
+# memory is not handed to another tensor) and not by its address
+_SOURCES = {}
+
+
+def source_lists(src_pos, offs, LEN, device):
+    """(int32 positions or None, tile_ptr, tile_src) of the sources at
+    src_pos [L] (or None) on ``device``, as the chunk kernels (K5, K6)
+    take them (see tile_sources); made again unless src_pos is the
+    tensor of the last call, unmodified, on the same grid and device."""
+    key = (offs, LEN, device)
+    held = _SOURCES.get("last")
+    if (held is not None and held[0] is src_pos and held[1] == key
+            and (src_pos is None or held[2] == src_pos._version)):
+        return held[3]
+    L = 0 if src_pos is None else src_pos.shape[0]
+    ptr, order = tile_sources(offs, [] if not L else src_pos.cpu().numpy())
+    as_dev = lambda a: torch.as_tensor(a, dtype=torch.int32, device=device)
+    # the kernel indexes with 32-bit ints
+    got = (None if not L else as_dev(src_pos), as_dev(ptr), as_dev(order))
+    _SOURCES["last"] = (src_pos, key,
+                        None if src_pos is None else src_pos._version, got)
+    return got

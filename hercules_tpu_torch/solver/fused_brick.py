@@ -125,7 +125,9 @@ def _first_copy(g, ids):
 
 class BrickStep(nn.Module):
     """The brick's step operator: buffers K [8, LEN] and the two 24x24
-    stiffness operators, stacked as ops = -[M1; M2] [48, 24]."""
+    stiffness operators, stacked as ops = -[M1; M2] [48, 24], which the
+    plain versions multiply by (the kernels K1 and K5 form the force
+    from the operators' spectral factors and take no ops)."""
 
     def __init__(self, K, offs):
         super().__init__()

@@ -14,8 +14,8 @@ step:
 - ``moved``: what the port's kernel itself streams per step, with its
   passes' intermediates (K4's element force F) and the state and
   constants it reads again in the same step (the tiled K2, K3 and K6
-  read S once for the recursion and again for the update).  Achieved
-  bandwidth uses this count.
+  read S once for the recursion and again for the update; K1 and K5
+  read it once).  Achieved bandwidth uses this count.
 - K3's mixed elements (``mixed``, M of them) add their corner-basis
   state conv_mix in and out (2 R 8 M storage words) and their recursion
   rows (9 | 18 per element) to both byte counts, and their recursion at
@@ -133,9 +133,11 @@ def kernel_cost(name, LEN, elements, dtype=torch.float32, conv_rows=0,
     member, slots = (4 * M, 4 * L) if M else (0, 0)
     el, bkt = element_flop(False), element_flop(True)
     step = {
-        # S (u, u-) 6 rows in, K 7 rows in, S' 6 rows out; the kernel
-        # streams S 8 rows in and out and K 7 rows; W = u + beta (u - u-)
-        # at the 8 corners
+        # S (u, u-) 6 rows in, K 7 rows in, S' 6 rows out; the tile
+        # march reads S 6 and K 3 (c1, c2, beta) for the planes and the
+        # element force, K 4 and S 6:8 for the update (u and u- from
+        # shared memory), writes S' 8; W = u + beta (u - u-) at the 8
+        # corners
         "brick_step": (19 * L * w, 23 * L * w,
                        E * (el + 24 * 3) + L * UPDATE_FLOP),
         # S 6, K 5 (mm, inv_mass, element valid), S' 6; the kernel reads

@@ -1,5 +1,11 @@
 """The port's single-brick solver (plain versions on the CPU) against
-the JAX package's brick solver and fused Pallas kernel, float64."""
+the JAX package's brick solver and fused Pallas kernel, float64, on the
+homogeneous box and on the four-layer Rayleigh box (one brick with
+per-element c1, c2 and beta); and the elastic spectral header the K1 and
+K5 kernels form each element's force from."""
+
+import os
+import re
 
 import numpy as np
 import pytest
@@ -14,11 +20,15 @@ from hercules_tpu.solver.pallas_brick import \
     pallas_u_global as jax_pallas_u_global
 from hercules_tpu.solver.pallas_brick import \
     run_pallas_solver as jax_run_pallas_solver
-from hercules_tpu_torch.fixtures import box_simulation
+from hercules_tpu_torch.fixtures import (FOUR_Q_LAYERS, box_simulation,
+                                         four_q_freq)
 from hercules_tpu_torch.kernels.brick_step import (brick_step,
                                                    brick_step_plain)
 from hercules_tpu_torch.solver.bricks import build_plan
+from hercules_tpu_torch.physics.kmats import (hadamard8_stages,
+                                              spectral_factors)
 from hercules_tpu_torch.solver.fused_brick import (PallasBrickTables,
+                                                   operators,
                                                    pallas_u_global,
                                                    run_pallas_solver)
 
@@ -32,6 +42,17 @@ def box(tmp_path_factory):
             jax_build_plan(sim.mesh))
 
 
+@pytest.fixture(scope="module")
+def layered(tmp_path_factory):
+    """The four-layer box at 62.5 m with Rayleigh damping: 2048 elements
+    in one brick, four sets of (c1, c2, beta)."""
+    sim = box_simulation(str(tmp_path_factory.mktemp("layered")), steps=T,
+                         damping="rayleigh", layers=FOUR_Q_LAYERS,
+                         freq=four_q_freq(62.5))
+    return (sim, build_plan(sim.mesh), jax_assemble(sim.mesh, sim.params),
+            jax_build_plan(sim.mesh))
+
+
 def _port(sim, plan, src_ids, forces, **kw):
     st = sim.stations
     return run_pallas_solver(plan, sim.tables, src_ids, forces, T,
@@ -40,13 +61,13 @@ def _port(sim, plan, src_ids, forces, **kw):
                              device="cpu", **kw)
 
 
-def test_plain_matches_jax(box, monkeypatch):
+def _plain_matches_jax(case, monkeypatch):
     """Point source and 2 stations, 40 steps: the port's plain route
     against run_brick_solver and the Pallas kernel (interpret mode),
     2e-13 max|u| on the field and 2e-13 max(|samples|, 1) on the
     samples; the padding stays exactly zero."""
     monkeypatch.setenv("HT_PALLAS_TILE", "1024")
-    sim, plan, jtab, jplan = box
+    sim, plan, jtab, jplan = case
     st, dt, N = sim.stations, sim.params.delta_t, sim.mesh.nnum
     (u, _), samp = _port(sim, plan, sim.src_ids, sim.src_forces)
     u_t = pallas_u_global(plan, u, N)
@@ -67,6 +88,23 @@ def test_plain_matches_jax(box, monkeypatch):
         np.testing.assert_allclose(
             samp, np.asarray(s_ref), rtol=0,
             atol=2e-13 * max(np.abs(s_ref).max(), 1))
+
+
+def test_plain_matches_jax(box, monkeypatch):
+    """_plain_matches_jax on the homogeneous box."""
+    _plain_matches_jax(box, monkeypatch)
+
+
+def test_plain_matches_jax_layered(layered, monkeypatch):
+    """_plain_matches_jax on the four-layer Rayleigh box, whose elements
+    carry four different (c1, c2, beta)."""
+    sim, plan = layered[:2]
+    pt = PallasBrickTables(plan, sim.tables, dtype=torch.float64,
+                           device="cpu")
+    valid = pt.K[0] != 0
+    for r in range(3):
+        assert len(torch.unique(pt.K[r][valid])) == 4
+    _plain_matches_jax(layered, monkeypatch)
 
 
 def test_plain_matches_jax_legacy_layout(box, monkeypatch):
@@ -134,3 +172,60 @@ def test_wrapper_on_cpu_runs_plain(box, dtype):
     assert torch.equal(pt.step(S), ref)
     assert brick_step.launches == before
     assert not ref[:, pt.nb:].any()
+
+
+def _elastic_header():
+    """The (M1, M2) entry lists of csrc/elastic_spectral.cuh."""
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "hercules_tpu_torch", "csrc",
+        "elastic_spectral.cuh")
+    text = open(path).read()
+    lists = []
+    for name in ("HT_ELASTIC_SPECTRAL_M1", "HT_ELASTIC_SPECTRAL_M2"):
+        body = text.split(f"#define {name}(X)")[1].split("\n\n")[0]
+        lists.append([(int(a), int(b), int(c), int(d), float(v))
+                      for a, b, c, d, v in re.findall(
+                          r"X\((\d), (\d), (\d), (\d), ([-0-9.e]+)\)", body)])
+    return lists
+
+
+def _hadamard(x):
+    """The 8-corner butterflies of a 24-vector (hadamard8_stages)."""
+    x = x.copy()
+    for stage in hadamard8_stages():
+        for j, h in stage:
+            if j < h:
+                x[3 * j:3 * j + 3], x[3 * h:3 * h + 3] = (
+                    x[3 * j:3 * j + 3] + x[3 * h:3 * h + 3],
+                    x[3 * j:3 * j + 3] - x[3 * h:3 * h + 3])
+    return x
+
+
+def test_elastic_spectral_header_matches_factors():
+    """K1 and K5 form each element's force from the spectral factors as
+    compiled-in constants: the header's lists are the port's
+    spectral_factors() bit for bit, and the kernels' sequence -- W = u +
+    beta du at the 8 corners, the Hadamard butterflies, the
+    multiply-adds of the M1 and M2 nonzeros with the minus of A = -[M1;
+    M2] folded in, scaled by c1 and c2, the inverse butterflies --
+    reproduces the plain version's c1 A1 W + c2 A2 W (ops) within 1e-14
+    on random u, du, c1, c2 and beta."""
+    header = _elastic_header()
+    assert header == [list(f) for f in spectral_factors()]
+    assert [len(f) for f in header] == [33, 24]
+    ops = operators(torch.float64, "cpu").numpy()
+    rng = np.random.default_rng(12)
+    for _ in range(8):
+        u, du = rng.standard_normal(24), rng.standard_normal(24)
+        c1, c2 = rng.uniform(-2.0, 2.0, 2) * 1e5
+        beta = rng.uniform(0.0, 1.0)
+        w = u + beta * du
+        z = _hadamard(w)
+        y1, y2 = np.zeros(24), np.zeros(24)
+        for y, ents in zip((y1, y2), header):
+            for mo, co, mi, ci, v in ents:
+                y[3 * mo + co] += -v * z[3 * mi + ci]
+        got = _hadamard(c1 * y1 + c2 * y2)
+        want = c1 * ops[:24] @ w + c2 * ops[24:] @ w
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=1e-14 * np.abs(want).max())

@@ -1,6 +1,7 @@
 """brick_chunk's plain version: against a loop of the plain step, across
 the two routes, and against the JAX package's resident chunk loop in
-float32."""
+float32; the route tests on the homogeneous box and on the four-layer
+Rayleigh box (per-element c1, c2 and beta)."""
 
 import numpy as np
 import pytest
@@ -14,7 +15,8 @@ from hercules_tpu.solver.pallas_brick import \
     pallas_u_global as jax_pallas_u_global
 from hercules_tpu.solver.pallas_brick import \
     run_pallas_solver as jax_run_pallas_solver
-from hercules_tpu_torch.fixtures import box_simulation
+from hercules_tpu_torch.fixtures import (FOUR_Q_LAYERS, box_simulation,
+                                         four_q_freq)
 from hercules_tpu_torch.kernels.brick_chunk import (brick_chunk,
                                                     brick_chunk_plain,
                                                     sample_stations)
@@ -31,6 +33,14 @@ T = 37
 @pytest.fixture(scope="module")
 def box(tmp_path_factory):
     sim = box_simulation(str(tmp_path_factory.mktemp("box")), steps=T)
+    return sim, build_plan(sim.mesh)
+
+
+@pytest.fixture(scope="module")
+def layered(tmp_path_factory):
+    sim = box_simulation(str(tmp_path_factory.mktemp("layered")), steps=T,
+                         damping="rayleigh", layers=FOUR_Q_LAYERS,
+                         freq=four_q_freq(62.5))
     return sim, build_plan(sim.mesh)
 
 
@@ -69,13 +79,12 @@ def test_chunk_plain_equals_step_loop(box):
     assert torch.equal(Sw, S) and torch.equal(smw, smp)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_routes_bit_identical(box, dtype):
+def _routes_bit_identical(case, dtype):
     """The chunk route's host pre-scaled source increments round exactly
     as the step route's on-device srcf.T * inv_mass: the two routes give
     the same state and samples (on the card this is what lets
     brick_chunk match the brick_step loop bit for bit)."""
-    sim, plan = box
+    sim, plan = case
     st = sim.stations
     res = {}
     for route in ("chunk", "step"):
@@ -89,13 +98,25 @@ def test_routes_bit_identical(box, dtype):
     np.testing.assert_array_equal(res["chunk"][1], res["step"][1])
 
 
-def test_float32_matches_jax_resident(box, monkeypatch):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_routes_bit_identical(box, dtype):
+    """_routes_bit_identical on the homogeneous box."""
+    _routes_bit_identical(box, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_routes_bit_identical_layered(layered, dtype):
+    """_routes_bit_identical on the four-layer Rayleigh box."""
+    _routes_bit_identical(layered, dtype)
+
+
+def _float32_matches_jax_resident(case, monkeypatch):
     """float32, chunks of 16, 37 steps: the port (brick_chunk route)
     against the JAX resident chunk loop in exact float32
     (HT_MXU_PREC=highest), field within 1e-4 max|u|."""
     monkeypatch.setenv("HT_PALLAS_TILE", "1024")
     monkeypatch.setenv("HT_MXU_PREC", "highest")
-    sim, plan = box
+    sim, plan = case
     jtab, jplan = jax_assemble(sim.mesh, sim.params), \
         jax_build_plan(sim.mesh)
     rng = np.random.default_rng(3)
@@ -119,3 +140,13 @@ def test_float32_matches_jax_resident(box, monkeypatch):
     assert err <= 1e-4, f"field error {err:.3e} of max|u|"
     serr = np.abs(samp - np.asarray(samp_j)).max() / np.abs(samp_j).max()
     assert serr <= 1e-4, f"samples error {serr:.3e} of max|samples|"
+
+
+def test_float32_matches_jax_resident(box, monkeypatch):
+    """_float32_matches_jax_resident on the homogeneous box."""
+    _float32_matches_jax_resident(box, monkeypatch)
+
+
+def test_float32_matches_jax_resident_layered(layered, monkeypatch):
+    """_float32_matches_jax_resident on the four-layer Rayleigh box."""
+    _float32_matches_jax_resident(layered, monkeypatch)

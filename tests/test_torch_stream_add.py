@@ -91,10 +91,12 @@ def test_probe_shape():
 # the hand counts of the timings so far, and its operations per element
 # and per column: the spectral force (330 elastic, 426 BKT), W (72),
 # the update (15), the recursion (3 x (1 + 16 per pair)), K3's set
-# scaling (24), K4's corner recursion (48 + 24 x 16 per pair)).  K2
-# and K3 stream no dv since their force passes moved into their one
-# launch: K2 reads S 6, K 1 (force), S 8 and K 4 (update), writes S' 8
-# and moves conv 6 rows in and out.
+# scaling (24), K4's corner recursion (48 + 24 x 16 per pair)).  K1's
+# tile march reads S 6 and K 3 (c1, c2, beta) for the planes and the
+# element force, K 4 and S 6:8 for the update (u and u- from shared
+# memory) and writes S' 8.  K2 and K3 stream no dv since their force
+# passes moved into their one launch: K2 reads S 6, K 1 (force), S 8
+# and K 4 (update), writes S' 8 and moves conv 6 rows in and out.
 HAND_COUNTS = [
     ("brick_step", {}, 23, 330 + 72, 15),
     ("bkt_step", dict(conv_rows=6, conv_dtype=torch.float32), 39, 426,

@@ -1,15 +1,19 @@
-"""The host side of the tiled BKT kernels (csrc/bkt_tile.cuh): the
-(tile, slab) work items of make_geom own every node column exactly once,
-with K2's 8-plane slabs and with K6's deeper ones; K6's per-tile source
-lists (kernels/tiles.py) hold every source once, in source order, and
-are made from src_pos's values, never from its address.  CPU only."""
+"""The host side of the tiled kernels (csrc/bkt_tile.cuh): the (tile,
+slab) work items of make_geom own every node column exactly once, with
+K1's and K2's 8-plane slabs and with the chunk kernels' deeper ones; the
+wrappers refuse corner offsets that are not a brick's; the chunk
+kernels' per-tile source lists (kernels/tiles.py) hold every source
+once, in source order, and are made from src_pos's values, never from
+its address.  CPU only."""
 
 import numpy as np
 import pytest
 import torch
 
 from hercules_tpu_torch.kernels import tiles
-from hercules_tpu_torch.kernels.bkt_chunk import source_lists
+from hercules_tpu_torch.kernels.brick_chunk import brick_chunk
+from hercules_tpu_torch.kernels.brick_step import brick_step
+from hercules_tpu_torch.kernels.tiles import source_lists
 from hercules_tpu_torch.solver.fused_brick import pallas_geometry
 
 
@@ -67,7 +71,7 @@ def owned(offs, LEN, slab, item):
     return n[n < LEN]
 
 
-# slab depths: K2's and K3's kSlab, K6's at 2^20 elements in float32 (3
+# slab depths: K1's, K2's and K3's kSlab, the chunk kernels' at 2^20 elements in float32 (3
 # blocks per SM on 132 SMs) and in float64 (2), and one plane
 SLABS = (8, 17, 33, 1)
 
@@ -96,8 +100,20 @@ def test_items_partition_the_columns(grid, slab):
 
 
 def test_refuses_offsets_not_a_bricks():
+    """tiles.brick_strides refuses corner offsets that are not a brick's,
+    and so do the K1 and K5 wrappers' checks, before any launch."""
+    bad = (0, 1, 17, 18, 289, 290, 306, 308)
     with pytest.raises(ValueError, match="brick's node grid"):
-        tiles.brick_strides((0, 1, 17, 18, 289, 290, 306, 308))
+        tiles.brick_strides(bad)
+    S = torch.zeros((8, 1024), device="meta")
+    ops = torch.zeros((48, 24), device="meta")
+    srcf = torch.zeros((4, 3, 0), device="meta")
+    before = brick_step.launches, brick_chunk.launches
+    with pytest.raises(ValueError, match="brick's node grid"):
+        brick_step(S, S.clone(), bad, ops)
+    with pytest.raises(ValueError, match="brick's node grid"):
+        brick_chunk(S, torch.empty_like(S), S.clone(), bad, ops, srcf)
+    assert (brick_step.launches, brick_chunk.launches) == before
 
 
 def sources_at(grid):
@@ -114,9 +130,10 @@ def sources_at(grid):
 def test_tile_sources_in_source_order(grid):
     """Every source index is in exactly one tile's list, the tile of its
     node, in source order; two sources at one node (and one on each side
-    of a tile edge) included.  K6's rule -- each work item's threads add,
-    at the nodes they own, the sources of the item's tile in list order
-    -- is the step route's source add in source order."""
+    of a tile edge) included.  The chunk kernels' rule -- each work
+    item's threads add, at the nodes they own, the sources of the item's
+    tile in list order -- is the step route's source add in source
+    order."""
     (nx, ny, nz), offs = GRIDS[grid]
     LEN = pallas_geometry(nx * ny * nz)
     slab = 17
@@ -148,7 +165,7 @@ def test_tile_sources_in_source_order(grid):
 
 
 def test_source_lists_follow_the_values():
-    """K6's source arrays are made again when src_pos's values change at
+    """The chunk kernels' source arrays are made again when src_pos's values change at
     the same address: changed in place, or another tensor on the same
     memory; the same tensor, unchanged, reuses them."""
     (nx, ny, nz), offs = GRIDS["2048"]

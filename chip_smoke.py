@@ -9,8 +9,12 @@ JSON line {"phase": ...}:
 
 1. build   -- compile hercules_tpu_torch/csrc/*.cu with nvcc; the
               registers of the tiled kernels (K1 and K5 by type, K2,
-              K3 and K6 by type, memory-variable type and kappa) from
-              the ptxas -v log.
+              K3, K4 and K6 by type, memory-variable type and kappa)
+              from the ptxas -v log; K4's launch grid (resident
+              blocks, slab depth, work items) on the 2048-element and
+              the 2^20-element box, by type and kappa, from the library
+              (ht_bkt_corner_grid_*), its slab and work items equal to
+              kernels/tiles.py's corner_grid for those resident blocks.
 2. k1      -- brick_step (K1) against brick_step_plain on the card: the
               2048-element box and the four-layer Rayleigh box at
               62.5 m (one brick, 2048 elements with four different c1,
@@ -64,18 +68,26 @@ JSON line {"phase": ...}:
               both types of its main path: 5 steps in float64 (2e-13 on
               S, conv and conv_mix) and 10 in float32 (1e-4 on S, 5e-3
               on the memory variables).  Padding stays zero.
-11. k4     -- bkt_corner_step (K4) against bkt_corner_step_plain: the
-              four-layer box at 62.5 m (where the rule picks the corner
-              tier), 40 steps in float64 (2e-13) and 20 in float32
-              (1e-3); the two-layer box forced to the corner tier,
-              float64 (2e-13); the four-layer box at 2^20 forced to the
-              corner tier, 10 steps in float32 (1e-4 on S).
+11. k4     -- bkt_corner_step (K4, one launch per step on the BKT tile
+              march) against bkt_corner_step_plain: the four-layer box
+              at 62.5 m (where the rule picks the corner tier), 40
+              steps in float64 (2e-13) and 20 in float32 (1e-3); the
+              two-layer box forced to the corner tier, float64
+              (2e-13); the four-layer box at 2^20 forced to the corner
+              tier, 10 steps in float32 (1e-4 on S, 5e-3 on the memory
+              variables); the thin-layer box (THIN_Q_LAYERS, 48 % of
+              its elements mixed: the corner tier by the rule) at 2^20,
+              10 steps in float32 (1e-4 on S, 5e-3 on the memory
+              variables) and 5 in float64 (2e-13).
 12. main_bktq -- phase 4 on the four-layer box at 2^20 elements: both
               types on the node tier (route cuda_bkt_node_step), K3
               launched once per step (800 over both types) and nothing
-              else run for the mixed elements; then the four-layer box
-              at 62.5 m through the CLI: route cuda_bkt_corner_step, K4
-              launched.
+              else run for the mixed elements.  main_bktq_corner: the
+              corner tier's main path through the CLI, the four-layer
+              box at 62.5 m (2048 elements) and the thin-layer box at
+              2^20 elements, 400 steps each in both types, no tier
+              forced: route cuda_bkt_corner_step, K4 launched once per
+              step (400 per type on each box).
 13. accuracy_bktq -- the four-layer box at 15.625 m (131,072 elements),
               200 steps: the float32 CUDA stations within 1e-2 relative
               of the node route on the plain versions in float64.
@@ -96,19 +108,23 @@ JSON line {"phase": ...}:
               against brick_chunk_plain and bkt_chunk_plain, K3 in
               float32 and float64 on the four-layer box (bfloat16 /
               float64 memory variables, 49,533 mixed elements) against
-              bkt_node_step_plain; K4 on the four-layer box at 62.5 m
-              (2048 elements, the corner route's main path) in float32
-              and float64, and forced at 2^20 in float32 for
-              comparison; K1 and K2 in float32 and K2/K6 on the soft box
+              bkt_node_step_plain; K4 on both boxes of its main path
+              (the four-layer box at 62.5 m and the thin-layer box at
+              2^20) in float32 and float64, and the four-layer box
+              forced at 2^20 in float32 for comparison (K4's kernel
+              table row is the thin-layer box in float32); K1 and K2 in
+              float32 and K2/K6 on the soft box
               (bfloat16 memory variables, bulk attenuation on) beside
               them.  K7's time (aliased) and torch.add's are phase 15's
               legs.  Lone calls (synchronise, events around one call,
-              median of 60): K7 and torch.add on the probe's arrays, and
-              the K1, K2 and K3 route steps (sampling + step + sources)
-              at 2^20 in float32; the host's microseconds per call of K7
-              and torch.add on [8, 1024].  For every kernel K1-K7: its
-              bound (utils/roofline.py: bytes and operations counted from the
-              shapes of these inputs, against the H100's data sheet; the
+              median of 60): K7 and torch.add on the probe's arrays, the
+              K1, K2 and K3 route steps (sampling + step + sources) at
+              2^20 in float32, and K4 on the 2048-element box in both
+              types; the host's microseconds per call of K7 and
+              torch.add on [8, 1024] and of K4 on the 2048-element box.
+              For every kernel K1-K7: its bound (utils/roofline.py:
+              bytes and operations counted from the shapes of these
+              inputs, against the H100's data sheet; the
               chunk kernels' bytes amortised over 400 steps only where
               their state fits the 50 MB L2, not at 2^20) and what
               sets it, the share of the bound its time reaches, its
@@ -161,14 +177,14 @@ def require(cond, msg):
 
 def tile_registers(log):
     """{kernel<T[,CT,kappa]>: registers} of the tiled kernels (K1, K5:
-    kernel<T>; K2, K3, K6: kernel<T,CT,kappa>) from the ptxas -v output
-    in the build log."""
+    kernel<T>; K2, K3, K4, K6: kernel<T,CT,kappa>) from the ptxas -v
+    output in the build log."""
     types = {"f": "float", "d": "double", "13__nv_bfloat16": "bf16"}
     regs, entry = {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
-            bkt = re.search(r"(bkt_(?:step|chunk|node)_kernel)I([fd])"
+            bkt = re.search(r"(bkt_(?:step|chunk|node|corner)_kernel)I([fd])"
                             r"([fd]|13__nv_bfloat16)Lb([01])E", m.group(1))
             brick = re.search(r"(brick_(?:step|chunk)_kernel)I([fd])E",
                               m.group(1))
@@ -195,14 +211,14 @@ def main():
         return 1
     sys.path.insert(0, ROOT)
     from hercules_tpu_torch.fixtures import (FOUR_Q_LAYERS, SOFT_FREQ,
-                                             SOFT_LAYERS, TWO_LAYERS,
-                                             box_dt, box_stats,
+                                             SOFT_LAYERS, THIN_Q_LAYERS,
+                                             TWO_LAYERS, box_dt, box_stats,
                                              four_q_freq, write_box_case)
-    from hercules_tpu_torch.kernels import build
+    from hercules_tpu_torch.kernels import build, tiles
     from hercules_tpu_torch.kernels.bkt_chunk import (bkt_chunk,
                                                       bkt_chunk_plain)
     from hercules_tpu_torch.kernels.bkt_corner_step import (
-        bkt_corner_step, bkt_corner_step_plain)
+        bkt_corner_step, bkt_corner_step_plain, corner_grid_of)
     from hercules_tpu_torch.kernels.bkt_node_step import (
         bkt_node_step, bkt_node_step_plain)
     from hercules_tpu_torch.kernels.bkt_step import (bkt_step,
@@ -216,7 +232,8 @@ def main():
     from hercules_tpu_torch.sim import Simulation
     from hercules_tpu_torch.solver.bricks import build_plan
     from hercules_tpu_torch.solver.fused_brick import (
-        PallasBrickTables, run_pallas_solver, source_increments)
+        PallasBrickTables, pallas_geometry, run_pallas_solver,
+        source_increments)
     from hercules_tpu_torch.solver import fused_bktq
     from hercules_tpu_torch.tools import hbm_ceiling
     from hercules_tpu_torch.utils import roofline
@@ -336,7 +353,7 @@ def main():
 
     def k4_loop(pt, S, cv, inc, plain):
         """K4 (or its plain version) step by step with the source adds."""
-        args = (pt.K, pt.step.bk, pt.offs, pt.step.fm)
+        args = (pt.K, pt.offs, pt.step.tab)
         S, cv = S.clone(), cv.clone()
         spare, cspare = torch.empty_like(S), torch.empty_like(cv)
         for t in range(inc.shape[0]):
@@ -363,9 +380,27 @@ def main():
         so = build.build()
         build.lib()
         log = so.with_suffix(".log").read_text()
+        # K4's grid as the library launches it (resident blocks, slab,
+        # work items) against the host's mirror of its slab rule, on the
+        # 2048-element and the 2^20-element boxes, by type and kappa
+        grids = {}
+        for label, (nx, ny, nz) in (("2048", (17, 17, 9)),
+                                    ("2^20", (129, 129, 65))):
+            offs = tuple((j & 1) + (j >> 1 & 1) * nx + (j >> 2 & 1) * nx * ny
+                         for j in range(8))
+            LEN = pallas_geometry(nx * ny * nz)
+            for dtype in (f32, f64):
+                for kappa in (0, 1):
+                    res, slab, items = corner_grid_of(offs, LEN, dtype,
+                                                      kappa)
+                    grids[f"{label} {dtype} kappa={kappa}"] = {
+                        "resident": res, "slab": slab, "items": items}
+                    require((slab, items) == tiles.corner_grid(offs, LEN,
+                                                               res),
+                            f"K4 grid {grids}")
         emit({"phase": "build", "seconds": time.perf_counter() - t0,
               "nvcc_seconds": build.build_seconds, "library": so.name,
-              "tile_registers": tile_registers(log),
+              "tile_registers": tile_registers(log), "k4_grid": grids,
               "ptxas": [ln.strip() for ln in log.splitlines()
                         if "registers" in ln or "spill" in ln
                         or "Compiling entry" in ln]})
@@ -461,11 +496,12 @@ def main():
         counters = (brick_step, brick_chunk, bkt_step, bkt_chunk,
                     bkt_node_step, bkt_corner_step)
 
-        def main_path(phase, routes, kernels, edge=7.8125, **case):
+        def main_path(phase, routes, kernels, edge=7.8125, tag="", **case):
             """The CLI on the box at ``edge`` (2^20 elements by default),
             400 steps, 5 stations, float32 then float64; every launch
             counter set to 0 just before each run and read just after.
-            Returns the launches of both runs, and of each run
+            ``tag`` names the run's directories and logs beside the
+            phase's.  Returns the launches of both runs, and of each run
             (``by_type``, under "float32" and "float64")."""
             E, N = box_stats(edge)
             dt_b = box_dt(edge)
@@ -475,15 +511,16 @@ def main():
                 for c in counters:
                     c.launches = 0
                 cv, ph, nu = write_box_case(
-                    os.path.join(work, f"{phase}_{dname}"), edge, 400, 5,
-                    **case)
+                    os.path.join(work, f"{phase}{tag}_{dname}"), edge, 400,
+                    5, **case)
                 parts = ("Solver", "Solver plan", "Solver tables",
                          "Solver time loop")
                 before = {k: GLOBAL_TIMERS.value(k) for k in parts}
                 out = io.StringIO()
                 with contextlib.redirect_stdout(out):
                     rc = cli.main([f"--dtype={dname}", cv, ph, nu])
-                with open(os.path.join(LOG, f"cli_{phase}_{dname}.log"),
+                with open(os.path.join(LOG,
+                                       f"cli_{phase}{tag}_{dname}.log"),
                           "w") as f:
                     f.write(out.getvalue())
                 require(rc == 0, f"CLI exit code {rc}")
@@ -504,8 +541,8 @@ def main():
             s32, s64 = runs["float32"][1], runs["float64"][1]
             st_rel = np.abs(s32[..., 1:] - s64[..., 1:]).max() / \
                 np.abs(s64[..., 1:]).max()
-            emit({"phase": phase, "elements": E, "nodes": N, "steps": 400,
-                  "stations": 5, "case": case,
+            emit({"phase": phase, "tag": tag, "elements": E, "nodes": N,
+                  "steps": 400, "stations": 5, "case": case,
                   "runs": {d: {"solver_path": runs[d][0],
                                "seconds": runs[d][2],
                                "steps_per_s": 400 / runs[d][2]["Solver"],
@@ -695,12 +732,16 @@ def main():
                     freq=four_q_freq(62.5))
         four_big = dict(damping="bkt", layers=FOUR_Q_LAYERS,
                         freq=four_q_freq(7.8125))
+        thin_big = dict(damping="bkt", layers=THIN_Q_LAYERS,
+                        freq=four_q_freq(7.8125))
         sim_2q, plan_2q, _ = box(62.5, 40, 5, "two_q", **two)
         sim_2s, plan_2s, _ = box(62.5, 40, 5, "two_q_shear",
                                  use_infinite_qk=True, **two)
         sim_4q, plan_4q, _ = box(62.5, 40, 5, "four_q", **four)
         sim_4b, plan_4b, _ = box(7.8125, 20, 5, "four_q_big", **four_big)
         require(sim_4b.mesh.lenum == 1 << 20, "four-layer 2^20 box")
+        sim_th, plan_th, _ = box(7.8125, 20, 5, "thin_q_big", **thin_big)
+        require(sim_th.mesh.lenum == 1 << 20, "thin-layer 2^20 box")
         # (case, sim, plan, type, steps, bound on S and samples, bound on
         # the memory variables); at 2^20 elements S alone is bounded
         # tightly: there a memory variable near the max that rounds to
@@ -749,7 +790,9 @@ def main():
                 ("four", sim_4q, plan_4q, f64, 40, 2e-13, 2e-13, None),
                 ("four", sim_4q, plan_4q, f32, 20, 1e-3, 1e-3, None),
                 ("two", sim_2q, plan_2q, f64, 40, 2e-13, 2e-13, "corner"),
-                ("four", sim_4b, plan_4b, f32, 10, 1e-4, 5e-3, "corner")):
+                ("four", sim_4b, plan_4b, f32, 10, 1e-4, 5e-3, "corner"),
+                ("thin", sim_th, plan_th, f32, 10, 1e-4, 5e-3, None),
+                ("thin", sim_th, plan_th, f64, 5, 2e-13, 2e-13, None)):
             pt = tables(sim, plan, dtype, bkt_tier=tier)
             require(pt.bkt_tier == "corner", f"{label} tier {pt.bkt_tier}")
             S0, cv0 = random_bktq_state(pt)
@@ -778,10 +821,25 @@ def main():
         node_launches = main_path(
             "main_bktq", ("cuda_bkt_node_step", "cuda_bkt_node_step"),
             ("bkt_node_step",), **four_big)
-        corner_launches = main_path(
-            "main_bktq_corner",
-            ("cuda_bkt_corner_step", "cuda_bkt_corner_step"),
-            ("bkt_corner_step",), edge=62.5, **four)
+        # the corner tier's main path: the four-layer box at 62.5 m and
+        # the thin-layer box at 2^20, each taking the tier by the rule;
+        # one K4 launch per step
+        corner_by_box = {
+            box_: main_path("main_bktq_corner",
+                            ("cuda_bkt_corner_step", "cuda_bkt_corner_step"),
+                            ("bkt_corner_step",), tag=tag, **kw)
+            for box_, tag, kw in (("2048", "", dict(edge=62.5, **four)),
+                                  ("2^20_thin", "_thin", thin_big))}
+        k4_by_type = {b: {d: n["bkt_corner_step"]
+                          for d, n in v["by_type"].items()}
+                      for b, v in corner_by_box.items()}
+        require(all(v == {"float32": 400, "float64": 400}
+                    for v in k4_by_type.values()),
+                f"main_bktq_corner: K4 launches {k4_by_type} for 400 steps "
+                f"of each type on each box")
+        corner_launches = {"by_type": {
+            d: {"bkt_corner_step": sum(v[d] for v in k4_by_type.values())}
+            for d in ("float32", "float64")}}
         # one K3 launch per step, the mixed elements inside: the node
         # tier keeps no correction of its own after the kernel
         k3_by_type = {d: n["bkt_node_step"]
@@ -1014,17 +1072,24 @@ def main():
                 lone_ms["k3_route_step"] = lone(k3_route_step)
                 mixed = ptn.step.mix_M
 
-        # K4 on the four-layer box at 62.5 m (its main path: 2048
-        # elements), both types; and forced at 2^20 in float32
+        # K4 on both boxes of its main path, both types: the four-layer
+        # box at 62.5 m (2048 elements) and the thin-layer box at 2^20;
+        # and the four-layer box forced at 2^20 in float32, for
+        # comparison with earlier runs.  K4 alone on the 2048-element
+        # box (a few microseconds of work) is timed alone and per host
+        # call too.
+        k4_small = {}
         for label, sim, plan, dname, tier in (
                 ("", sim_4q, plan_4q, "float32", None),
                 ("", sim_4q, plan_4q, "float64", None),
+                ("_2^20_thin", sim_th, plan_th, "float32", None),
+                ("_2^20_thin", sim_th, plan_th, "float64", None),
                 ("_2^20_forced", sim_4b, plan_4b, "float32", "corner")):
             ptc = tables(sim, plan, dts[dname], bkt_tier=tier)
             require(ptc.bkt_tier == "corner", f"K4 timing tier {ptc.bkt_tier}")
             Sc0, cc0 = random_bktq_state(ptc)
             spc, cspc = torch.empty_like(Sc0), torch.empty_like(cc0)
-            cargs = (ptc.K, ptc.step.bk, ptc.offs, ptc.step.fm)
+            cargs = (ptc.K, ptc.offs, ptc.step.tab)
             key = ("bkt_corner_step" + label, dname)
             T[key], P[key] = twice(
                 lambda: bkt_corner_step(Sc0, cc0, *cargs, out=spc,
@@ -1032,6 +1097,13 @@ def main():
                 lambda: bkt_corner_step_plain(Sc0, cc0, *cargs))
             C[key] = roofline.route_costs(
                 ptc, sim.mesh.lenum)["bkt_corner_step"]
+            if not label:
+                k4_small[dname] = (
+                    lambda Sc0=Sc0, cc0=cc0, cargs=cargs, spc=spc,
+                    cspc=cspc: bkt_corner_step(Sc0, cc0, *cargs, out=spc,
+                                               conv_out=cspc))
+                lone_ms[f"bkt_corner_step 2048 {dname}"] = lone(
+                    k4_small[dname])
 
         # K7: the probe's legs; lone calls against torch.add
         key = ("stream_add", "float32")
@@ -1064,6 +1136,9 @@ def main():
                 lambda: torch.add(xs, ys, out=xs))
             host_us_per_call["stream_add" + rnd] = host_us(
                 lambda: stream_add(xs, ys, out=xs))
+        for dname, fn in k4_small.items():
+            host_us_per_call[f"bkt_corner_step 2048 {dname}"] = host_us(
+                fn, n=5000)
 
         # each kernel's launches on its own main path, by type
         own = {"brick_step": main_launches, "brick_chunk": main_launches,
@@ -1073,12 +1148,19 @@ def main():
         launches = {k: {d: v["by_type"][d][k] for d in dts}
                     for k, v in own.items()}
         launches["stream_add"] = {"float32": k7_launches, "float64": 0}
+        # K4's launches on each box of its main path (the forced box:
+        # none)
+        box_launches = {(f"bkt_corner_step{lb}", d): k4_by_type[b][d]
+                        for lb, b in (("", "2048"),
+                                      ("_2^20_thin", "2^20_thin"))
+                        for d in dts}
         per_launch = {"brick_chunk": STEPS, "bkt_chunk": STEPS}
         entries = {}
         for (k, d), c in C.items():
             t = min(T[(k, d)])
             base = k.split("_2^20")[0]
-            n = launches[base][d] if base == k else 0
+            n = box_launches.get((k, d), launches[base][d] if base == k
+                                 else 0)
             entries[f"{k} {d}"] = {
                 "ms": t, "ms_runs": T[(k, d)], "plain_ms": min(P[(k, d)]),
                 "bytes": c.bytes, "moved": c.moved, "flop": c.flop,
@@ -1091,14 +1173,17 @@ def main():
                 "time_lost_ms": n * per_launch.get(k, 1) * (t - c.bound_ms)}
         lost = {}
         for e, v in entries.items():
-            k = e.split(" ")[0]
-            if "_2^20" not in k:
-                lost[k] = lost.get(k, 0.0) + v["time_lost_ms"]
+            k = e.split(" ")[0].split("_2^20")[0]
+            lost[k] = lost.get(k, 0.0) + v["time_lost_ms"]
         # the row of each kernel: the type of its main path's launches
         # (float64 for the K1 and K2 step routes, float32 otherwise; K3
-        # and K4 run both, their float64 entries stand beside the row)
-        row_type = {"brick_step": "float64", "bkt_step": "float64"}
-        roof = {k: {**entries[f"{k} {row_type.get(k, 'float32')}"],
+        # and K4 run both, their float64 entries stand beside the row),
+        # at its main path's shape (K4: the thin-layer box at 2^20, its
+        # 2048-element entries beside it)
+        row = {"brick_step": "brick_step float64",
+               "bkt_step": "bkt_step float64",
+               "bkt_corner_step": "bkt_corner_step_2^20_thin float32"}
+        roof = {k: {**entries[row.get(k, f"{k} float32")],
                     "launches": sum(launches[k].values()),
                     "library_ms": t_add if k == "stream_add" else None}
                 for k in launches}

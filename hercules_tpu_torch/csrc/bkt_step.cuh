@@ -1,9 +1,8 @@
 // Pieces of the node-basis BKT step shared by the BKT kernels: the
-// recursion scalars, the memory variables' storage helpers, one
+// recursion scalars, the memory variables' storage helpers and one
 // recursion pair in the plain version's order (bkt_tile.cuh's march in
 // bkt_step, K2, bkt_chunk, K6, and bkt_node, K3; bkt_corner, K4, per
-// corner), and the operator fm [24, 48] = [mu_f Kmu | kappa_f Kkappa]
-// in constant memory (bkt_corner's element force).
+// element corner).
 //
 // The recursion (hercules_tpu/solver/pallas_brick.py:
 // _make_bkt_uniform_kernel, :1477-1496):
@@ -21,21 +20,8 @@
 
 #include "common.cuh"
 
-// Internal linkage throughout (unnamed namespace): each translation unit
-// owns its constant bank and its set_fm writes that bank.
 namespace ht {
 namespace {
-
-static __constant__ float c_fm_f32[24 * 48];
-static __constant__ double c_fm_f64[24 * 48];
-
-template <typename T> __device__ __forceinline__ T fm(int i);
-template <> __device__ __forceinline__ float fm<float>(int i) {
-  return c_fm_f32[i];
-}
-template <> __device__ __forceinline__ double fm<double>(int i) {
-  return c_fm_f64[i];
-}
 
 // The recursion scalars: shear c1 c2 c3 c4 e0 e1 a0 a1 coef, then the
 // same 9 for kappa (unused when shear-only), in the working type.
@@ -63,21 +49,6 @@ __device__ __forceinline__ void rec_pair(const T* k, T u, T up, T du, T s0,
   s0n = (k[1] * u + k[0] * up) + k[4] * s0;
   s1n = (k[3] * u + k[2] * up) + k[5] * s1;
   dv = ((k[8] * du + u) - k[6] * s0n) - k[7] * s1n;
-}
-
-// Upload fm (a device array of 24*48 values) into this translation
-// unit's constant bank, ordered on `stream`.
-template <typename T>
-inline cudaError_t set_fm(const T* dev_fm, cudaStream_t stream);
-template <>
-inline cudaError_t set_fm<float>(const float* dev_fm, cudaStream_t stream) {
-  return cudaMemcpyToSymbolAsync(c_fm_f32, dev_fm, sizeof(c_fm_f32), 0,
-                                 cudaMemcpyDeviceToDevice, stream);
-}
-template <>
-inline cudaError_t set_fm<double>(const double* dev_fm, cudaStream_t stream) {
-  return cudaMemcpyToSymbolAsync(c_fm_f64, dev_fm, sizeof(c_fm_f64), 0,
-                                 cudaMemcpyDeviceToDevice, stream);
 }
 
 template <typename T>

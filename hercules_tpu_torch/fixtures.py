@@ -18,8 +18,14 @@ Q sets: one brick, not uniform in Q).  All three mesh to the 62.5 m
 brick.  ``FOUR_Q_LAYERS`` at ``four_q_freq(edge_m)`` is a slow
 four-layer box whose Vs values fall in four Q bins (Q about 38, 51, 65
 and 84): one brick at 62.5 m (2048 elements) and at 7.8125 m (2^20
-elements).  ``use_infinite_qk=True`` turns the bulk attenuation off
-(shear-only BKT) on any layer table.
+elements).  ``THIN_Q_LAYERS`` at ``four_q_freq(edge_m)`` cycles
+through the same four materials in 32 layers of 15.625 m: 31
+interfaces, so at 7.8125 m (2^20 elements, one brick) about 48 % of
+the elements are mixed and the tier rule picks the corner tier (K4); at
+15.625 m every element plane is its own layer.  The CVM is written at
+62.5 m, or at the thinnest layer's thickness where that is less.
+``use_infinite_qk=True`` turns the bulk attenuation off (shear-only
+BKT) on any layer table.
 
 Layout written under ``root``::
 
@@ -50,7 +56,12 @@ FOUR_Q_LAYERS = ((0.0, 1200.0, 600.0, 2000.0),
                  (125.0, 1500.0, 750.0, 2100.0),
                  (250.0, 1800.0, 900.0, 2200.0),
                  (375.0, 2200.0, 1100.0, 2300.0))
+# 32 layers of 15.625 m through FOUR_Q_LAYERS' materials, top down
+THIN_Q_LAYERS = tuple((15.625 * i, *FOUR_Q_LAYERS[i % 4][1:])
+                      for i in range(32))
 EAST_M, NORTH_M, DEPTH_M = 1000.0, 1000.0, 500.0
+# the CVM's octant edge, unless a layer is thinner
+CVM_RES_M = 62.5
 # surface corners (lon, lat) of a bilinear map with 1e-5 degrees per
 # metre: a station at (x_north, y_east) m sits at lat = x/1e5, lon = y/1e5
 CORNERS = ((0.0, 0.0), (0.0, 0.01), (0.01, 0.01), (0.01, 0.0))
@@ -94,8 +105,10 @@ def write_box_case(root, edge_m=62.5, steps=200, n_stations=2,
     src_dir = os.path.join(root, "in", "src")
     os.makedirs(src_dir, exist_ok=True)
     cvmdb = os.path.join(root, "box.e")
-    build_layered_cvm(cvmdb, EAST_M, NORTH_M, DEPTH_M, 62.5,
-                      [list(r) for r in (layers or LAYERS)])
+    table = [list(r) for r in (layers or LAYERS)]
+    tops = [r[0] for r in table] + [DEPTH_M]
+    res = min([CVM_RES_M] + [b - a for a, b in zip(tops, tops[1:])])
+    build_layered_cvm(cvmdb, EAST_M, NORTH_M, DEPTH_M, res, table)
     dt = box_dt(edge_m)
     physics = os.path.join(root, "in", "physics.in")
     with open(physics, "w") as f:

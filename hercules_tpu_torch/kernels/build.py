@@ -75,10 +75,12 @@ SIGNATURES.update(
                                  _I, _P, _I, _I, _P]
      for sfx in ("f32_bf16", "f32_f32", "f64_f64")})
 SIGNATURES.update(
-    {f"ht_bkt_corner_set_fm_{t}": [_P, _I, _P] for t in ("f32", "f64")})
+    {f"ht_bkt_corner_set_tab_{t}": [_P, _I, _P] for t in ("f32", "f64")})
 SIGNATURES.update(
-    {f"ht_bkt_corner_step_{sfx}": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I,
-                                   _I, _P]
+    {f"ht_bkt_corner_step_{sfx}": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _P]
+     for sfx in ("f32_bf16", "f64_f64")})
+SIGNATURES.update(
+    {f"ht_bkt_corner_grid_{sfx}": [_P, _I, _I, _I, _P]
      for sfx in ("f32_bf16", "f64_f64")})
 
 _LIB = None
@@ -263,7 +265,7 @@ def overlap(a, b) -> bool:
 
 
 # operator tensor last uploaded by each constant-bank setter (K3's
-# ht_bkt_node_set_tab_*, K4's ht_bkt_corner_set_fm_*), with its version
+# ht_bkt_node_set_tab_*, K4's ht_bkt_corner_set_tab_*), with its version
 # counter: the constant bank is refreshed only when a different (or
 # modified) tensor is passed.  Holding the tensor keeps its device
 # address from being reused by another allocation.

@@ -10,7 +10,9 @@ tiles of a plane are numbered inner axis first (``make_geom``).  The
 chunk kernels' host side lists each tile's sources (``tile_sources``,
 kept per ``src_pos`` tensor and version by ``source_lists``), so that
 the thread that updates a source node adds its increments.  The slab
-depths and the work items live in the kernels alone.
+depths and the work items live in the kernels; ``corner_grid`` mirrors
+K4's rule (``csrc/bkt_corner.cu:corner_geom``), which the tests and the
+card's build check hold against the kernel's own count.
 """
 
 from __future__ import annotations
@@ -44,6 +46,23 @@ def tile_counts(offs):
     plane."""
     s_mid, s_out = brick_strides(offs)
     return -(-s_mid // OX), -(-(s_out // s_mid) // OY)
+
+
+# K4's deepest slab (bkt_corner.cu's kCornerSlab)
+CORNER_SLAB = 2
+
+
+def corner_grid(offs, LEN, resident):
+    """(slab depth, work items) of K4 on the brick of ``offs`` and LEN
+    columns with ``resident`` blocks on the card at once: CORNER_SLAB
+    planes, thinned until there is a work item for every resident
+    block, one plane where even that falls short
+    (bkt_corner.cu:corner_geom); item i is tile i % tiles on slab i //
+    tiles."""
+    tiles = int(np.prod(tile_counts(offs)))
+    nplanes = -(-LEN // brick_strides(offs)[1])
+    slab = max(1, min(CORNER_SLAB, tiles * nplanes // resident))
+    return slab, tiles * -(-nplanes // slab)
 
 
 def tile_of(offs, n):

@@ -36,11 +36,14 @@ Layout (column n = node n, as in ``fused_brick.py``):
   LEN] as the uniform tier's; the set index is not copied into a conv
   row as the JAX package does (its conv has padding rows to spare).
   tab: fm [24, 48] = [Kmu | Kkappa] and the sets (kernels/bkt_node_step).
-- corner tier: K [8, LEN] as the uniform tier's (mass_minusaM x 3,
-  inv_mass, element valid), bk [11 | 20, LEN] = ``bk_row_names`` at the
-  element columns, fm [24, 48] = [Kmu | Kkappa]; conv [48 | 96, LEN],
-  row 24 v + 3 j + c, bfloat16 in every float32 run (shear-only too, as
-  the JAX corner tier stores it) and float64 in float64 runs.
+- corner tier: K [8, LEN] = mass_minusaM x 3, inv_mass, then at the
+  element columns mu_f, kappa_f, the shear set index and the kappa set
+  index (floats); tab (kernels/bkt_corner_step.corner_tab): fm [24, 48]
+  = [Kmu | Kkappa] and each channel's distinct coefficient rows.  The
+  JAX package keeps the element rows themselves (bk [11 | 20, LEN],
+  ``bk_row_names``): ``corner_rows`` gives them back.  conv [48 | 96,
+  LEN], row 24 v + 3 j + c, bfloat16 in every float32 run (shear-only
+  too, as the JAX corner tier stores it) and float64 in float64 runs.
 """
 
 from __future__ import annotations
@@ -51,7 +54,7 @@ from torch import nn
 
 from ..physics.kmats import bkt_matrices_24
 
-from ..kernels.bkt_corner_step import bkt_corner_step
+from ..kernels.bkt_corner_step import bkt_corner_step, corner_tab
 from ..kernels.bkt_node_step import bkt_node_step, node_mix, node_tab
 from .fused_bkt import (bk_row_names, bkt_conv_dtype, bkt_kappa_zero,
                         pack_bkt_constants, uniform_step_module)
@@ -247,17 +250,16 @@ class BktNodeStep(nn.Module):
 
 
 class BktCornerStep(nn.Module):
-    """The brick's corner-tier step operator: buffers K [8, LEN], bk
-    [11 | 20, LEN] and fm [24, 48]."""
+    """The brick's corner-tier step operator: buffers K [8, LEN] and tab
+    (kernels/bkt_corner_step.corner_tab)."""
 
     tier = "corner"
 
-    def __init__(self, K, bk, fm, offs, shear_only):
+    def __init__(self, K, tab, offs, shear_only):
         super().__init__()
         self.offs = tuple(int(o) for o in offs)
         self.register_buffer("K", K)
-        self.register_buffer("bk", bk)
-        self.register_buffer("fm", fm)
+        self.register_buffer("tab", tab)
         self.shear_only = shear_only
         self.conv_rows = 48 if shear_only else 96
         # bkt_conv_dtype without the shear-only clause: the JAX corner
@@ -269,7 +271,7 @@ class BktCornerStep(nn.Module):
 
     def forward(self, S, conv, out=None, conv_out=None):
         """One step (K4): (S', conv')."""
-        return bkt_corner_step(S, conv, self.K, self.bk, self.offs, self.fm,
+        return bkt_corner_step(S, conv, self.K, self.offs, self.tab,
                                out=out, conv_out=conv_out)
 
 
@@ -317,14 +319,31 @@ def node_step_module(nq, offs, shear_only, dtype, device):
     return BktNodeStep(as_t(nq["K"]), offs, tab, shear_only, mix)
 
 
-def corner_step_module(plan, tables, LEN, offs, dtype, device):
-    """(BktCornerStep, K) of any BKT brick."""
+def corner_tables(plan, tables, LEN):
+    """(K [8, LEN], shear sets [ns, 9], kappa sets [nk, 9] or None when
+    shear-only) of the corner tier, float64 numpy: each channel's
+    distinct coefficient rows over all columns (the zero row of the
+    padding and invalid elements among them) and every element column's
+    index into them."""
     shear_only = bkt_kappa_zero(tables.bkt)
     K = pack_bkt_constants(plan, tables, LEN)
-    bk = _element_rows(plan, tables, bk_row_names(shear_only), LEN)
-    as_t = lambda x: torch.as_tensor(x, dtype=dtype, device=device)
-    return BktCornerStep(as_t(K), as_t(bk), as_t(bkt_fm()), offs,
-                         shear_only), K
+    rows = _element_rows(plan, tables, bk_row_names(shear_only), LEN)
+    K[4:6] = rows[-2:]
+    sets = []
+    for ch in range(1 if shear_only else 2):
+        s_, inv = _unique_rows(rows[9 * ch:9 * ch + 9].T)
+        K[6 + ch] = inv
+        sets.append(s_)
+    return K, sets[0], None if shear_only else sets[1]
+
+
+def corner_step_module(plan, tables, LEN, offs, dtype, device):
+    """(BktCornerStep, K) of any BKT brick."""
+    K, shear_sets, kappa_sets = corner_tables(plan, tables, LEN)
+    as_t = lambda x: None if x is None else torch.as_tensor(
+        x, dtype=dtype, device=device)
+    tab = corner_tab(as_t(bkt_fm()), as_t(shear_sets), as_t(kappa_sets))
+    return BktCornerStep(as_t(K), tab, offs, kappa_sets is None), K
 
 
 def bkt_step_module(plan, tables, LEN, offs, dtype, device, tier=None):

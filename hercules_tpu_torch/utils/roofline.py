@@ -11,11 +11,12 @@ step:
   data read once, each output row that holds data written once (the
   zero padding rows S[6:8] and K's unused rows are not counted, nor the
   operator constants of a few kB).  The bound uses this count.
-- ``moved``: what the port's kernel itself streams per step, with its
-  passes' intermediates (K4's element force F) and the state and
-  constants it reads again in the same step (the tiled K2, K3 and K6
-  read S once for the recursion and again for the update; K1 and K5
-  read it once).  Achieved bandwidth uses this count.
+- ``moved``: what the port's kernel itself streams per step, with the
+  state and constants it reads again in the same step (the tiled K2,
+  K3, K4 and K6 read S once for their planes and again for the update;
+  K1 and K5 read it once; K4 re-reads the halo elements' K rows 4:8
+  and conv rows, ``CORNER_HALO`` of them).  Achieved bandwidth uses this
+  count.
 - K3's mixed elements (``mixed``, M of them) add their corner-basis
   state conv_mix in and out (2 R 8 M storage words) and their recursion
   rows (9 | 18 per element) to both byte counts, and their recursion at
@@ -67,6 +68,11 @@ BUTTERFLY_FLOP = 3 * 8 * 3
 UPDATE_FLOP = 3 * 5
 # per node component and memory-variable pair: s0', s1' (5 each), dv (6)
 PAIR_FLOP = 16
+# K4's reads of an element's K rows 4:8 and conv rows per element: a
+# block's 32 x 8 element tile owns 31 x 7, and each 2-plane slab
+# recomputes the element plane below it (bkt_corner.cu; large bricks'
+# slabs)
+CORNER_HALO = (32 * 8) / (31 * 7) * 3 / 2
 
 
 @functools.cache
@@ -107,14 +113,13 @@ class KernelCost:
 
 
 def kernel_cost(name, LEN, elements, dtype=torch.float32, conv_rows=0,
-                conv_dtype=None, bk_rows=0, chunk=1, mixed=0) -> KernelCost:
+                conv_dtype=None, chunk=1, mixed=0) -> KernelCost:
     """Cost per step of kernel ``name`` (a wrapper's name: brick_step,
     brick_chunk, bkt_step, bkt_chunk, bkt_node_step, bkt_corner_step,
     stream_add) on [*, LEN] arrays in ``dtype`` with ``elements`` mesh
     elements; BKT kernels take their memory variables' rows and storage
-    type (``conv_rows``, ``conv_dtype``), K4 its coefficient rows
-    (``bk_rows``), the chunk kernels the steps per launch (``chunk``),
-    K3 its mixed elements (``mixed``)."""
+    type (``conv_rows``, ``conv_dtype``), the chunk kernels the steps per
+    launch (``chunk``), K3 its mixed elements (``mixed``)."""
     w = torch.empty((), dtype=dtype).element_size()
     L, E = int(LEN), int(elements)
     if name == "stream_add":
@@ -125,6 +130,8 @@ def kernel_cost(name, LEN, elements, dtype=torch.float32, conv_rows=0,
     # memory-variable pairs: 1 shear-only, 2 with kappa (6 | 12 rows per
     # node, or 48 | 96 per element in K4's corner basis)
     pairs = conv_rows // (48 if name == "bkt_corner_step" else 6)
+    # K4's element rows of K: mu_f, kappa_f and a set index per pair
+    krows = 2 + pairs
     rec = L * 3 * (1 + PAIR_FLOP * pairs)   # du once, then the pairs
     M = int(mixed)
     # K3's mixed set: conv_mix in and out, the rows; its membership as
@@ -153,12 +160,14 @@ def kernel_cost(name, LEN, elements, dtype=torch.float32, conv_rows=0,
                           29 * L * w + conv + mix + slots,
                           E * (bkt + 24) + rec + L * UPDATE_FLOP
                           + M * 8 * 3 * (1 + PAIR_FLOP * pairs)),
-        # S 6, K 4, bk rows, S' 6; pass 1 reads S 6, bk, writes F 24
-        # rows; pass 2 reads F, S 8, K 4, writes S' 8; the recursion
-        # runs on each element's 8 corners (24 rows per pair) after
-        # forming du and u- there (48)
-        "bkt_corner_step": ((16 + bk_rows) * L * w + conv,
-                            (74 + bk_rows) * L * w + conv,
+        # S 6, K 4 and the element rows, S' 6; the kernel reads S 6
+        # (planes), the element rows and conv with its halo elements'
+        # re-reads, S 8 and K 4 (update), writes conv' and S' 8; the
+        # recursion runs on each element's 8 corners (24 rows per pair)
+        # after forming du and u- there (48)
+        "bkt_corner_step": ((16 + krows) * L * w + conv,
+                            26 * L * w + conv / 2
+                            + CORNER_HALO * (krows * L * w + conv / 2),
                             E * (bkt + 48 + 24 * PAIR_FLOP * pairs)
                             + L * UPDATE_FLOP),
     }
@@ -187,8 +196,6 @@ def route_costs(pt, elements, chunk=1) -> dict:
         names = {"uniform": ("bkt_step", "bkt_chunk"),
                  "node": ("bkt_node_step",),
                  "corner": ("bkt_corner_step",)}[pt.bkt_tier]
-        if pt.bkt_tier == "corner":
-            kw["bk_rows"] = step.bk.shape[0]
         if pt.bkt_tier == "node":
             kw["mixed"] = step.mix_M
     return {n: kernel_cost(n, chunk=chunk, **kw) for n in names}

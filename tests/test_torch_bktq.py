@@ -4,9 +4,14 @@ plain version, the mixed elements in their direct form) and corner tier
 mixed-element epilogue), on the CPU (float64).
 
 Fixtures: the two-layer box (two Q sets, 271 mixed elements in one run:
-the node tier), its shear-only variant (``use_infinite_qk``), and the
+the node tier), its shear-only variant (``use_infinite_qk``), the
 four-layer box at 62.5 m (four Q sets, 37 % of the elements mixed: the
-node tier declines, the corner tier runs it)."""
+node tier declines, the corner tier runs it), and the thin-layer box
+(``THIN_Q_LAYERS``, 32 layers through the same four sets) at 15.625 m,
+131,072 elements of which 97 % are mixed: the corner tier by the rule,
+as at 2^20 elements (48 % there).  Also K4's arithmetic and checks on
+the CPU: its spectral element force on per-element corner vectors, and
+its wrapper's refusals."""
 
 import os
 
@@ -22,8 +27,9 @@ from hercules_tpu.solver.brickstep import brick_u_global, run_brick_solver
 from hercules_tpu.solver import pallas_brick as jpb
 from hercules_tpu_torch.convert import conv_from_jax, state_from_jax
 from hercules_tpu_torch.fixtures import (FOUR_Q_LAYERS, SOFT_FREQ,
-                                         TWO_LAYERS, box_simulation,
-                                         four_q_freq)
+                                         THIN_Q_LAYERS, TWO_LAYERS,
+                                         box_simulation, four_q_freq)
+from hercules_tpu_torch.kernels import bkt_corner_step as k4
 from hercules_tpu_torch.kernels.bkt_corner_step import (
     bkt_corner_step, bkt_corner_step_plain)
 from hercules_tpu_torch.kernels.bkt_node_step import (bkt_node_step,
@@ -377,7 +383,7 @@ def test_wrappers_on_cpu_run_plain(case, dtype):
                 (pt.step.conv_rows, 8, pt.step.mix_M)), dtype=dtype)
             kw = {"mix": pt.step.mix, "conv_mix": cm.to(want)}
         else:
-            args = (pt.K, pt.step.bk, pt.offs, pt.step.fm)
+            args = (pt.K, pt.offs, pt.step.tab)
             plain, wrapper = bkt_corner_step_plain, bkt_corner_step
         ref = plain(S, cv, *args, **kw)
         assert len(ref) == (3 if tier == "node" else 2)
@@ -474,3 +480,193 @@ def test_spectral_header_matches_factors():
                 y[3 * mo + co] += v * s[3 * mi + ci]
             np.testing.assert_allclose(hadamard(y), M @ x, rtol=0,
                                        atol=1e-14 * np.abs(M @ x).max())
+
+
+# the thin-layer box: 131,072 elements, 10 steps
+THIN_EDGE, T_THIN = 15.625, 10
+
+
+@pytest.fixture(scope="module")
+def thin(tmp_path_factory):
+    sim = box_simulation(str(tmp_path_factory.mktemp("thin")), THIN_EDGE,
+                         steps=T_THIN, damping="bkt", layers=THIN_Q_LAYERS,
+                         freq=four_q_freq(THIN_EDGE))
+    return (sim, build_plan(sim.mesh), jax_assemble(sim.mesh, sim.params),
+            jax_build_plan(sim.mesh))
+
+
+def test_thin_layers_pick_the_corner_tier(thin, monkeypatch):
+    """The thin-layer box is one brick with four Q sets whose mixed
+    elements exceed NODEQ_MAX_MIXED (25 %) of the valid ones, so the
+    port's bkt_step_module and the JAX tier rule both take the corner
+    tier without being forced."""
+    sim, plan, jtab, jplan = thin
+    assert sim.mesh.lenum == 131072 and len(plan.bricks) == 1
+    pt = PallasBrickTables(plan, sim.tables, dtype=torch.float64,
+                           device="cpu")
+    args = fused_bktq.nodeq_inputs(plan, sim.tables, pt.LEN)
+    _, _, mixed, sets, _ = fused_bktq.assign_bkt_node_coeffs(
+        args[0], args[-1], pt.offs)
+    share = len(mixed) / args[-1].sum()
+    assert len(sets) == 4
+    assert fused_bktq.NODEQ_MAX_MIXED < share == 31 / 32
+    mod, _ = fused_bktq.bkt_step_module(plan, sim.tables, pt.LEN, pt.offs,
+                                        torch.float64, "cpu")
+    assert mod.tier == pt.bkt_tier == "corner"
+    jpt = _jax_tables(jplan, jtab, monkeypatch)
+    assert _jax_tier(jpt) == "corner"
+    np.testing.assert_array_equal(
+        jpb.assign_bkt_node_coeffs(args[0], args[-1], pt.offs)[2], mixed)
+
+
+def test_thin_layers_corner_route_matches_jax(thin):
+    """Point source and 2 stations, 10 steps on the thin-layer box: the
+    port's plain corner route against JAX run_pallas_solver (its corner
+    kernel in interpret mode) at 2e-13 max|u| and 2e-13 max(|samples|,
+    1), the memory variables at 2e-12 of their max; the padding stays
+    zero."""
+    sim, plan, jtab, jplan = thin
+    st, dt, N = sim.stations, sim.params.delta_t, sim.mesh.nnum
+    (u, _, conv), samp = run_pallas_solver(
+        plan, sim.tables, sim.src_ids, sim.src_forces, T_THIN, dt,
+        st_nodes=st.nodes, st_phi=st.phi, dtype=torch.float64, device="cpu")
+    nb = plan.bricks[0].nb
+    assert conv.shape[0] == 96
+    assert not u[:, nb:].any() and not conv[:, nb:].any()
+    state_p, samp_p = jpb.run_pallas_solver(
+        jplan, jtab, sim.src_ids, sim.src_forces, T_THIN, dt,
+        st_nodes=st.nodes, st_phi=st.phi, dtype=jnp.float64, interpret=True)
+    _close(pallas_u_global(plan, u, N),
+           jpb.pallas_u_global(jplan, state_p[0], N), 2e-13, "u")
+    np.testing.assert_allclose(samp, np.asarray(samp_p), rtol=0,
+                               atol=2e-13 * max(np.abs(samp_p).max(), 1))
+    (ref,) = conv_from_jax(tuple(state_p[2:]), plan)
+    _close(conv.numpy(), ref, 2e-12, "memory variables")
+
+
+def _hadamard_cols(x):
+    """The 8-corner butterflies (hadamard8_stages) of x [24, E], rows
+    3 j + c, as bkt_tile.cuh:hadamard8 runs them per element."""
+    from hercules_tpu_torch.physics.kmats import hadamard8_stages
+    x = x.copy()
+    for stage in hadamard8_stages():
+        for j, h in stage:
+            if j < h:
+                lo, hi = x[3 * j:3 * j + 3].copy(), x[3 * h:3 * h + 3].copy()
+                x[3 * j:3 * j + 3], x[3 * h:3 * h + 3] = lo + hi, lo - hi
+    return x
+
+
+@pytest.mark.parametrize("shear_only", [True, False],
+                         ids=["shear_only", "kappa"])
+def test_spectral_force_on_element_vectors(shear_only):
+    """K4 forms each element's force from its own corner-basis damping
+    vectors X = [dvs; dvk] [48, E] (not from node-gathered ones) in the
+    spectral form of bkt_tile.cuh:element_force_spectral: the
+    butterflies of dvs and dvk, a multiply-add per nonzero of the
+    header's lists, mu_f and kappa_f, the inverse butterflies.  On random
+    per-element vectors and scales it equals the plain version's
+    bkt_fm() @ [mu_f dvs; kappa_f dvk] within 1e-14 of the result's max
+    (float64), shear-only (dvk = u) and with kappa."""
+    rng = np.random.default_rng(17)
+    E = 64
+    dvs = rng.standard_normal((24, E))
+    dvk = rng.standard_normal((24, E))       # u when shear-only
+    mu, ka = rng.uniform(0.5, 2.0, E), rng.uniform(0.5, 2.0, E)
+    if shear_only:
+        ka = ka * 1e-3                       # a small bulk term on u
+    want = fused_bktq.bkt_fm() @ np.concatenate([dvs * mu, dvk * ka])
+    xs, xk = _hadamard_cols(dvs), _hadamard_cols(dvk)
+    ym, yk = np.zeros((24, E)), np.zeros((24, E))
+    mu_list, kappa_list = _spectral_header()
+    for y, x, ents in ((ym, xs, mu_list), (yk, xk, kappa_list)):
+        for mo, co, mi, ci, v in ents:
+            y[3 * mo + co] += v * x[3 * mi + ci]
+    got = _hadamard_cols(mu * ym + ka * yk)
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-14 * np.abs(want).max())
+
+
+def _corner_args(dtype=torch.float32, conv_dtype=torch.bfloat16, R=96,
+                 LEN=3072):
+    """Arguments K4's check_args takes, on the CPU: the 2048-element
+    box's grid."""
+    offs = (0, 1, 17, 18, 289, 290, 306, 307)
+    z = lambda *shape, dt=dtype: torch.zeros(shape, dtype=dt)
+    S, K, tab = z(8, LEN), z(8, LEN), z(k4.TAB_SIZE)
+    conv = z(R, LEN, dt=conv_dtype)
+    return dict(S=S, conv=conv, K=K, offs=offs, tab=tab,
+                out=torch.empty_like(S), conv_out=torch.empty_like(conv))
+
+
+REFUSALS = {
+    "device": (lambda a: a, ValueError, "no kernel for device cpu"),
+    "types": (lambda a: {**a, "conv": a["conv"].float(),
+                         "conv_out": a["conv_out"].float()},
+              TypeError, "working type"),
+    "rows": (lambda a: {**a, "conv": a["conv"][:24].contiguous()},
+             ValueError, "conv has 24 rows"),
+    "table": (lambda a: {**a, "tab": a["tab"][:-9]}, ValueError,
+              "tab must be a contiguous"),
+    "shape": (lambda a: {**a, "K": torch.zeros(8, 3000)}, ValueError,
+              "K must be a contiguous"),
+    "contiguous": (lambda a: {**a, "K": torch.zeros(3072, 8).t()},
+                   ValueError, "K must be a contiguous"),
+    "aliasing": (lambda a: {**a, "out": a["S"]}, ValueError,
+                 "must not alias"),
+    "offsets": (lambda a: {**a, "offs": (0, 1, 17, 18, 289, 290, 306, 308)},
+                ValueError, "brick's node grid"),
+}
+
+
+@pytest.mark.parametrize("what", sorted(REFUSALS))
+def test_corner_wrapper_refusals(what, monkeypatch):
+    """K4's checks (no element-force scratch among its arguments) refuse
+    a tensor on a device without the kernel, a (working, storage) type
+    pair it has no entry for, a conv of other than 48 or 96 rows, a
+    coefficient table of the wrong size, a wrong shape, a non-contiguous
+    tensor, an output that aliases its input, and corner offsets that
+    are not a brick's.  CPU tensors reach
+    every refusal after the first with the kernel's device set to the
+    CPU; the same arguments, made right, pass the checks."""
+    edit, err, match = REFUSALS[what]
+    args = _corner_args()
+    if what != "device":
+        monkeypatch.setattr(k4, "KERNEL_DEVICE", "cpu")
+        assert k4.check_args("k4", **args) == "f32_bf16"
+        assert k4.check_args("k4", **_corner_args(
+            torch.float64, torch.float64, R=48)) == "f64_f64"
+    with pytest.raises(err, match=match):
+        k4.check_args("k4", **edit(args))
+
+
+def test_corner_sets_give_back_the_element_rows(case):
+    """The corner tier keeps each channel's distinct coefficient rows
+    and an index per element column into them (K rows 6 and 7) beside
+    mu_f and kappa_f (rows 4 and 5): every element column's rows come
+    back exactly (zero at padding and invalid elements), one table per
+    channel (none for kappa when shear-only), each of at most
+    CORNER_SETS sets; corner_tab refuses more."""
+    from hercules_tpu_torch.solver.fused_bkt import bk_row_names
+    name, sim, plan, _, _ = case
+    pt = PallasBrickTables(plan, sim.tables, dtype=torch.float64,
+                           bkt_tier="corner", device="cpu")
+    so = pt.step.shear_only
+    assert so == (name == "two_shear")
+    K, shear_sets, kappa_sets = fused_bktq.corner_tables(plan, sim.tables,
+                                                         pt.LEN)
+    assert (kappa_sets is None) == so
+    assert 1 < len(shear_sets) <= 19 and (so or len(kappa_sets) <= 19)
+    np.testing.assert_array_equal(pt.step.K.numpy(), K)
+    E = pt.LEN - pt.offs[7]
+    rows = fused_bktq._element_rows(plan, sim.tables, bk_row_names(so),
+                                    pt.LEN)
+    got = k4.corner_rows(pt.step.K, pt.step.tab, E, not so).numpy()
+    np.testing.assert_array_equal(got, rows[:, :E])
+    fm, table = k4.unpack_corner_tab(pt.step.tab)
+    np.testing.assert_array_equal(fm.numpy(), fused_bktq.bkt_fm())
+    assert not table[0, len(shear_sets):].any() and (
+        not table[1].any() if so else not table[1, len(kappa_sets):].any())
+    with pytest.raises(ValueError, match="coefficient sets"):
+        k4.corner_tab(fm, torch.zeros((k4.CORNER_SETS + 1, 9),
+                                      dtype=torch.float64))

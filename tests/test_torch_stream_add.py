@@ -87,24 +87,29 @@ def test_probe_shape():
     assert k7.bound_by == "bytes"
 
 
-# (kernel, its arguments, rows x LEN x 4 B the kernel streams per step:
-# the hand counts of the timings so far, and its operations per element
-# and per column: the spectral force (330 elastic, 426 BKT), W (72),
-# the update (15), the recursion (3 x (1 + 16 per pair)), K3's set
-# scaling (24), K4's corner recursion (48 + 24 x 16 per pair)).  K1's
-# tile march reads S 6 and K 3 (c1, c2, beta) for the planes and the
-# element force, K 4 and S 6:8 for the update (u and u- from shared
-# memory) and writes S' 8.  K2 and K3 stream no dv since their force
-# passes moved into their one launch: K2 reads S 6, K 1 (force), S 8
-# and K 4 (update), writes S' 8 and moves conv 6 rows in and out.
+# (kernel, its arguments, (rows, halo rows) x LEN x 4 B the kernel
+# streams per step: the hand counts of the timings so far, the halo rows
+# read CORNER_HALO times; and its operations per element and per column:
+# the spectral force (330 elastic, 426 BKT), W (72), the update (15),
+# the recursion (3 x (1 + 16 per pair)), K3's set scaling (24), K4's
+# corner recursion (48 + 24 x 16 per pair)).  K1's tile march reads S 6
+# and K 3 (c1, c2, beta) for the planes and the element force, K 4 and
+# S 6:8 for the update (u and u- from shared memory) and writes S' 8.
+# K2 and K3 stream no dv since their force passes moved into their one
+# launch: K2 reads S 6, K 1 (force), S 8 and K 4 (update), writes S' 8
+# and moves conv 6 rows in and out.  K4 streams no element force since
+# its two passes became one launch: it reads S 6 (planes), S 8 and K 4
+# (update), writes S' 8 and conv' (96 bfloat16 = 48 rows), and reads
+# its element rows of K (mu_f, kappa_f, two set indices: 4) and conv
+# (48) with its halo elements'.
 HAND_COUNTS = [
-    ("brick_step", {}, 23, 330 + 72, 15),
-    ("bkt_step", dict(conv_rows=6, conv_dtype=torch.float32), 39, 426,
+    ("brick_step", {}, (23, 0), 330 + 72, 15),
+    ("bkt_step", dict(conv_rows=6, conv_dtype=torch.float32), (39, 0), 426,
      15 + 3 * 17),
-    ("bkt_node_step", dict(conv_rows=12, conv_dtype=torch.bfloat16), 41,
-     426 + 24, 15 + 3 * 33),
-    ("bkt_corner_step", dict(conv_rows=96, conv_dtype=torch.bfloat16,
-                             bk_rows=20), 190, 426 + 48 + 24 * 16 * 2, 15)]
+    ("bkt_node_step", dict(conv_rows=12, conv_dtype=torch.bfloat16),
+     (41, 0), 426 + 24, 15 + 3 * 33),
+    ("bkt_corner_step", dict(conv_rows=96, conv_dtype=torch.bfloat16),
+     (74, 52), 426 + 48 + 24 * 16 * 2, 15)]
 # K3 with the four-layer box's mixed set at 2^20 elements: conv_mix in
 # and out (2 x 12 x 8 bfloat16 values) and the 18 recursion rows in
 # float32; the membership as M int32 columns (the function) or an int32
@@ -120,7 +125,9 @@ MIXED_FLOP = MIXED * 8 * 3 * 33
 def test_roofline_hand_counts(name, kw, rows, per_element, per_column):
     L, E = 1082368, 1 << 20
     c = roofline.kernel_cost(name, L, E, **kw)
-    assert c.moved == rows * L * 4
+    plain, halo = rows
+    assert c.moved == plain * L * 4 + (roofline.CORNER_HALO * (halo * L * 4)
+                                       if halo else 0)
     # the function's own bytes never exceed the kernel's traffic
     assert 0 < c.bytes < c.moved
     assert c.flop == per_element * E + per_column * L
@@ -220,7 +227,5 @@ def test_route_costs_of_tables(tmp_path):
         if pt.bkt_tier is not None:
             kw = dict(conv_rows=pt.step.conv_rows,
                       conv_dtype=pt.step.conv_dtype)
-        if pt.bkt_tier == "corner":
-            kw["bk_rows"] = pt.step.bk.shape[0]
         assert costs[names[0]] == roofline.kernel_cost(
             names[0], pt.LEN, sim.mesh.lenum, **kw)

@@ -21,6 +21,8 @@ from hercules_tpu.solver import pallas_brick as jpb
 from hercules_tpu_torch.fixtures import (FOUR_Q_LAYERS, SOFT_FREQ,
                                          TWO_LAYERS, box_simulation,
                                          box_stats, four_q_freq)
+from hercules_tpu_torch.kernels.bkt_corner_step import (corner_rows,
+                                                       unpack_corner_tab)
 from hercules_tpu_torch.kernels.bkt_node_step import unpack_tab
 from hercules_tpu_torch.solver.assemble import assemble
 from hercules_tpu_torch.solver.bricks import build_plan
@@ -144,9 +146,10 @@ def layered(request, tmp_path_factory):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_bkt_tier_tables_match_jax(layered, dtype, monkeypatch):
     """The node tier's K, fm and sets (two-layer box) and the corner
-    tier's K, bk, fm and conv shape and type (four-layer box) equal the
-    JAX PallasBrickTables' and its kernel factories' (unpermuted fm:
-    HT_BKT_ALIGN8=0; unsplit sets: HT_BKT_CF3=0)."""
+    tier's K, element rows (bk, from its set indices), fm and conv shape
+    and type (four-layer box) equal the JAX PallasBrickTables' and its
+    kernel factories' (unpermuted fm: HT_BKT_ALIGN8=0; unsplit sets:
+    HT_BKT_CF3=0)."""
     monkeypatch.setenv("HT_BKT_ALIGN8", "0")
     monkeypatch.setenv("HT_BKT_CF3", "0")
     sim, tier = layered
@@ -173,18 +176,21 @@ def test_bkt_tier_tables_match_jax(layered, dtype, monkeypatch):
                                       np.asarray(sets_j))
         assert not sets[nsets:].any()
     else:
-        K_j = np.concatenate([np.asarray(jpt.mm), np.asarray(jpt.invm),
-                              np.asarray(jpt.evalid_row)])
-        np.testing.assert_array_equal(K[:5, :nb], K_j[:, :nb])
-        assert not K[:, nb:].any() and not K[5:].any()
-        np.testing.assert_array_equal(pt.step.bk[:, :nb].numpy(),
+        K_j = np.concatenate([np.asarray(jpt.mm), np.asarray(jpt.invm)])
+        np.testing.assert_array_equal(K[:4, :nb], K_j[:, :nb])
+        assert not K[:6, nb:].any()
+        # the element rows the JAX tier keeps (bk) come back from K's
+        # set indices and mu_f, kappa_f rows, value for value
+        E = pt.LEN - pt.offs[7]
+        rows = corner_rows(pt.step.K, pt.step.tab, E, not so).numpy()
+        np.testing.assert_array_equal(rows[:, :nb],
                                       np.asarray(jpt.bk)[:, :nb])
-        assert not pt.step.bk[:, nb:].any()
+        assert not rows[:, nb:].any()
         _, fm_j = jpb._make_bkt_kernel(jpt.offs, jpt.B, jpt.o7, jpt.T, 2048,
                                        jdt, shear_only=so,
                                        conv_dtype=jpt.conv_dtype,
                                        interpret=True)
-        fm = pt.step.fm
+        fm = unpack_corner_tab(pt.step.tab)[0]
         assert pt.step.conv_rows == jpt.conv_rows
         assert pt.step.conv_dtype == {jnp.bfloat16: torch.bfloat16,
                                       jnp.float64: torch.float64}[

@@ -1,6 +1,7 @@
 """The host side of the tiled kernels (csrc/bkt_tile.cuh): the (tile,
 slab) work items of make_geom own every node column exactly once, with
-K1's and K2's 8-plane slabs and with the chunk kernels' deeper ones; the
+K1's and K2's 8-plane slabs, with the chunk kernels' deeper ones and
+with K4's slab rule (kernels/tiles.py:corner_grid); the
 wrappers refuse corner offsets that are not a brick's; the chunk
 kernels' per-tile source lists (kernels/tiles.py) hold every source
 once, in source order, and are made from src_pos's values, never from
@@ -72,8 +73,18 @@ def owned(offs, LEN, slab, item):
 
 
 # slab depths: K1's, K2's and K3's kSlab, the chunk kernels' at 2^20 elements in float32 (3
-# blocks per SM on 132 SMs) and in float64 (2), and one plane
-SLABS = (8, 17, 33, 1)
+# blocks per SM on 132 SMs) and in float64 (2), one plane, and K4's rule
+# (corner_grid) for its resident blocks on an H100 in float32 (two per
+# SM: 264) and in float64 (one per SM: 132).  K4 stores each element
+# column's memory variables where it owns the element's lowest corner,
+# the node column of the same index, so these items also store every
+# element column exactly once.
+SLABS = (8, 17, 33, 1, "corner 264", "corner 132")
+# K4's (slab, work items) by grid and resident blocks: one plane on the
+# small grids, two at 2^20 elements
+CORNER_GRIDS = {("2^20", 264): (2, 3135), ("2^20", 132): (2, 3135),
+                ("2048", 264): (1, 33), ("2048", 132): (1, 33),
+                ("odd", 264): (1, 24), ("odd", 132): (1, 24)}
 
 
 @pytest.mark.parametrize("slab", SLABS)
@@ -83,10 +94,14 @@ def test_items_partition_the_columns(grid, slab):
     nb = nx * ny * nz
     LEN = pallas_geometry(nb)
     assert tiles.brick_strides(offs) == (nx, nx * ny)
+    if isinstance(slab, str):
+        resident = int(slab.split()[1])
+        slab, n_items = tiles.corner_grid(offs, LEN, resident)
+        assert (slab, n_items) == CORNER_GRIDS[(grid, resident)]
     n_items = items(offs, LEN, slab)
     if grid == "2^20":
         assert LEN == 1082368
-        assert n_items == {8: 855, 17: 380, 33: 190, 1: 6270}[slab]
+        assert n_items == {8: 855, 17: 380, 33: 190, 1: 6270, 2: 3135}[slab]
     tiles_n = np.prod(tiles.tile_counts(offs))
     got = [owned(offs, LEN, slab, i) for i in range(n_items)]
     cols = np.concatenate(got)

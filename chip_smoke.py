@@ -91,16 +91,54 @@ JSON line {"phase": ...}:
 13. accuracy_bktq -- the four-layer box at 15.625 m (131,072 elements),
               200 steps: the float32 CUDA stations within 1e-2 relative
               of the node route on the plain versions in float64.
-14. k7     -- stream_add (K7), out of place and aliased (out is a),
+14. k_mesh -- K1, K2, K3 and K4 (each brick's step module, as the
+              mesh route builds it, or forced to the node and the
+              corner tier) against their plain versions from random
+              states on every brick of the graded plans: the 62.5 m
+              GRADED_LAYERS plan (bricks of 867, 162 and 50 nodes) with
+              Rayleigh damping and BKT, and its GRADED_Q_LAYERS variant
+              (the corner tier by the rule, mixed elements; forced to the
+              node tier); the 3.90625 m GRADED_LAYERS plan (2,424,832
+              elements, three bricks with the reordered storage axes
+              (1, 2, 0)), K3 and K4 forced on its fine brick; every
+              brick of the plans main_mesh_small drives, on the tier the
+              rule gives it: GRADED_Q_LAYERS and GRADED_THIN_LAYERS at
+              7.8125 m (their fine brick, 282,897 nodes with mixed
+              elements, on K3 and on K4) and the TeraShake copy's brick
+              (K1); 40 steps in float64 (S and the memory variables
+              within 2e-13 of their max) and 20 in float32 (1e-4; 1e-3
+              on bfloat16 memory variables, 5e-3 on those of
+              main_mesh_small's bricks, as phases k3 and k4 hold K3 and
+              K4 on mixed bricks).  Padding stays zero.
+15. main_mesh -- the graded main path through the CLI: GRADED_LAYERS at
+              3.90625 m, 400 steps, 5 stations, with Rayleigh damping
+              and with BKT, float32 and float64 (route cuda_mesh; every
+              launch counter set to 0 just before each run and read just
+              after, each kernel launched bricks-on-its-tier x steps
+              times; stations finite and non-zero, float32 within 1e-2
+              of float64).  main_mesh_small: Simulation.run in both
+              types on GRADED_Q_LAYERS and GRADED_THIN_LAYERS at 7.8125 m
+              (the node tier, K3, and the corner tier, K4, on their fine
+              bricks) and on the TeraShake copy (one brick and 9,216
+              loose elements, 200 steps): route cuda_mesh, the same
+              launch counts, float32 within 1e-2 of float64.
+16. accuracy_mesh -- on the 3.90625 m plan in float64, from a random
+              state, 40 steps with the source: the mesh route (plane
+              reconciler, and the index epilogue) against the port's
+              plain brick solver (brickstep.run_brick_solver) on the
+              card, within 5e-12 of max|u| and of the largest sample,
+              the two reconcilers within 5e-12 of each other, each run
+              repeated bit for bit; Rayleigh and BKT.
+17. k7     -- stream_add (K7), out of place and aliased (out is a),
               against stream_add_plain on the probe's [8, 33 x 32768]
               float32 arrays: bit-identical.
-15. hbm_ceiling -- K7's main path, the probe's entry point
+18. hbm_ceiling -- K7's main path, the probe's entry point
               (hercules_tpu_torch.tools.hbm_ceiling.main), launch
               counter set to 0 just before and read just after: the
               four legs in turns (torch.add, stream_add, stream_add
               aliased, torch.add again), ms per iteration and GB/s
               beside the card's name and power limit.
-16. timing -- CUDA events, medians of >= 20 calls after warm-up, each
+19. timing -- CUDA events, medians of >= 20 calls after warm-up, each
               kernel at the shape and type of its main path's launches:
               at 2^20 elements K1 and K2 in float64 (their step routes'
               type) against their plain versions, K5 and K6 in float32
@@ -115,9 +153,18 @@ JSON line {"phase": ...}:
               table row is the thin-layer box in float32); K1 and K2 in
               float32 and K2/K6 on the soft box
               (bfloat16 memory variables, bulk attenuation on) beside
-              them.  K7's time (aliased) and torch.add's are phase 15's
-              legs.  Lone calls (synchronise, events around one call,
-              median of 60): K7 and torch.add on the probe's arrays, the
+              them; K1 and K2 at the fine brick of the 3.90625 m graded
+              plan and K3 and K4 at the fine brick of main_mesh_small's
+              Q variants (7.8125 m, the rule's tier), in both types; the
+              mesh route's step at 3.90625 m (Rayleigh and BKT, both
+              types, each reconciler in turns: plane, index, index,
+              plane): back to back and alone, its launches per step,
+              each brick's kernel by device time (a CUDA graph of its
+              launches) and their sum, and the host's share of the
+              step.  K7's time (aliased)
+              and torch.add's are phase 18's legs.  Lone calls
+              (synchronise, events around one call, median of 60): K7
+              and torch.add on the probe's arrays, the
               K1, K2 and K3 route steps (sampling + step + sources) at
               2^20 in float32, and K4 on the 2048-element box in both
               types; the host's microseconds per call of K7 and
@@ -129,9 +176,10 @@ JSON line {"phase": ...}:
               their state fits the 50 MB L2, not at 2^20) and what
               sets it, the share of the bound its time reaches, its
               traffic's share of the measured aliased stream ceiling
-              (phase 15), its launches on its main path, the time it
-              loses there (launches x steps per launch x (time - bound),
-              per type), and the library call's time where one PyTorch
+              (phase 18), its launches on its main paths (the graded
+              path's included), the time it loses there (launches x
+              steps per launch x (time - bound), per type and timed
+              shape), and the library call's time where one PyTorch
               call computes the same function (K7: torch.add); K5's
               step beside the K1 route step and K6's beside the K2
               route step (float32, back to back), the routing rule's
@@ -148,6 +196,8 @@ matmuls disabled (torch.backends.cuda.matmul.allow_tf32 = False).
 from __future__ import annotations
 
 import contextlib
+import copy
+import dataclasses
 import io
 import json
 import os
@@ -210,10 +260,10 @@ def main():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from hercules_tpu_torch.fixtures import (FOUR_Q_LAYERS, SOFT_FREQ,
-                                             SOFT_LAYERS, THIN_Q_LAYERS,
-                                             TWO_LAYERS, box_dt, box_stats,
-                                             four_q_freq, write_box_case)
+    from hercules_tpu_torch.fixtures import (
+        FOUR_Q_LAYERS, GRADED_LAYERS, GRADED_Q_LAYERS, GRADED_THIN_LAYERS,
+        SOFT_FREQ, SOFT_LAYERS, THIN_Q_LAYERS, TWO_LAYERS, box_stats,
+        four_q_freq, terashake_case, write_box_case)
     from hercules_tpu_torch.kernels import build, tiles
     from hercules_tpu_torch.kernels.bkt_chunk import (bkt_chunk,
                                                       bkt_chunk_plain)
@@ -229,7 +279,10 @@ def main():
                                                        brick_step_plain)
     from hercules_tpu_torch.kernels.stream_add import (stream_add,
                                                        stream_add_plain)
+    from hercules_tpu_torch.convert import mesh_state_from_jax
     from hercules_tpu_torch.sim import Simulation
+    from hercules_tpu_torch.solver import brickstep, fused_mesh
+    from hercules_tpu_torch.solver.assemble import assemble
     from hercules_tpu_torch.solver.bricks import build_plan
     from hercules_tpu_torch.solver.fused_brick import (
         PallasBrickTables, pallas_geometry, run_pallas_solver,
@@ -247,6 +300,7 @@ def main():
     work = tempfile.mkdtemp(prefix="smoke_", dir=os.path.join(ROOT, "build"))
     rng = np.random.default_rng(20261016)
     f32, f64 = torch.float32, torch.float64
+    dts = {"float32": f32, "float64": f64}
     kern = {}
 
     def box(edge, steps, n_st, name, **case):
@@ -496,15 +550,17 @@ def main():
         counters = (brick_step, brick_chunk, bkt_step, bkt_chunk,
                     bkt_node_step, bkt_corner_step)
 
-        def main_path(phase, routes, kernels, edge=7.8125, tag="", **case):
+        def main_path(phase, routes, kernels, edge=7.8125, tag="",
+                      mesh=None, **case):
             """The CLI on the box at ``edge`` (2^20 elements by default),
             400 steps, 5 stations, float32 then float64; every launch
             counter set to 0 just before each run and read just after.
             ``tag`` names the run's directories and logs beside the
-            phase's.  Returns the launches of both runs, and of each run
-            (``by_type``, under "float32" and "float64")."""
-            E, N = box_stats(edge)
-            dt_b = box_dt(edge)
+            phase's; ``mesh`` the (elements, nodes) of a graded case
+            (box_stats gives the uniform box's).  Returns the launches of
+            both runs, and of each run (``by_type``, under "float32" and
+            "float64")."""
+            E, N = box_stats(edge) if mesh is None else mesh
             runs = {}
             by_type = {}
             for dname in ("float32", "float64"):
@@ -524,6 +580,11 @@ def main():
                           "w") as f:
                     f.write(out.getvalue())
                 require(rc == 0, f"CLI exit code {rc}")
+                # the time step the run took, from its numerical.in
+                with open(nu) as f:
+                    dt_run = float(re.search(
+                        r"^simulation_delta_time_sec\s*=\s*(\S+)",
+                        f.read(), re.M).group(1))
                 spent = {k: GLOBAL_TIMERS.value(k) - before[k]
                          for k in parts}
                 rundir = os.path.dirname(os.path.dirname(ph))
@@ -534,7 +595,7 @@ def main():
                     rundir, "stations", f"station.{i}"), skiprows=1)
                     for i in range(5)])
                 by_type[dname] = {c.__name__: c.launches for c in counters}
-                runs[dname] = (path, st, spent)
+                runs[dname] = (path, st, spent, dt_run)
             launches = {k: by_type["float32"][k] + by_type["float64"][k]
                         for k in by_type["float32"]}
             launches["by_type"] = by_type
@@ -549,7 +610,7 @@ def main():
                                "element_updates_per_s":
                                    E * 400 / runs[d][2]["Solver"],
                                "wall_s_per_sim_s":
-                                   runs[d][2]["Solver"] / (400 * dt_b),
+                                   runs[d][2]["Solver"] / (400 * runs[d][3]),
                                "loop_element_updates_per_s":
                                    E * 400 / runs[d][2]["Solver time loop"]}
                            for d in runs},
@@ -870,7 +931,309 @@ def main():
               "station_rel_err": acc, "bound": 1e-2})
         require(acc <= 1e-2, f"node-tier f32 stations vs f64 plain: {acc}")
 
-        # ---- 14. K7 against its plain version ------------------------
+        # ---- 14. K1-K4 on the bricks of the graded plans ---------------
+        def with_damping(sim, damping):
+            """sim on the same mesh with ``damping``'s tables."""
+            p2 = copy.copy(sim.params)
+            p2.type_of_damping = damping
+            return dataclasses.replace(sim, params=p2,
+                                       tables=assemble(sim.mesh, p2))
+
+        def graded(edge, layers=GRADED_LAYERS, **kw):
+            return dict(layers=layers, freq=four_q_freq(edge), **kw)
+
+        names = ("out", "conv_out", "conv_mix_out")
+
+        def kernel_step(mod, parts, spare):
+            """One launch of a brick's step module into spare."""
+            if getattr(mod, "tier", None) is None:
+                return [mod(parts[0], out=spare[0])]
+            return list(mod(*parts, **dict(zip(names, spare))))
+
+        def plain_step(mod, parts):
+            """The same step on the module's plain version."""
+            tier = getattr(mod, "tier", None)
+            if tier is None:
+                return [brick_step_plain(parts[0], mod.K, mod.offs,
+                                         mod.ops)]
+            if tier == "uniform":
+                return list(bkt_step_plain(*parts[:2], mod.K, mod.offs,
+                                           mod.scales, mod.rec))
+            if tier == "node":
+                return list(bkt_node_step_plain(*parts[:2], mod.K,
+                                                mod.offs, mod.tab, mod.mix,
+                                                *parts[2:]))
+            return list(bkt_corner_step_plain(*parts[:2], mod.K, mod.offs,
+                                              mod.tab))
+
+        def random_parts(mod, LEN, nb, dtype):
+            """S ~ random_state's on the brick's nb columns, then the
+            tier's memory variables ~ 1e-3 N(0, 1) there, in the
+            storage type."""
+            S = np.zeros((8, LEN))
+            u = 1e-3 * rng.standard_normal((3, nb))
+            S[0:3, :nb] = u
+            S[3:6, :nb] = u - 1e-4 * rng.standard_normal((3, nb))
+            parts = [torch.as_tensor(S, dtype=dtype, device=dev)]
+            shapes = ([] if getattr(mod, "tier", None) is None
+                      else mod.state_parts(LEN))
+            for shape, dt in shapes:
+                x = np.zeros(shape)
+                if len(shape) == 2:
+                    x[:, :nb] = 1e-3 * rng.standard_normal((shape[0], nb))
+                else:
+                    x[:] = 1e-3 * rng.standard_normal(shape)
+                parts.append(torch.as_tensor(x, dtype=dtype,
+                                             device=dev).to(dt))
+            return parts
+
+        sim_g62, plan_g62, _ = box(62.5, 40, 5, "graded62", **graded(62.5))
+        sim_g62b = with_damping(sim_g62, "bkt")
+        sim_q62, plan_q62, _ = box(62.5, 40, 5, "graded_q62",
+                                   **graded(62.5, GRADED_Q_LAYERS,
+                                            damping="bkt"))
+        require([b.nb for b in plan_g62.bricks] == [867, 162, 50],
+                f"62.5 m plan {[b.nb for b in plan_g62.bricks]}")
+        t0 = time.perf_counter()
+        sim_g4, plan_g4, _ = box(3.90625, 400, 5, "graded4",
+                                 **graded(3.90625))
+        sim_g4b = with_damping(sim_g4, "bkt")
+        setup_g4_s = time.perf_counter() - t0
+        E4, N4 = sim_g4.mesh.lenum, sim_g4.mesh.nnum
+        require(E4 == 2424832 and len(plan_g4.bricks) == 3
+                and not len(plan_g4.loose_eidx)
+                and all(b.axes == (1, 2, 0) for b in plan_g4.bricks),
+                f"3.90625 m plan: {E4} elements, "
+                f"{[(b.nb, b.axes) for b in plan_g4.bricks]}")
+        fine4 = int(np.argmax([b.nb for b in plan_g4.bricks]))
+        # the plans main_mesh_small drives through Simulation.run: the
+        # two Q variants at 7.8125 m (the node tier, K3, and the corner
+        # tier, K4, on the fine brick by the rule, mixed elements
+        # included) and the TeraShake copy (one brick, K1); label ->
+        # (sim, plan, tiers by the rule)
+        tera = terashake_case(os.path.join(work, "tera"))
+        sim_q7 = box(7.8125, 400, 5, "graded_q7", **graded(
+            7.8125, GRADED_Q_LAYERS, damping="bkt"))[0]
+        sim_t7 = box(7.8125, 400, 5, "graded_thin7", **graded(
+            7.8125, GRADED_THIN_LAYERS, damping="bkt"))[0]
+        sim_ts = Simulation.setup(tera[1], tera[2], tera[0])
+        small = {label: (sim, build_plan(sim.mesh), tiers)
+                 for label, sim, tiers in (
+                     ("graded_q_7.8125", sim_q7,
+                      ("uniform", "uniform", "node")),
+                     ("graded_thin_7.8125", sim_t7,
+                      ("uniform", "uniform", "corner")),
+                     ("terashake", sim_ts, ("elastic",)))}
+        # (label, sim, plan, bricks, forced tier, type, steps, bound on S,
+        # bound on the memory variables): every brick of the 62.5 m plan
+        # (867, 162 and 50 nodes) on each kernel, K3 and K4 forced on the
+        # uniform ones; the reordered bricks of the 3.90625 m plan, K3 and
+        # K4 forced on its fine brick (2,179,617 nodes); every brick of
+        # main_mesh_small's plans on the tier the rule gives it
+        every62 = range(len(plan_g62.bricks))
+        every4 = range(len(plan_g4.bricks))
+        kcases = []
+        for dtype, steps, bound, mbound in ((f64, 40, 2e-13, 2e-13),
+                                            (f32, 20, 1e-4, 1e-3)):
+            these = [
+                ("graded62", sim_g62, plan_g62, every62, None),
+                ("graded62", sim_g62b, plan_g62, every62, None),
+                ("graded62", sim_g62b, plan_g62, every62, "node"),
+                ("graded62", sim_g62b, plan_g62, every62, "corner"),
+                ("graded_q62", sim_q62, plan_q62, every62, None),
+                ("graded_q62", sim_q62, plan_q62, (0,), "node"),
+                ("graded4", sim_g4, plan_g4, every4, None),
+                ("graded4", sim_g4b, plan_g4, every4, None),
+                ("graded4", sim_g4b, plan_g4, (fine4,), "node"),
+                ("graded4", sim_g4b, plan_g4, (fine4,), "corner")]
+            kcases += [c + (dtype, steps, bound, mbound) for c in these]
+            # main_mesh_small's bricks; their bfloat16 memory variables
+            # in float32 on the fine brick's mixed elements held, as in
+            # phases k3 and k4, to 5e-3 (one bfloat16 ulp is 2^-8 of a
+            # value: a rounding the kernel and the plain version take
+            # apart near the largest value exceeds 1e-3 of it)
+            kcases += [(label, sim, plan, range(len(plan.bricks)), None,
+                        dtype, steps, bound,
+                        mbound if dtype == f64 else 5e-3)
+                       for label, (sim, plan, _) in small.items()]
+        cases = []
+        mesh_err = {}
+        for label, sim, plan, bricks, tier, dtype, steps, bound, mbound \
+                in kcases:
+            for b in bricks:
+                mod, LEN = fused_mesh.brick_step_module(
+                    plan, b, sim.tables, dtype, dev, tier=tier)
+                nb = plan.bricks[b].nb
+                parts = random_parts(mod, LEN, nb, dtype)
+                kp = [x.clone() for x in parts]
+                spare = [torch.empty_like(x) for x in parts]
+                pp = [x.clone() for x in parts]
+                for _ in range(steps):
+                    new = kernel_step(mod, kp, spare)
+                    spare, kp = kp, new
+                    pp = plain_step(mod, pp)
+                torch.cuda.synchronize()
+                r, err = rel(kp[0], pp[0])
+                mem = [crel(a, c) for a, c in zip(kp[1:], pp[1:])]
+                name = {None: "brick_step", "uniform": "bkt_step",
+                        "node": "bkt_node_step",
+                        "corner": "bkt_corner_step"}[
+                    getattr(mod, "tier", None)]
+                mb = (mbound if dtype == f64 or parts[1].dtype
+                      == torch.bfloat16 else bound) if len(mem) else None
+                cases.append({"case": label, "brick": b, "nodes": nb,
+                              "axes": list(plan.bricks[b].axes),
+                              "kernel": name, "forced": tier,
+                              "damping": sim.tables.damping,
+                              "dtype": str(dtype), "steps": steps,
+                              "conv": [str(x.dtype) for x in parts[1:]],
+                              "mixed": getattr(mod, "mix_M", 0),
+                              "rel_err": r, "max_abs_err": err,
+                              "conv_rel_err": [m[0] for m in mem],
+                              "bound": bound, "conv_bound": mb})
+                require(r <= bound and all(m[0] <= mb for m in mem),
+                        f"k_mesh: {name} vs plain {cases[-1]}")
+                require(not kp[0][:, nb:].any()
+                        and not any(x[:, nb:].any() for x in kp[1:]
+                                    if x.dim() == 2),
+                        f"k_mesh: {name} moved the padding {cases[-1]}")
+                mesh_err[name] = max(mesh_err.get(name, 0.0), err)
+        emit({"phase": "k_mesh", "cases": cases, "max_abs_err": mesh_err,
+              "graded4": {"elements": E4, "nodes": N4,
+                          "setup_s": setup_g4_s,
+                          "bricks": [{"nodes": b.nb, "axes": list(b.axes),
+                                      "offsets": b.corner_offsets()}
+                                     for b in plan_g4.bricks]}})
+
+        # ---- 15. the graded main path: the CLI at 2.4 M elements -------
+        # launches per step of each damping's plan, from the tier rule
+        per_step = {
+            d: fused_mesh.MeshPallasTables(plan_g4, sim.tables, dtype=f32,
+                                           device=dev).launches_per_step()
+            for d, sim in (("rayleigh", sim_g4), ("bkt", sim_g4b))}
+        mesh_runs = {}
+        for damping, kernels in (("rayleigh", ("brick_step",)),
+                                 ("bkt", ("bkt_step",))):
+            got = main_path("main_mesh", ("cuda_mesh", "cuda_mesh"), kernels,
+                            edge=3.90625, tag=f"_{damping}", mesh=(E4, N4),
+                            **graded(3.90625, damping=damping))
+            want = {k: n * 400 for k, n in per_step[damping].items()}
+            for d in ("float32", "float64"):
+                ran = {k: v for k, v in got["by_type"][d].items() if v}
+                require(ran == want, f"main_mesh {damping} {d}: launches "
+                        f"{ran}, want bricks x steps {want}")
+            mesh_runs[damping] = got
+        # K3 and K4 on graded plans, and the TeraShake copy, through
+        # Simulation.run in both types: route cuda_mesh, each kernel
+        # launched once per step on each brick of its tier
+        small_mesh = {}
+        for label, (sim, plan, tiers) in small.items():
+            mt = fused_mesh.MeshPallasTables(plan, sim.tables, dtype=f32,
+                                             device=dev)
+            require(tuple(mt.tiers) == tiers,
+                    f"{label} tiers {mt.tiers}, want {tiers}")
+            res = {}
+            for dname in ("float32", "float64"):
+                for c in counters:
+                    c.launches = 0
+                (Ss, _, _), smp = sim.run(device=dev, dtype=dts[dname])
+                ran = {c.__name__: c.launches for c in counters
+                       if c.launches}
+                T = sim.params.total_steps
+                want = {k: n * T for k, n in mt.launches_per_step().items()}
+                require(sim.solver_path_name == "cuda_mesh",
+                        f"{label} route {sim.solver_path_name}")
+                require(ran == want, f"{label} {dname}: launches {ran}, "
+                        f"want {want}")
+                u = fused_mesh.mesh_u_global(plan, Ss, sim.mesh.nnum)
+                out = smp if smp.size else u
+                require(np.isfinite(out).all() and np.abs(out).max() > 0,
+                        f"{label} {dname}: output not finite and non-zero")
+                res[dname] = (out, ran)
+            f32_rel = float(np.abs(res["float32"][0] - res["float64"][0]
+                                   ).max() / np.abs(res["float64"][0]).max())
+            small_mesh[label] = {
+                "elements": sim.mesh.lenum, "bricks": len(plan.bricks),
+                "loose": len(plan.loose_eidx), "tiers": mt.tiers,
+                "reconciler": mt.reconciler, "steps": T,
+                "compared": "stations" if res["float64"][0].ndim == 3
+                else "displacement",
+                "f32_vs_f64_rel": f32_rel,
+                "launches": {d: res[d][1] for d in res}}
+            require(f32_rel <= 1e-2, f"{label}: float32 vs float64 "
+                    f"{f32_rel}")
+        emit({"phase": "main_mesh_small", "runs": small_mesh})
+
+        # ---- 16. accuracy: the CUDA mesh route against the brick solver
+        def u_state(seed):
+            """A random global (u, u-) pair, u ~ 1e-3 N(0, 1)."""
+            r = np.random.default_rng(seed)
+            u = 1e-3 * r.standard_normal((N4, 3))
+            return u, u - 1e-5 * r.standard_normal((N4, 3))
+
+        acc = {}
+        st4 = sim_g4.stations
+        for damping, sim in (("rayleigh", sim_g4), ("bkt", sim_g4b)):
+            u0, up0 = u_state(7)
+            g = torch.as_tensor(plan_g4.gnid_cat, device=dev)
+            ub = torch.as_tensor(u0, dtype=f64, device=dev)[g].T
+            upb = torch.as_tensor(up0, dtype=f64, device=dev)[g].T
+            conv0 = brickstep.init_brick_state(
+                brickstep.brick_meta(plan_g4), plan_g4.total_nb,
+                sim.tables.damping, f64, dev)[2]
+            run = dict(st_nodes=st4.nodes, st_phi=st4.phi, dtype=f64,
+                       device=dev)
+            args = (plan_g4, sim.tables, sim.src_ids, sim.src_forces, 40,
+                    sim.params.delta_t)
+            (ub1, _, _), s_b = brickstep.run_brick_solver(
+                *args, state=(ub.contiguous(), upb.contiguous(), conv0),
+                **run)
+            u_b = brickstep.brick_u_global(plan_g4, ub1, N4)
+            res = {}
+            state = mesh_state_from_jax((u0, up0), plan_g4)
+            for rec in ("plane", "index"):
+                mt = fused_mesh.MeshPallasTables(
+                    plan_g4, sim.tables, sim.src_ids, st4.nodes, st4.phi,
+                    f64, dev, reconciler=rec)
+                require(mt.reconciler == rec, f"reconciler {mt.reconciler}")
+                # twice: a run repeats its bits
+                for _ in range(2):
+                    (Ss, _, _), s_m = fused_mesh.run_mesh(
+                        mt, sim.src_forces, 40, sim.params.delta_t,
+                        state=state)
+                    res.setdefault(rec, []).append(
+                        ([S.clone() for S in Ss], s_m))
+            torch.cuda.synchronize()
+            scale, sscale = np.abs(u_b).max(), np.abs(s_b).max()
+            require(scale > 0 and sscale > 0, "accuracy_mesh: zero field")
+            errs = {}
+            for rec in ("plane", "index"):
+                (Ss, s_m), (Ss2, s_m2) = res[rec]
+                u_m = fused_mesh.mesh_u_global(plan_g4, Ss, N4)
+                errs[rec] = {
+                    "vs_bricks_rel": float(np.abs(u_m - u_b).max() / scale),
+                    "samples_vs_bricks_rel":
+                        float(np.abs(s_m - s_b).max() / sscale),
+                    "bit_identical_repeat": all(
+                        torch.equal(a, b) for a, b in zip(Ss, Ss2))
+                    and np.array_equal(s_m, s_m2)}
+            u_p = fused_mesh.mesh_u_global(plan_g4, res["plane"][0][0], N4)
+            u_i = fused_mesh.mesh_u_global(plan_g4, res["index"][0][0], N4)
+            errs["plane_vs_index_rel"] = float(np.abs(u_p - u_i).max()
+                                               / scale)
+            acc[damping] = errs
+            require(all(errs[r]["vs_bricks_rel"] <= 5e-12
+                        and errs[r]["samples_vs_bricks_rel"] <= 5e-12
+                        for r in ("plane", "index"))
+                    and errs["plane_vs_index_rel"] <= 5e-12,
+                    f"accuracy_mesh {damping}: {errs}")
+            require(all(errs[r]["bit_identical_repeat"]
+                        for r in ("plane", "index")),
+                    f"accuracy_mesh {damping}: a repeated run differs")
+        emit({"phase": "accuracy_mesh", "elements": E4, "steps": 40,
+              "dtype": str(f64), "bound": 5e-12, "results": acc})
+
+        # ---- 17. K7 against its plain version ------------------------
         shape7 = (8, hbm_ceiling.LEN)
         a7 = torch.as_tensor(rng.standard_normal(shape7), dtype=f32,
                              device=dev)
@@ -890,7 +1253,7 @@ def main():
         require(all(same.values()), f"K7 vs torch.add: {same}")
         kern["stream_add_err"] = err7
 
-        # ---- 15. K7's main path: the streaming-ceiling probe ---------
+        # ---- 18. K7's main path: the streaming-ceiling probe ---------
         stream_add.launches = 0
         ceiling = hbm_ceiling.main()
         k7_launches = stream_add.launches
@@ -905,7 +1268,7 @@ def main():
         t_add = min(ceiling["legs"][k]["ms_per_iteration"]
                     for k in ("torch.add", "torch.add again"))
 
-        # ---- 16. timings, each kernel at its main path's shape and type
+        # ---- 19. timings, each kernel at its main path's shape and type
         card = roofline.card()
         STEPS = 400             # the main paths' steps (K5/K6: one launch)
 
@@ -950,7 +1313,6 @@ def main():
             k2 = timed(kernel, reps, 5)
             return [k1, k2], [p1, p2]
 
-        dts = {"float32": f32, "float64": f64}
         # per (kernel, type): ms pair, plain ms pair, KernelCost
         T, P, C = {}, {}, {}
         lone_ms = {}
@@ -1105,6 +1467,101 @@ def main():
                 lone_ms[f"bkt_corner_step 2048 {dname}"] = lone(
                     k4_small[dname])
 
+        # the mesh route at 3.90625 m (2,424,832 elements, 3 bricks with
+        # reordered axes): its step back to back and alone, each brick's
+        # kernel by device time (a CUDA graph of its launches: no host
+        # work between them), and K1-K4 at the fine brick's shape
+        def graph_ms(fn, n=20, reps=10):
+            """Device ms of one fn() from a CUDA graph of n calls."""
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                for _ in range(3):
+                    fn()
+            torch.cuda.current_stream().wait_stream(side)
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g):
+                for _ in range(n):
+                    fn()
+            return timed(g.replay, reps, 2) / n
+
+        def fine_of(plan):
+            """(index, elements) of the plan's largest brick."""
+            b = int(np.argmax([x.nb for x in plan.bricks]))
+            br = plan.bricks[b]
+            return b, int(plan.evalid_cat[br.off:br.off + br.nb].sum())
+
+        def time_brick(plan, b, elems, sim, dname):
+            """Brick b's step module (the rule's tier) against its plain
+            version, into T, P and C under (kernel + "_mesh", dname);
+            returns the kernel's name."""
+            mod, LEN = fused_mesh.brick_step_module(plan, b, sim.tables,
+                                                    dts[dname], dev)
+            parts = random_parts(mod, LEN, plan.bricks[b].nb, dts[dname])
+            sp = [torch.empty_like(x) for x in parts]
+            cost = roofline.step_cost(mod, LEN, elems, dts[dname])
+            key = (f"{cost.name}_mesh", dname)
+            T[key], P[key] = twice(lambda: kernel_step(mod, parts, sp),
+                                   lambda: plain_step(mod, parts))
+            C[key] = cost
+            return cost.name
+
+        mesh_route = {}
+        _, fine_elems = fine_of(plan_g4)
+        for damping, sim in (("rayleigh", sim_g4), ("bkt", sim_g4b)):
+            for dname in ("float32", "float64"):
+                srcf1 = torch.as_tensor(
+                    sim.src_forces[0] * sim.params.delta_t ** 2,
+                    dtype=dts[dname], device=dev)
+                steps, runs = {}, {}
+                for rec in ("plane", "index"):
+                    mt = fused_mesh.MeshPallasTables(
+                        plan_g4, sim.tables, sim.src_ids, st4.nodes,
+                        st4.phi, dts[dname], dev, reconciler=rec)
+                    state = fused_mesh.fit_mesh_state(
+                        mt, mesh_state_from_jax(u_state(11), plan_g4))
+                    spare = fused_mesh.init_mesh_state(mt)
+                    step = fused_mesh.make_mesh_step(mt)
+                    steps[rec] = (lambda step=step, state=state, spare=spare:
+                                  step(state, spare, srcf1))
+                # each reconciler's step in turns: plane, index, index,
+                # plane; back to back and alone
+                for rec in ("plane", "index", "index", "plane"):
+                    runs.setdefault(rec, []).append(
+                        (timed(steps[rec], 30, 5), lone(steps[rec], 30)))
+                dev_ms = []
+                for b, mod in enumerate(mt.steps):
+                    parts = [state[0][b], *state[1][b]]
+                    sp = [spare[0][b], *spare[1][b]]
+                    dev_ms.append(graph_ms(
+                        lambda mod=mod, parts=parts, sp=sp:
+                        kernel_step(mod, parts, sp)))
+                for rec in ("plane", "index"):
+                    back = min(b_ for b_, _ in runs[rec])
+                    alone = min(a_ for _, a_ in runs[rec])
+                    mesh_route[f"{damping} {dname} {rec}"] = {
+                        "launches_per_step": mt.launches_per_step(),
+                        "kernel_device_ms": dev_ms,
+                        "kernel_device_sum_ms": sum(dev_ms),
+                        "route_ms_runs": [b_ for b_, _ in runs[rec]],
+                        "route_lone_ms_runs": [a_ for _, a_ in runs[rec]],
+                        "route_ms": back, "route_lone_ms": alone,
+                        "host_ms": alone - sum(dev_ms),
+                        "host_share": 1 - sum(dev_ms) / alone,
+                        "element_updates_per_s": E4 / (back * 1e-3)}
+                # K1 (Rayleigh) or K2 (BKT) at the fine brick
+                time_brick(plan_g4, fine4, fine_elems, sim, dname)
+        # K3 and K4 at the fine brick of the plans main_mesh_small runs
+        # them on (GRADED_Q_LAYERS and GRADED_THIN_LAYERS at 7.8125 m,
+        # the tier by the rule, mixed elements included), both types
+        for label, kname in (("graded_q_7.8125", "bkt_node_step"),
+                             ("graded_thin_7.8125", "bkt_corner_step")):
+            sim, plan, _ = small[label]
+            b, elems = fine_of(plan)
+            for dname in ("float32", "float64"):
+                got = time_brick(plan, b, elems, sim, dname)
+                require(got == kname, f"{label} fine brick runs {got}")
+
         # K7: the probe's legs; lone calls against torch.add
         key = ("stream_add", "float32")
         T[key], P[key] = [t_k7], [t_add]
@@ -1148,18 +1605,43 @@ def main():
         launches = {k: {d: v["by_type"][d][k] for d in dts}
                     for k, v in own.items()}
         launches["stream_add"] = {"float32": k7_launches, "float64": 0}
+        # and on the graded path (main_mesh, main_mesh_small), on bricks
+        # of many shapes: they count in each kernel's total, and in its
+        # time lost at the fine brick timed (main_mesh's for K1 and K2,
+        # main_mesh_small's Q variants' for K3 and K4: the _mesh entries
+        # below)
+        mesh_launches = {k: {d: sum(r["by_type"][d].get(k, 0)
+                                    for r in mesh_runs.values())
+                             + sum(r["launches"][d].get(k, 0)
+                                   for r in small_mesh.values())
+                             for d in dts} for k in launches}
+        total_launches = {k: sum(launches[k].values())
+                          + sum(mesh_launches[k].values())
+                          for k in launches}
         # K4's launches on each box of its main path (the forced box:
         # none)
         box_launches = {(f"bkt_corner_step{lb}", d): k4_by_type[b][d]
                         for lb, b in (("", "2048"),
                                       ("_2^20_thin", "2^20_thin"))
                         for d in dts}
+        # K1 and K2 at the fine brick of the 2.4 M-element plan: one
+        # launch per step of main_mesh; K3 and K4 at the fine brick of
+        # main_mesh_small's Q variants, the only brick on their tier
+        for k, damping in (("brick_step", "rayleigh"),
+                           ("bkt_step", "bkt")):
+            for d in dts:
+                box_launches[(f"{k}_mesh", d)] = \
+                    mesh_runs[damping]["by_type"][d][k] // len(plan_g4.bricks)
+        for k, label in (("bkt_node_step", "graded_q_7.8125"),
+                         ("bkt_corner_step", "graded_thin_7.8125")):
+            for d in dts:
+                box_launches[(f"{k}_mesh", d)] = \
+                    small_mesh[label]["launches"][d][k]
         per_launch = {"brick_chunk": STEPS, "bkt_chunk": STEPS}
         entries = {}
         for (k, d), c in C.items():
             t = min(T[(k, d)])
-            base = k.split("_2^20")[0]
-            n = box_launches.get((k, d), launches[base][d] if base == k
+            n = box_launches.get((k, d), launches[k][d] if k in launches
                                  else 0)
             entries[f"{k} {d}"] = {
                 "ms": t, "ms_runs": T[(k, d)], "plain_ms": min(P[(k, d)]),
@@ -1173,7 +1655,7 @@ def main():
                 "time_lost_ms": n * per_launch.get(k, 1) * (t - c.bound_ms)}
         lost = {}
         for e, v in entries.items():
-            k = e.split(" ")[0].split("_2^20")[0]
+            k = e.split(" ")[0].split("_2^20")[0].removesuffix("_mesh")
             lost[k] = lost.get(k, 0.0) + v["time_lost_ms"]
         # the row of each kernel: the type of its main path's launches
         # (float64 for the K1 and K2 step routes, float32 otherwise; K3
@@ -1184,7 +1666,7 @@ def main():
                "bkt_step": "bkt_step float64",
                "bkt_corner_step": "bkt_corner_step_2^20_thin float32"}
         roof = {k: {**entries[row.get(k, f"{k} float32")],
-                    "launches": sum(launches[k].values()),
+                    "launches": total_launches[k],
                     "library_ms": t_add if k == "stream_add" else None}
                 for k in launches}
         # the routing rule of fused_brick.chunk_applies: K5 carries
@@ -1203,6 +1685,8 @@ def main():
                   "k2_route_step float32": route_ms["k2_route_step"]},
               "k5_step_vs_k1_route_step_ms": k5_vs_k1,
               "stream_ceiling_GBps": ceiling_GBps,
+              "mesh_route": mesh_route, "mesh_launches": mesh_launches,
+              "total_launches": total_launches,
               "element_updates_per_s": {
                   k: sim_b.mesh.lenum / (v * 1e-3)
                   for k, v in route_ms.items()}})

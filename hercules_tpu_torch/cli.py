@@ -17,7 +17,9 @@ Options:
 monitor.txt names the route that ran ("solver path: ..."): cuda_chunk
 or cuda_step (elastic), cuda_bkt_chunk or cuda_bkt_step (BKT, one Q
 set), cuda_bkt_node_step (BKT, several Q sets, node tier),
-cuda_bkt_corner_step (BKT, corner tier), torch_plain (--device=cpu).
+cuda_bkt_corner_step (BKT, corner tier) for a one-brick plan;
+cuda_mesh for a graded (multi-brick) plan, each brick on its own step
+kernel; torch_plain for either on --device=cpu.
 """
 
 from __future__ import annotations

@@ -1,10 +1,11 @@
 """Carry tables and states between the JAX package and the port.
 
-Both packages number the brick's node columns the same way (the flat
-node grid of ``plan.bricks[0]``); they differ only in the zero padding
-after the nb node columns (the JAX package pads to whole kernel tiles,
-the port to ``pallas_geometry(nb)``).  So the tests can feed the same
-tables and states to both.
+Both packages number a brick's node columns the same way (the flat
+node grid of each ``plan.bricks[b]``, then the loose node section of a
+multi-brick plan); they differ only in the zero padding after the nb
+node columns (the JAX package pads to whole kernel tiles, the port to
+``pallas_geometry(nb)``).  So the tests can feed the same tables and
+states to both.
 """
 
 from __future__ import annotations
@@ -16,12 +17,21 @@ from .solver.fused_brick import (PallasBrickTables, pallas_geometry,
                                  pallas_u_global)
 
 
-def tables_from_jax(tables, plan, dtype=torch.float32, device="cuda"):
+def tables_from_jax(tables, plan, dtype=torch.float32, device="cuda",
+                    brick=None):
     """The port's constant table K [8, LEN] (the elastic or the BKT
-    layout, by tables.damping) from the JAX package's SolverTables
-    (numpy) and a single-brick plan, on ``device`` (the CUDA device
-    unless the caller asks for the CPU)."""
-    return PallasBrickTables(plan, tables, dtype=dtype, device=device).K
+    layout, by tables.damping and the brick's BKT tier) from the JAX
+    package's SolverTables (numpy) and a plan, on ``device`` (the CUDA
+    device unless the caller asks for the CPU): the plan's one brick,
+    or with ``brick`` given, that brick of a multi-brick plan as the
+    mesh route builds it (fused_mesh.MeshPallasTables)."""
+    if brick is None:
+        return PallasBrickTables(plan, tables, dtype=dtype,
+                                 device=device).K
+    from .solver.fused_brick import solver_device
+    from .solver.fused_mesh import brick_step_module
+    return brick_step_module(plan, brick, tables, dtype,
+                             solver_device(device))[0].K
 
 
 def state_from_jax(S_np, plan):
@@ -78,3 +88,43 @@ def state_to_global(S, plan, N):
     package (rows 0:3 = u, columns = brick nodes then padding)."""
     return pallas_u_global(plan, np.asarray(torch.as_tensor(S).cpu())[0:3],
                            N)
+
+
+def mesh_state_from_jax(carry, plan):
+    """The port's mesh state (Ss, (), ()) -- S [8, LEN_b] for every brick
+    and [8, NL] for the loose section, numpy, memory variables left at
+    zero (fused_mesh.fit_mesh_state) -- from the JAX package's mesh
+    carry: packed ((S_0, ..., S_loose), ...) with S [8, *], legacy (us,
+    ups, conv) with [3, *] entries, or a pair (u, up) of global [N, 3]
+    displacement fields."""
+    NB = len(plan.bricks)
+    off_loose = plan.bricks[-1].off + plan.bricks[-1].nb if NB else 0
+    NL = plan.total_nb - off_loose
+    spans = [(b.off, b.nb, pallas_geometry(b.nb)) for b in plan.bricks]
+    spans.append((off_loose, NL, NL))
+    if not isinstance(carry[0], (tuple, list)):          # global pair
+        u, up = (np.asarray(x) for x in carry)
+        pairs = [(u[plan.gnid_cat[o:o + n]].T, up[plan.gnid_cat[o:o + n]].T)
+                 for o, n, _ in spans]
+    elif np.shape(carry[0][0])[0] == 8:                  # packed
+        pairs = [(np.asarray(S)[0:3], np.asarray(S)[3:6]) for S in carry[0]]
+    else:                                                # legacy
+        pairs = [(np.asarray(u), np.asarray(up))
+                 for u, up in zip(carry[0], carry[1])]
+    if len(pairs) != NB + 1:
+        raise ValueError(f"{len(pairs)} arrays, the plan has {NB} bricks "
+                         f"and the loose section")
+    Ss = []
+    for (o, n, LEN), (u, up) in zip(spans, pairs):
+        S = np.zeros((8, LEN), u.dtype)
+        S[0:3, :n] = u[:, :n]
+        S[3:6, :n] = up[:, :n]
+        Ss.append(S)
+    return (tuple(Ss), (), ())
+
+
+def mesh_state_to_global(Ss, plan, N):
+    """Global [N, 3] displacement u from the S arrays of a mesh state of
+    either package (rows 0:3 = u)."""
+    from .solver.fused_mesh import mesh_u_global
+    return mesh_u_global(plan, Ss, N)

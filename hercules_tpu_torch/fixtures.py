@@ -27,6 +27,37 @@ the elements are mixed and the tier rule picks the corner tier (K4); at
 ``use_infinite_qk=True`` turns the bulk attenuation off (shear-only
 BKT) on any layer table.
 
+The graded fixtures (at ``freq=four_q_freq(edge_m)``) are multi-brick
+plans.  ``GRADED_LAYERS`` (Vs 600, 1500 and 2900 m/s from 0, 125 and
+250 m: each more than doubles the one above) meshes at edge_m down to
+125 m and coarsens 2:1 there and again at 250 m:
+
+    edge_m   elements   nodes      dangling  bricks (nodes each)        loose
+    62.5     592        973        264       867, 162, 50               0
+    15.625   37,888     43,537     3,936     5,445, 38,025              1,024
+    7.8125   303,104    325,409    15,552    9,801, 38,025, 282,897     0
+    3.90625  2,424,832  2,513,473  61,824    71,825, 282,897, 2,179,617 0
+
+The plans without loose elements take the plane reconciler, the
+15.625 m plan the index epilogue; at 3.90625 m the fine brick's node
+plane (257 x 257) exceeds the JAX package's tile, so every brick stores
+its axes reordered, (1, 2, 0).  With BKT the three materials have no
+bulk attenuation and each brick one Q set: the uniform tier (K2).
+``GRADED_Q_LAYERS`` and ``GRADED_THIN_LAYERS`` run the top 125 m
+through FOUR_Q_LAYERS' four materials (four Q sets, all meshed at the
+top edge) in 31.25 m and in 15.625 m layers; their meshes equal
+GRADED_LAYERS'.  Their fine brick's BKT tier by the rule: at 7.8125 m
+the node tier (K3) for GRADED_Q_LAYERS (3 of its 16 element planes
+mixed, 18.75 %) and the corner tier (K4) for GRADED_THIN_LAYERS (7 of
+16, 43.75 %); at 15.625 m the corner tier for both; at 62.5 m the
+corner tier for GRADED_Q_LAYERS and the uniform one for
+GRADED_THIN_LAYERS (both element centres of its 2 planes fall in one
+material).  ``terashake_case`` copies the committed TeraShake run
+directory (``examples/terashake/run/``; 600 x 300 x 84.4 km, a
+``planewithkinks`` source, Rayleigh damping, no stations, 200 steps):
+25,600 elements, 1 brick and 9,216 loose elements, 9,408 dangling
+nodes, the index epilogue.
+
 Layout written under ``root``::
 
     box.e              CVM etree (62.5 m octants)
@@ -38,6 +69,8 @@ Layout written under ``root``::
 from __future__ import annotations
 
 import os
+import re
+import shutil
 
 from .tools.makecvm import build_layered_cvm
 
@@ -59,6 +92,18 @@ FOUR_Q_LAYERS = ((0.0, 1200.0, 600.0, 2000.0),
 # 32 layers of 15.625 m through FOUR_Q_LAYERS' materials, top down
 THIN_Q_LAYERS = tuple((15.625 * i, *FOUR_Q_LAYERS[i % 4][1:])
                       for i in range(32))
+# three layers whose Vs more than doubles at 125 m and again at 250 m:
+# at four_q_freq(edge) the mesh coarsens 2:1 at each (a graded plan)
+GRADED_LAYERS = ((0.0, 1200.0, 600.0, 2000.0),
+                 (125.0, 3000.0, 1500.0, 2400.0),
+                 (250.0, 5000.0, 2900.0, 2600.0))
+# GRADED_LAYERS with its top 125 m through FOUR_Q_LAYERS' four
+# materials (all meshed at the top edge): in 31.25 m layers, and in
+# 15.625 m layers (twice through the four)
+GRADED_Q_LAYERS = tuple((31.25 * i, *FOUR_Q_LAYERS[i][1:])
+                        for i in range(4)) + GRADED_LAYERS[1:]
+GRADED_THIN_LAYERS = tuple((15.625 * i, *FOUR_Q_LAYERS[i % 4][1:])
+                           for i in range(8)) + GRADED_LAYERS[1:]
 EAST_M, NORTH_M, DEPTH_M = 1000.0, 1000.0, 500.0
 # the CVM's octant edge, unless a layer is thinner
 CVM_RES_M = 62.5
@@ -169,6 +214,43 @@ def box_simulation(root, edge_m=62.5, steps=200, n_stations=2, **case):
     cvmdb, physics, numerical = write_box_case(root, edge_m, steps,
                                                n_stations, **case)
     return Simulation.setup(physics, numerical, cvmdb=cvmdb)
+
+
+# the committed TeraShake run directory (examples/terashake/run)
+TERASHAKE_RUN = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "examples", "terashake", "run")
+
+
+def _set_keys(path, subs):
+    """Apply the (pattern, replacement) pairs ``subs`` to an input file,
+    each pattern matching exactly once."""
+    with open(path) as f:
+        text = f.read()
+    for pat, rep in subs:
+        text, n = re.subn(pat, rep, text, flags=re.M)
+        if n != 1:
+            raise ValueError(f"{path}: {pat!r} matched {n} times")
+    with open(path, "w") as f:
+        f.write(text)
+
+
+def terashake_case(root):
+    """Copy ``examples/terashake/run/`` into ``root`` and make the copy
+    run on the port; returns the paths (cvmdb, physics_in,
+    numerical_in).  Two keys change: ``simulation_displacement_out =
+    0`` in numerical.in (the port does not write 4-D output yet), and
+    one time window in the source (``number_of_time_windows = 1``,
+    ``time_windows = 0``): the committed slip.in and rake.in hold one
+    window's 8 x 50 values, where source.in asks for six."""
+    shutil.copytree(TERASHAKE_RUN, root, dirs_exist_ok=True)
+    numerical = os.path.join(root, "in", "numerical.in")
+    _set_keys(numerical, [(r"^(simulation_displacement_out\s*=\s*)\S+",
+                           r"\g<1>0")])
+    _set_keys(os.path.join(root, "in", "src", "source.in"),
+              [(r"^(number_of_time_windows\s*=\s*)\S+", r"\g<1>1"),
+               (r"^(time_windows\s*=\s*\n)[^\n]*", r"\g<1>0")])
+    return (os.path.join(root, "tera_layers.e"),
+            os.path.join(root, "in", "physics.in"), numerical)
 
 
 def box_stats(edge_m):

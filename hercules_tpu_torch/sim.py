@@ -7,11 +7,13 @@ stages are the port's copies of the JAX package's numpy modules
 (``config``, ``cvm``, ``meshgen``, ``mesh``, ``physics``, ``source``);
 ``StationSet``, ``setup_stations`` and ``write_station_files`` are
 copied from it.
-``Simulation.run`` covers the single-brick routes: elastic (Rayleigh,
-mass or no damping) and BKT on its three tiers (uniform Q, general Q
-with node-basis memory variables, or corner-basis memory variables);
-every other route raises NotImplementedError naming its ROADMAP.md
-queue item.
+``Simulation.run`` covers every plan ``build_plan`` makes, with
+Rayleigh, mass or no damping or BKT (on its three tiers: uniform Q,
+general Q with node-basis memory variables, or corner-basis memory
+variables): the single-brick routes and the multi-brick mesh route
+(the graded meshes, any number of bricks).  A mesh that does not
+decompose into bricks, and the features ``_unsupported`` lists, raise
+NotImplementedError naming their ROADMAP.md queue item.
 """
 
 from __future__ import annotations
@@ -156,8 +158,10 @@ class Simulation:
     # "cuda_step" (brick_step per step), "cuda_bkt_chunk" (bkt_chunk),
     # "cuda_bkt_step" (bkt_step per step), "cuda_bkt_node_step"
     # (bkt_node_step per step, the mixed elements included),
-    # "cuda_bkt_corner_step" (bkt_corner_step per step) or
-    # "torch_plain" (the plain versions, on the CPU)
+    # "cuda_bkt_corner_step" (bkt_corner_step per step), "cuda_mesh"
+    # (a multi-brick plan: each brick's step kernel per step, the
+    # interfaces reconciled between) or "torch_plain" (the single-brick
+    # or the mesh route on the plain versions, on the CPU)
     solver_path_name: str = ""
 
     @classmethod
@@ -211,11 +215,16 @@ class Simulation:
     def run(self, device="cuda", dtype=None, chunk=None, total_steps=None,
             on_chunk=None):
         """The time loop on ``device`` in ``dtype`` (float32 on CUDA and
-        float64 on the CPU by default), on the first BKT tier that holds
-        the brick.  Returns ((u, up[, conv[, conv_mix]]) tensors, samples
-        [T, ns, 3] numpy)."""
+        float64 on the CPU by default), routed by the brick plan: one
+        brick with no loose elements takes the single-brick routes
+        (fused_brick.run_pallas_solver; BKT on the first tier that holds
+        the brick), which return ((u, up[, conv[, conv_mix]]) tensors,
+        samples [T, ns, 3] numpy); every other plan (several bricks, or
+        one brick with loose elements) the mesh route
+        (fused_mesh.run_mesh_solver: (Ss, convs, lconv), samples)."""
         from .solver.bricks import build_plan
         from .solver.fused_brick import plan_applies, run_pallas_solver
+        from .solver.fused_mesh import run_mesh_solver
 
         device = torch.device(device)
         if dtype is None:
@@ -231,18 +240,15 @@ class Simulation:
             raise NotImplementedError(
                 f"mesh does not decompose into bricks ({e}); the "
                 f"unstructured solver is Queue 1, item 4") from e
-        if not plan_applies(plan, self.tables.damping):
-            raise NotImplementedError(
-                f"{len(plan.bricks)} bricks, {len(plan.loose_eidx)} loose "
-                f"elements: the graded multi-brick path is Queue 1, "
-                f"item 6")
 
         def on_route(name):
             self.solver_path_name = name
 
-        return run_pallas_solver(
-            plan, self.tables, self.src_ids, self.src_forces, steps,
-            p.delta_t, st_nodes=None if st is None else st.nodes,
-            st_phi=None if st is None else st.phi, dtype=dtype,
-            device=device, chunk=chunk, on_chunk=on_chunk,
-            on_route=on_route)
+        kw = dict(st_nodes=None if st is None else st.nodes,
+                  st_phi=None if st is None else st.phi, dtype=dtype,
+                  device=device, chunk=chunk, on_chunk=on_chunk)
+        args = (plan, self.tables, self.src_ids, self.src_forces, steps,
+                p.delta_t)
+        if plan_applies(plan, self.tables.damping):
+            return run_pallas_solver(*args, on_route=on_route, **kw)
+        return run_mesh_solver(*args, on_route=on_route, **kw)

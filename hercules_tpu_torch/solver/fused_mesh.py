@@ -1,0 +1,607 @@
+"""The multi-brick solver on the port's kernels: the graded-mesh route.
+
+Counterpart of ``hercules_tpu/solver/pallas_mesh.py``; the JAX names
+are kept (``mesh_plan_applies``, ``_Gather``, ``MeshPallasTables``,
+``interface_epilogue_consts``, ``locate_concat``, ``first_concat_copy``,
+``init_mesh_state``, ``mesh_u_global``, ``run_mesh_solver``).
+
+Every dense brick of the plan (``solver/bricks.py``) runs the step
+kernel of its damping and tier once per step, as the single-brick
+routes do (``fused_brick.py``): K1 for Rayleigh, mass or no damping;
+for BKT the first tier that holds the brick, by the single-brick rule
+(``fused_bktq.bkt_step_module``: uniform K2, node K3 unless the node
+tables decline, corner K4), chosen per brick.  Torch code between the
+launches does the rest:
+
+- the loose elements (graded-transition slivers too small to brick)
+  gather their corners from the loose node section, form their force
+  (``brickstep.loose_elastic_force`` / ``loose_bkt_force``) and add it
+  by a fixed-order segment sum, then update that section;
+- the interface reconciliation.  The kernels never write their element
+  forces, but each ends in the same central-difference update, so the
+  local force of any node copy is recovered by linearity from its
+  kernel's output,
+
+      F = (u+ - u) * mass - mass_minusaM * (u - u-),
+
+  and the copies of a shared or hanging node are reconciled from
+  (u, u-, u+) alone: by ``planerec.PlaneReconciler`` (dense planes,
+  when every interface is a full z-plane of both bricks) or by the
+  index epilogue (gathers, fixed-order segment sums, the dangling
+  distribute/assign algebra of compute_adjust, psolve.c:5936-6039,
+  and scatters);
+- the sources: a source on a shared node is added once, in the
+  reconciliation; one on a single-copy node is added after it
+  (``src_direct``);
+- the stations, sampled from the first copy of each node before the
+  step.
+
+State layout (one layout, where the JAX package keeps two): every brick
+and the loose node section hold S [8, LEN] = (u, u-, 0, 0), the columns
+the brick's flat node grid (``Brick.axes`` order) then zero padding to
+``fused_brick.pallas_geometry(nb)``; BKT bricks add their tier's memory
+variables (node tier: conv and the mixed elements' conv_mix, K3 forms
+their force inside, so the JAX mesh step's ``bkt_mix_epilogue`` has no
+counterpart), and the loose elements theirs, (s0, s1, k0, k1) [El, 8,
+3].  The mesh state is (Ss, convs, lconv): Ss the NB + 1 S tensors
+(bricks, then the loose section), convs the NB tuples of memory
+variables (empty for elastic bricks), lconv the loose elements' tuple
+(empty without BKT or loose elements).
+
+Not ported: the nonlinear and DRM branches of the JAX step (ROADMAP
+Queue 1, item 7), the restart of a mesh state (item 3), and the TPU's
+layout switches (``HT_MESH_PACKED``, ``HT_MESH_ABLATE``,
+``HT_BKT_UNIFORM``, ``HT_PALLAS_TILE``, the elastic ``_tier_kco``
+tiers).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..utils.timers import measure
+from .brickstep import SegmentSum, loose_bkt_force, loose_elastic_force
+from .chunking import run_chunked
+from .fused_brick import (BrickStep, pack_constants, pallas_geometry,
+                          solver_device)
+from .fused_bktq import bkt_step_module
+from .planerec import PlaneReconciler
+
+RECONCILERS = ("plane", "index")
+
+
+def mesh_plan_applies(plan, damping) -> bool:
+    """True if the multi-brick route covers this plan: any number of
+    bricks.  (The JAX package also caps the bricks,
+    ``HT_PALLAS_MAX_BRICKS``, and requires every brick's stencil reach
+    to fit its on-chip tile, ``pallas_fits``: limits of the TPU's
+    kernels that the CUDA kernels do not share.)"""
+    return damping in ("rayleigh", "mass", "none", "bkt")
+
+
+@dataclass
+class BrickColumns:
+    """A brick's slice [b.off, b.off + b.nb) of the plan's per-column
+    arrays (numpy views): what the single-brick table functions
+    (``fused_brick.pack_constants``, ``fused_bktq.bkt_step_module``)
+    read of a plan."""
+    gnid_cat: np.ndarray
+    evalid_cat: np.ndarray
+    eidx_cat: np.ndarray
+
+
+def brick_columns(plan, b) -> BrickColumns:
+    cut = slice(b.off, b.off + b.nb)
+    return BrickColumns(plan.gnid_cat[cut], plan.evalid_cat[cut],
+                        plan.eidx_cat[cut])
+
+
+def brick_step_module(plan, b, tables, dtype, device, tier=None):
+    """(step module, LEN) of brick ``b`` of the plan: BrickStep for
+    Rayleigh, mass or no damping; for BKT the module of the first tier
+    that holds the brick (fused_bktq.bkt_step_module), or of ``tier``
+    where given."""
+    brick = plan.bricks[b]
+    cols = brick_columns(plan, brick)
+    offs = tuple(brick.corner_offsets())
+    LEN = pallas_geometry(brick.nb)
+    if tables.damping == "bkt":
+        return bkt_step_module(cols, tables, LEN, offs, dtype, device,
+                               tier=tier)[0], LEN
+    if tier is not None:
+        raise ValueError(f"tier={tier!r} on a {tables.damping} brick")
+    K = torch.as_tensor(pack_constants(cols, tables, LEN), dtype=dtype,
+                        device=device)
+    return BrickStep(K, offs), LEN
+
+
+class _Gather:
+    """Precomputed extraction of K entries spread over the per-brick
+    (+ loose) arrays: entry k reads column locals[k] of array arrs[k].
+
+    When the entries are ordered by (array, local) -- the interface
+    ordering of ``interface_epilogue_consts`` -- each array's locals are
+    sorted, and on depth-graded meshes (brick interfaces = z-planes of
+    the brick grids) they collapse into a handful of contiguous runs,
+    read and written as slices; otherwise index gathers."""
+
+    MAX_RUNS = 64
+
+    def __init__(self, arrs, locals_, n_arrays, K, device):
+        self.K = K
+        self.plan = []      # index mode: (arr, src, dst)
+        self.runs = None    # slice mode: list of (arr, lo, size, dst0)
+        order_ok = True
+        runs = []
+        pos = 0
+        for a in range(n_arrays):
+            m = arrs == a
+            if not m.any():
+                continue
+            idx = np.flatnonzero(m)
+            loc = locals_[idx]
+            if not ((idx == np.arange(pos, pos + len(idx))).all()
+                    and (np.diff(loc) > 0).all()):
+                order_ok = False
+            brk = np.flatnonzero(np.diff(loc) != 1)
+            starts = np.concatenate([[0], brk + 1])
+            ends = np.concatenate([brk + 1, [len(loc)]])
+            for s, e in zip(starts, ends):
+                runs.append((a, int(loc[s]), int(e - s), int(pos + s)))
+            pos += len(idx)
+            self.plan.append((a, torch.as_tensor(loc, device=device),
+                              torch.as_tensor(idx, device=device)))
+        if order_ok and len(runs) <= self.MAX_RUNS:
+            self.runs = runs
+
+    def __call__(self, arrays, row=0):
+        """[K, 3]: rows row:row+3 of the arrays at the entries."""
+        if self.runs is not None:
+            return torch.cat([arrays[a][row:row + 3, lo:lo + n].T
+                              for a, lo, n, _ in self.runs])
+        out = arrays[0].new_empty((self.K, 3))
+        for a, src, dst in self.plan:
+            out[dst] = arrays[a][row:row + 3, src].T
+        return out
+
+    def scatter_set(self, arrays, vals):
+        """Write vals [K, 3] into rows 0:3 of the arrays in place."""
+        if self.runs is not None:
+            for a, lo, n, d0 in self.runs:
+                arrays[a][0:3, lo:lo + n] = vals[d0:d0 + n].T
+            return arrays
+        for a, src, dst in self.plan:
+            arrays[a][0:3, src] = vals[dst].T
+        return arrays
+
+
+def locate_concat(plan, pos):
+    """concat position -> (array index, local column): bricks are
+    0..NB-1, the loose node section is NB.  The concat-layout
+    convention -- sources and stations resolve through here."""
+    NB = len(plan.bricks)
+    off_loose = (plan.bricks[-1].off + plan.bricks[-1].nb
+                 if NB else 0)
+    pos = np.asarray(pos, np.int64)
+    arr = np.full(len(pos), NB, np.int64)
+    loc = pos - off_loose
+    for a, b in enumerate(plan.bricks):
+        m = (pos >= b.off) & (pos < b.off + b.nb)
+        arr[m] = a
+        loc[m] = pos[m] - b.off
+    return arr, loc
+
+
+def first_concat_copy(plan, node_ids, what="node"):
+    """Concat position of the FIRST copy of each global node id
+    (interface nodes have several copies; per-node force injections
+    count once when added to exactly one)."""
+    g = plan.gnid_cat
+    uniq, first = np.unique(g, return_index=True)
+    ids = np.asarray(node_ids).ravel()
+    pos = first[np.searchsorted(uniq, np.clip(ids, uniq[0],
+                                              uniq[-1]))]
+    if not (g[pos] == ids).all():
+        raise RuntimeError(f"{what} missing from plan")
+    return pos
+
+
+def interface_epilogue_consts(plan, tables, src_ids, dtype, device):
+    """Device constants of the index-based interface reconciliation
+    (compute_adjust semantics, psolve.c:5936-6039): per-copy gather
+    coordinates, group segments and their fixed-order sums (grp_sum,
+    anc_sum: brickstep.SegmentSum), per-entry node masses, the dangling
+    distribute/assign tables, and the group/direct source split."""
+    f = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype,
+                                  device=device)
+    i64 = lambda x: torch.as_tensor(np.asarray(x, np.int64),
+                                    device=device)
+    g = plan.gnid_cat
+    NB = len(plan.bricks)
+    out = {"K": len(plan.ex_pos), "G": len(plan.grp_node),
+           "D": len(plan.dn_grp), "src_grp_idx": None,
+           "src_grp_rows": None, "src_direct": []}
+    K, G, D = out["K"], out["G"], out["D"]
+    ex_seg = None
+    if K:
+        # order interface entries by concat position = (array, local):
+        # per-array locals become sorted and (on depth-graded meshes)
+        # contiguous, so _Gather runs in slice mode; ex_seg is then
+        # not sorted (the segment sum permutes)
+        order = np.argsort(plan.ex_pos, kind="stable")
+        ex_pos = plan.ex_pos[order]
+        ex_seg = plan.ex_seg[order]
+        ex_arr, ex_loc = locate_concat(plan, ex_pos.astype(np.int64))
+        out["ex_arr"], out["ex_loc"] = ex_arr, ex_loc
+        out["ex_pos"] = ex_pos
+        out["ex_seg"] = i64(ex_seg)
+        out["grp_sum"] = SegmentSum(ex_seg, device)
+        first = np.full(G, K, np.int64)
+        np.minimum.at(first, ex_seg, np.arange(K))
+        out["grp_first"] = i64(first)
+        gn = g[ex_pos]
+        out["mass_ex"] = f(1.0 / tables.inv_mass[gn])[:, None]
+        out["invm_ex"] = f(tables.inv_mass[gn])[:, None]
+        out["mm_ex"] = f(tables.mass_minusaM[gn])
+    if D:
+        out["dn_grp"] = i64(plan.dn_grp)
+        out["dn_anc_grp"] = i64(plan.dn_anc_grp)
+        out["anc_sum"] = SegmentSum(plan.dn_anc_grp, device)
+        out["dn_wgt"] = f(plan.dn_wgt)
+        isdn = np.zeros(G, bool)
+        isdn[plan.dn_grp] = True
+        grp2dn = np.zeros(G, np.int64)
+        grp2dn[plan.dn_grp] = np.arange(D)
+        m = isdn[ex_seg]
+        out["dnc_k"] = i64(np.flatnonzero(m))
+        out["dnc_src"] = i64(grp2dn[ex_seg[m]])
+    if src_ids is not None and len(src_ids):
+        pos = first_concat_copy(plan, src_ids, what="source node")
+        node2grp = -np.ones(plan.mesh.nnum, np.int64)
+        node2grp[plan.grp_node] = np.arange(G)
+        gi = node2grp[src_ids]
+        ing = gi >= 0
+        if ing.any():
+            out["src_grp_idx"] = i64(gi[ing])
+            out["src_grp_rows"] = i64(np.flatnonzero(ing))
+        dm = ~ing
+        if dm.any():
+            arr, loc = locate_concat(plan, pos[dm])
+            rows = np.flatnonzero(dm)
+            for a in range(NB + 1):
+                sel = arr == a
+                if sel.any():
+                    iv = tables.inv_mass[g[pos[dm][sel]]]
+                    out["src_direct"].append(
+                        (a, i64(loc[sel]), i64(rows[sel]),
+                         f(iv)[:, None]))
+    return out
+
+
+class MeshPallasTables:
+    """Tables, per-brick step modules, the loose section, the
+    reconciler, sources and stations of a multi-brick plan, on
+    ``device`` (the CUDA device unless the caller asks for the CPU) in
+    ``dtype``.
+
+    ``steps[b]`` is brick b's step module (fused_brick.BrickStep, or
+    for BKT the module of its tier) and ``tiers[b]`` its tier
+    ("elastic", "uniform", "node" or "corner").  ``reconciler``:
+    "plane" (PlaneReconciler; raises if it does not hold the plan),
+    "index" (the index epilogue), or None for the plane reconciler
+    whenever it holds the plan, else the index epilogue.
+    ``self.reconciler`` names the one taken (None when the plan has no
+    shared copies)."""
+
+    def __init__(self, plan, tables, src_ids=None, st_nodes=None,
+                 st_phi=None, dtype=torch.float32, device="cuda",
+                 reconciler=None):
+        if not mesh_plan_applies(plan, tables.damping):
+            raise ValueError(f"damping={tables.damping}: no mesh route")
+        if reconciler not in (None, *RECONCILERS):
+            raise ValueError(f"reconciler must be one of {RECONCILERS} or "
+                             f"None, got {reconciler!r}")
+        self.dtype, self.device = dtype, solver_device(device)
+        dev = self.device
+        self.damping = tables.damping
+        bkt = self.damping == "bkt"
+        f = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype,
+                                      device=dev)
+        NB = self.NB = len(plan.bricks)
+        TOT = plan.total_nb
+        self.off_loose = (plan.bricks[-1].off + plan.bricks[-1].nb
+                          if NB else 0)
+        self.NL = TOT - self.off_loose
+        g = plan.gnid_cat
+
+        # ---- per-brick step modules ------------------------------------
+        self.steps, self.LENs = [], []
+        for b in range(NB):
+            mod, LEN = brick_step_module(plan, b, tables, dtype, dev)
+            self.steps.append(mod)
+            self.LENs.append(LEN)
+        self.tiers = [getattr(m, "tier", "elastic") for m in self.steps]
+
+        # ---- loose section ---------------------------------------------
+        lsl = slice(self.off_loose, TOT)
+        self.mm_l = f(tables.mass_minusaM[g[lsl]].T)        # [3, NL]
+        self.invm_l = f(tables.inv_mass[g[lsl]])[None, :]   # [1, NL]
+        le = plan.loose_eidx
+        self.El = El = len(le)
+        if El:
+            rows = plan.loose_rows - self.off_loose
+            self.l_rows = torch.as_tensor(rows.astype(np.int64), device=dev)
+            lseg = rows.ravel()
+            lperm = np.argsort(lseg, kind="stable")
+            self.l_perm = torch.as_tensor(lperm, device=dev)
+            self.l_sum = SegmentSum(lseg[lperm], dev)
+            if bkt:
+                self.l_bkt = {k: f(v[le]) for k, v in tables.bkt.items()}
+                self.kmu_cat = f(tables.kmu.T)
+                self.kkappa_cat = f(tables.kkappa.T)
+            else:
+                self.l_c = [f(getattr(tables, f"c{k}")[le])
+                            for k in range(1, 5)]
+                self.mcat = f(tables.m48.T)
+
+        # ---- reconciliation ------------------------------------------
+        ep = interface_epilogue_consts(plan, tables, src_ids, dtype, dev)
+        self.K, self.G, self.D = ep["K"], ep["G"], ep["D"]
+        self.plane_rec = None
+        self.reconciler = None
+        if self.K:
+            if reconciler != "index":
+                self.plane_rec = PlaneReconciler.build(
+                    plan, tables, src_ids=src_ids, dtype=dtype, device=dev)
+                if self.plane_rec is None and reconciler == "plane":
+                    raise ValueError("reconciler='plane': the plan's "
+                                     "interfaces are not full z-planes")
+            self.reconciler = "index" if self.plane_rec is None else "plane"
+        if self.reconciler == "index":
+            self.ex_gather = _Gather(ep["ex_arr"], ep["ex_loc"], NB + 1,
+                                     self.K, dev)
+            for k in ("ex_seg", "grp_sum", "grp_first", "mass_ex",
+                      "invm_ex", "mm_ex"):
+                setattr(self, k, ep[k])
+            if self.D:
+                for k in ("dn_grp", "dn_anc_grp", "anc_sum", "dn_wgt",
+                          "dnc_k", "dnc_src"):
+                    setattr(self, k, ep[k])
+        # a shared node's source is added once, by the reconciler
+        self.src_grp_idx = ep["src_grp_idx"]
+        self.src_grp_rows = ep["src_grp_rows"]
+        self.src_direct = ep["src_direct"]
+        self.has_src = src_ids is not None and len(src_ids) > 0
+
+        # ---- stations --------------------------------------------------
+        self.st = None
+        if st_nodes is not None and len(np.asarray(st_nodes)):
+            st_nodes = np.asarray(st_nodes)
+            pos = first_concat_copy(plan, st_nodes, what="station node")
+            arr, loc = locate_concat(plan, pos)
+            self.st = (_Gather(arr, loc, NB + 1, st_nodes.size, dev),
+                       st_nodes.shape, f(st_phi))
+
+    def state_parts(self, b):
+        """(shape, dtype) of brick b's memory variables after S."""
+        step = self.steps[b]
+        return [] if self.tiers[b] == "elastic" else \
+            step.state_parts(self.LENs[b])
+
+    def launches_per_step(self):
+        """{kernel wrapper name: bricks on it}: the launches one step
+        makes."""
+        name = {"elastic": "brick_step", "uniform": "bkt_step",
+                "node": "bkt_node_step", "corner": "bkt_corner_step"}
+        out = {}
+        for t in self.tiers:
+            out[name[t]] = out.get(name[t], 0) + 1
+        return out
+
+
+def init_mesh_state(mt: MeshPallasTables):
+    """Zero mesh state (Ss, convs, lconv)."""
+    z = lambda shape, dt=mt.dtype: torch.zeros(shape, dtype=dt,
+                                               device=mt.device)
+    Ss = tuple(z((8, L)) for L in mt.LENs) + (z((8, mt.NL)),)
+    convs = tuple(tuple(z(shape, dt) for shape, dt in mt.state_parts(b))
+                  for b in range(mt.NB))
+    lconv = (tuple(z((mt.El, 8, 3)) for _ in range(4))
+             if mt.damping == "bkt" and mt.El else ())
+    return (Ss, convs, lconv)
+
+
+def fit_mesh_state(mt: MeshPallasTables, state):
+    """A copy of ``state`` = (Ss, convs, lconv) in the solver's layout,
+    type and device; empty convs or lconv start at zero (as
+    ``mesh_state_from_jax`` gives them)."""
+    want = init_mesh_state(mt)
+
+    def fit(got, zero):
+        if isinstance(zero, tuple):
+            if not len(got):
+                return zero
+            if len(got) != len(zero):
+                raise ValueError(f"state has {len(got)} parts where the "
+                                 f"solver has {len(zero)}")
+            return tuple(fit(g_, z_) for g_, z_ in zip(got, zero))
+        t = torch.as_tensor(got).to(dtype=zero.dtype, device=zero.device)
+        if t.shape != zero.shape:
+            raise ValueError(f"state part must be {list(zero.shape)}, got "
+                             f"{list(t.shape)}")
+        return t.clone()
+
+    if len(state[0]) != len(want[0]):
+        raise ValueError(f"{len(state[0])} S arrays, the plan has "
+                         f"{len(want[0])} (bricks + the loose section)")
+    return fit(tuple(state), want)
+
+
+def make_mesh_step(mt: MeshPallasTables):
+    """step(state, spare, srcf) -> (new state, sample [ns, 3]): one step
+    from ``state`` into the buffers of ``spare`` (same structure; the
+    caller swaps them), with the step's source forces srcf [L, 3]
+    (already times dt^2, or None without sources)."""
+    NB = mt.NB
+    bkt = mt.damping == "bkt"
+    names = ("out", "conv_out", "conv_mix_out")
+
+    def sample_of(Ss):
+        if mt.st is None:
+            return Ss[0].new_zeros((0, 3))
+        gat, shape, phi = mt.st
+        u_st = gat(Ss).reshape(shape + (3,))
+        return torch.einsum("sn,snc->sc", phi, u_st)
+
+    def step(state, spare, srcf):
+        Ss, convs, lconv = state
+        nSs, nconvs, _ = spare
+        sample = sample_of(Ss)
+
+        # ---- per-brick kernels ------------------------------------------
+        Sns, new_convs = [], []
+        for b in range(NB):
+            if mt.tiers[b] == "elastic":
+                Sns.append(mt.steps[b](Ss[b], out=nSs[b]))
+                new_convs.append(())
+                continue
+            outs = dict(zip(names, (nSs[b],) + nconvs[b]))
+            Sn, *cv = mt.steps[b](Ss[b], *convs[b], **outs)
+            Sns.append(Sn)
+            new_convs.append(tuple(cv))
+
+        # ---- loose elements (gather/scatter) ----------------------------
+        S_l, Sn_l = Ss[NB], nSs[NB]
+        new_lconv = lconv
+        if mt.NL:
+            u_l, up_l = S_l[0:3], S_l[3:6]
+            F_l = torch.zeros_like(u_l)
+            if mt.El:
+                ue = u_l.T[mt.l_rows].reshape(mt.El, 24)
+                upe = up_l.T[mt.l_rows].reshape(mt.El, 24)
+                if bkt:
+                    lf, new_lconv = loose_bkt_force(
+                        ue, upe, lconv, mt.l_bkt, mt.kmu_cat,
+                        mt.kkappa_cat)
+                else:
+                    lf = loose_elastic_force(ue, upe, mt.l_c, mt.mcat)
+                flat = lf.reshape(-1, 3)[mt.l_perm]
+                F_l.index_add_(1, mt.l_sum.ids, mt.l_sum(flat).T)
+            torch.add(u_l, (F_l + mt.mm_l * (u_l - up_l)) * mt.invm_l,
+                      out=Sn_l[0:3])
+            Sn_l[3:6] = u_l
+            Sn_l[6:8] = 0
+        Sns.append(Sn_l)
+
+        # ---- interface reconciliation -----------------------------------
+        if mt.reconciler == "plane":
+            mt.plane_rec.apply([S[0:3] for S in Ss], [S[3:6] for S in Ss],
+                               Sns, srcf)
+        elif mt.reconciler == "index":
+            u_ex = mt.ex_gather(Ss, 0)
+            up_ex = mt.ex_gather(Ss, 3)
+            un_ex = mt.ex_gather(Sns, 0)
+            du_ex = u_ex - up_ex
+            # recover each copy's local force by linearity
+            F_ex = (un_ex - u_ex) * mt.mass_ex - mt.mm_ex * du_ex
+            tot = mt.grp_sum(F_ex)                         # [G, 3]
+            if mt.src_grp_idx is not None:
+                tot.index_add_(0, mt.src_grp_idx,
+                               srcf[mt.src_grp_rows])
+            if mt.D:
+                contrib = (tot[mt.dn_grp][:, None, :]
+                           * mt.dn_wgt[:, :, None])        # [D, 4, 3]
+                tot = tot.index_add(0, mt.anc_sum.ids,
+                                    mt.anc_sum(contrib.reshape(-1, 3)))
+            un_ex = u_ex + (tot[mt.ex_seg] + mt.mm_ex * du_ex) \
+                * mt.invm_ex
+            if mt.D:
+                u_rep = un_ex[mt.grp_first]
+                dnv = (u_rep[mt.dn_anc_grp]
+                       * mt.dn_wgt[:, :, None]).sum(dim=1)
+                un_ex[mt.dnc_k] = dnv[mt.dnc_src]
+            mt.ex_gather.scatter_set(Sns, un_ex)
+
+        # ---- direct (single-copy) source injection ----------------------
+        for a, pp, rows, iv in mt.src_direct:
+            Sns[a][0:3].index_add_(1, pp, (srcf[rows] * iv).T)
+
+        return (tuple(Sns), tuple(new_convs), new_lconv), sample
+
+    return step
+
+
+def route_name(mt: MeshPallasTables) -> str:
+    """The route's name in monitor.txt: cuda_mesh, or torch_plain (the
+    plain versions, on the CPU)."""
+    return "torch_plain" if mt.device.type == "cpu" else "cuda_mesh"
+
+
+def run_mesh_solver(plan, tables, src_ids, src_forces, total_steps, dt,
+                    st_nodes=None, st_phi=None, dtype=torch.float32,
+                    device="cuda", chunk=None, state=None, on_chunk=None,
+                    start_step=0, on_samples=None, reconciler=None,
+                    on_route=None):
+    """Chunked time loop on a multi-brick plan; the contract of the JAX
+    package's run_mesh_solver.  ``state``: an initial mesh state (see
+    fit_mesh_state), zero when None.  ``reconciler``: see
+    MeshPallasTables.  ``on_route``, if given, is called with the
+    route's name before the loop.  Returns ((Ss, convs, lconv), samples
+    [T, ns, 3] numpy).  Runs on the CUDA device unless ``device`` is the
+    CPU."""
+    device = solver_device(device)
+    with measure("Solver tables", device):
+        mt = MeshPallasTables(plan, tables, src_ids=src_ids,
+                              st_nodes=st_nodes, st_phi=st_phi,
+                              dtype=dtype, device=device,
+                              reconciler=reconciler)
+    return run_mesh(mt, src_forces, total_steps, dt, chunk=chunk,
+                    state=state, on_chunk=on_chunk, start_step=start_step,
+                    on_samples=on_samples, on_route=on_route)
+
+
+def run_mesh(mt: MeshPallasTables, src_forces, total_steps, dt, chunk=None,
+             state=None, on_chunk=None, start_step=0, on_samples=None,
+             on_route=None):
+    """run_mesh_solver's time loop on tables already built."""
+    state = (init_mesh_state(mt) if state is None
+             else fit_mesh_state(mt, state))
+    if chunk is None:
+        chunk = min(total_steps, 1000)
+    if on_route is not None:
+        on_route(route_name(mt))
+    step = make_mesh_step(mt)
+    dt2 = dt * dt
+    spare = [init_mesh_state(mt)]
+
+    def advance(state, s, k):
+        srcf = (torch.as_tensor(src_forces[s:s + k] * dt2, dtype=mt.dtype,
+                                device=mt.device) if mt.has_src else None)
+        samples = []
+        for i in range(k):
+            new, sample = step(state, spare[0],
+                               None if srcf is None else srcf[i])
+            samples.append(sample)
+            spare[0], state = state, new
+        return state, torch.stack(samples).cpu().numpy()
+
+    with measure("Solver time loop", mt.device):
+        return run_chunked(advance, state, total_steps,
+                           start_step=start_step, chunk=chunk,
+                           on_chunk=on_chunk, on_samples=on_samples)
+
+
+def mesh_u_global(plan, Ss, N):
+    """Global [N, 3] displacement from the per-array states (rows 0:3
+    are u; brick columns past nb are padding)."""
+    arrs = [np.asarray(torch.as_tensor(S).cpu()) for S in Ss]
+    u = np.zeros((N, 3), arrs[-1].dtype)
+    for b, arr in zip(plan.bricks, arrs):
+        u[plan.gnid_cat[b.off:b.off + b.nb]] = arr[:3, :b.nb].T
+    off_loose = (plan.bricks[-1].off + plan.bricks[-1].nb
+                 if plan.bricks else 0)
+    u[plan.gnid_cat[off_loose:]] = arrs[-1][:3].T
+    return u

@@ -201,6 +201,21 @@ def route_costs(pt, elements, chunk=1) -> dict:
     return {n: kernel_cost(n, chunk=chunk, **kw) for n in names}
 
 
+def step_cost(step, LEN, elements, dtype) -> KernelCost:
+    """KernelCost per launch of a step module's kernel (fused_brick's
+    BrickStep: K1; BktStep: K2; BktNodeStep: K3; BktCornerStep: K4) on
+    [*, LEN] arrays with ``elements`` mesh elements."""
+    tier = getattr(step, "tier", None)
+    if tier is None:
+        return kernel_cost("brick_step", LEN, elements, dtype)
+    name = {"uniform": "bkt_step", "node": "bkt_node_step",
+            "corner": "bkt_corner_step"}[tier]
+    return kernel_cost(name, LEN, elements, dtype,
+                       conv_rows=step.conv_rows,
+                       conv_dtype=step.conv_dtype,
+                       mixed=getattr(step, "mix_M", 0))
+
+
 def card() -> str:
     """The card's name and power limit as nvidia-smi reports them
     ("NVIDIA H100 80GB HBM3, 700.00 W")."""

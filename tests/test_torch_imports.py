@@ -51,6 +51,9 @@ MODULES = ("hercules_tpu_torch", "hercules_tpu_torch.cli",
            "hercules_tpu_torch.solver.fused_brick",
            "hercules_tpu_torch.solver.fused_bkt",
            "hercules_tpu_torch.solver.fused_bktq",
+           "hercules_tpu_torch.solver.brickstep",
+           "hercules_tpu_torch.solver.planerec",
+           "hercules_tpu_torch.solver.fused_mesh",
            "hercules_tpu_torch.kernels.build",
            "hercules_tpu_torch.kernels.brick_step",
            "hercules_tpu_torch.kernels.brick_chunk",
@@ -160,23 +163,26 @@ def small_box(tmp_path_factory):
 
 
 @pytest.mark.parametrize("entry", ["PallasBrickTables", "run_pallas_solver",
-                                   "tables_from_jax"])
+                                   "tables_from_jax", "MeshPallasTables",
+                                   "run_mesh_solver", "run_brick_solver"])
 def test_entry_points_default_to_cuda(entry, small_box, monkeypatch):
     """The solver's entry points take the CUDA device unless the caller
     asks for the CPU; with no CUDA device they raise instead of running
     on the CPU."""
     from hercules_tpu_torch import convert
-    from hercules_tpu_torch.solver import fused_brick
-    fn = getattr(convert if entry == "tables_from_jax" else fused_brick,
-                 entry)
+    from hercules_tpu_torch.solver import brickstep, fused_brick, fused_mesh
+    module = {"tables_from_jax": convert, "MeshPallasTables": fused_mesh,
+              "run_mesh_solver": fused_mesh,
+              "run_brick_solver": brickstep}.get(entry, fused_brick)
+    fn = getattr(module, entry)
     assert inspect.signature(fn).parameters["device"].default == "cuda"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     sim, plan = small_box
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        if entry == "run_pallas_solver":
+        if entry.startswith("run_"):
             fn(plan, sim.tables, sim.src_ids, sim.src_forces, 4,
                sim.params.delta_t)
-        elif entry == "PallasBrickTables":
+        elif entry.endswith("Tables"):
             fn(plan, sim.tables)
         else:
             fn(sim.tables, plan)

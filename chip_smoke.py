@@ -50,7 +50,10 @@ JSON line {"phase": ...}:
               and the soft box, chunks of 16, 37 steps, float64 and
               float32: S and conv bit-identical, samples within 1e-12
               / 1e-5 relative; K6 against bkt_chunk_plain at 2^20
-              elements, 10 steps in float32 (1e-4).
+              elements, 10 steps in float32, on the BKT box (1e-4) and
+              on the soft box (12 rows of bfloat16 memory variables,
+              phase outputs' K6 case: 1e-4 on S and the samples, 5e-3
+              on the memory variables); padding stays zero.
 8. main_bkt -- phase 4 with type_of_damping = bkt: routes
               cuda_bkt_chunk (float32) and cuda_bkt_step (float64),
               both BKT kernels launched.
@@ -122,6 +125,33 @@ JSON line {"phase": ...}:
               bricks) and on the TeraShake copy (one brick and 9,216
               loose elements, 200 steps): route cuda_mesh, the same
               launch counts, float32 within 1e-2 of float64.
+    outputs -- output taps, checkpoints and restart through the CLI,
+              on the 2^20-element box with Rayleigh damping in float32
+              (cuda_chunk, K5), the soft box (uniform BKT, bulk
+              attenuation on: bfloat16 memory variables) in float32
+              (cuda_bkt_chunk, K6), the four-layer box in float32
+              (cuda_bkt_node_step, K3, mixed elements), the thin-layer
+              box in float64 (cuda_bkt_corner_step, K4) and
+              GRADED_Q_LAYERS at 7.8125 m in float32 (cuda_mesh, K2 and
+              K3): run A 400 steps with 4-D displacement and velocity
+              every 40 steps, one plane every 20, checkpoints every
+              200; run B from A's step-200 checkpoint as checkpoint.in.
+              Held: B's station rows are A's from step 200 on, its 4-D
+              frames after step 200 A's, its step-400 checkpoint A's,
+              bit for bit; A's last frames (step 360) the state of
+              Simulation.run(total_steps=360), bit for bit after
+              widening (velocity (u - u-)/dt); each plane record at a
+              frame's step the phi-weighted corner sum of the frame
+              (1e-12 relative); the launches of A and B (a chunk kernel
+              once per 20 steps, a step kernel once per step and
+              brick).  Printed: "Solver", the time loop and the taps'
+              host seconds with the taps on, the straight run's loop
+              and phase main's runs without them, the 4-D writer's
+              io_seconds; a tap's pieces on the host's clock (the node
+              index's copy to the card, made once per run; a global
+              field, scatter and copy to the host; that copy alone; a
+              plane-only record's corner gather, held equal to the
+              global field at those nodes).
 16. accuracy_mesh -- on the 3.90625 m plan in float64, from a random
               state, 40 steps with the source: the mesh route (plane
               reconciler, and the index epilogue) against the port's
@@ -599,6 +629,7 @@ def main():
             launches = {k: by_type["float32"][k] + by_type["float64"][k]
                         for k in by_type["float32"]}
             launches["by_type"] = by_type
+            launches["seconds"] = {d: runs[d][2] for d in runs}
             s32, s64 = runs["float32"][1], runs["float64"][1]
             st_rel = np.abs(s32[..., 1:] - s64[..., 1:]).max() / \
                 np.abs(s64[..., 1:]).max()
@@ -653,6 +684,13 @@ def main():
         sim_bb, plan_bb, _ = box(7.8125, 400, 5, "big_bkt",
                                  damping="bkt")
         dt2_bb = sim_bb.params.delta_t ** 2
+        # the soft box meshed at 2^20 elements (12 rows of bfloat16
+        # memory variables in float32, bulk attenuation on): K6's shape
+        # on the outputs phase's soft case
+        sim_bs, plan_bs, _ = box(7.8125, 20, 5, "big_soft", damping="bkt",
+                                 layers=SOFT_LAYERS,
+                                 freq=1200.0 / (8 * 7.8125))
+        require(sim_bs.mesh.lenum == 1 << 20, "soft 2^20 box")
         cases = []
         for label, sim, plan, dtype, steps, bound in (
                 ("box", sim_sb, plan_sb, f64, 40, 2e-13),
@@ -732,6 +770,37 @@ def main():
         require(r <= 1e-4 and rc_ <= 1e-4 and srel <= 1e-4,
                 f"K6 vs plain {cases[-1]}")
         kern["bkt_chunk_err"] = err
+        # the soft box at 2^20 (bfloat16 memory variables, bounded at
+        # 5e-3 as in phases k3 and k4)
+        pt = tables(sim_bs, plan_bs, f32)
+        require(pt.step.conv_dtype == torch.bfloat16
+                and pt.step.conv_rows == 12, "soft 2^20 conv layout")
+        S0, cv0 = random_bkt_state(pt)
+        srcf = source_increments(pt, sim_bs.src_forces,
+                                 sim_bs.params.delta_t ** 2, 0, 10)
+        bargs = (pt.K, pt.offs, pt.step.scales, pt.step.rec)
+        Sk, ck, smp_k = bkt_chunk(S0.clone(), torch.empty_like(S0),
+                                  cv0.clone(), torch.empty_like(cv0), *bargs,
+                                  srcf, pt.src_pos, pt.st_pos, pt.st_phi)
+        Sp, cp, smp_p = bkt_chunk_plain(S0.clone(), cv0.clone(), *bargs,
+                                        srcf, pt.src_pos, pt.st_pos,
+                                        pt.st_phi)
+        torch.cuda.synchronize()
+        r, err = rel(Sk, Sp)
+        rc_, cerr = crel(ck, cp)
+        srel = ((smp_k - smp_p).abs().max() / smp_p.abs().max()).item()
+        cases.append({"case": "soft", "elements": sim_bs.mesh.lenum,
+                      "dtype": str(f32), "conv": str(pt.step.conv_dtype),
+                      "conv_rows": pt.step.conv_rows, "steps": 10,
+                      "vs": "bkt_chunk_plain", "rel_err": r,
+                      "max_abs_err": err, "conv_rel_err": rc_,
+                      "conv_max_abs_err": cerr, "samples_rel_err": srel,
+                      "bound": 1e-4, "conv_bound": 5e-3})
+        require(r <= 1e-4 and srel <= 1e-4 and rc_ <= 5e-3,
+                f"K6 vs plain {cases[-1]}")
+        require(not Sk[:, pt.nb:].any() and not ck[:, pt.nb:].any(),
+                "K6 moved the padding")
+        kern["bkt_chunk_err"] = max(kern["bkt_chunk_err"], err)
         # the same buffers and the same src_pos tensor, its values moved
         # in place between two launches: K6 adds at the new nodes
         pt = tables(sim_sb, plan_sb, f64)
@@ -1164,6 +1233,245 @@ def main():
                     f"{f32_rel}")
         emit({"phase": "main_mesh_small", "runs": small_mesh})
 
+        # ---- 15b. outputs: 4-D volume, plane, checkpoints, restart ---
+        from hercules_tpu_torch.fixtures import add_output_keys
+        from hercules_tpu_torch.io.output4d import read_4d
+        from hercules_tpu_torch.io.planes import PlaneSet
+        from hercules_tpu_torch.sim import NodeGather
+        from hercules_tpu_torch.solver.fused_brick import pallas_u_global
+        OUT_STEPS, OUT_RATE, PLANE_RATE, CK_RATE = 400, 40, 20, 200
+        tap_timers = ("Solver", "Solver time loop", "Solver output taps")
+
+        def counted(fn):
+            """fn() with every launch counter set to 0 just before and
+            read just after: (its result, {kernel: launches})."""
+            for c in counters:
+                c.launches = 0
+            res = fn()
+            return res, {c.__name__: c.launches for c in counters
+                         if c.launches}
+
+        def cli_run(label, paths, dname):
+            """The CLI on a case: ({kernel: launches}, the timers'
+            seconds in the run)."""
+            before = {k: GLOBAL_TIMERS.value(k) for k in tap_timers}
+            out = io.StringIO()
+
+            def run():
+                with contextlib.redirect_stdout(out):
+                    return cli.main([f"--dtype={dname}", *paths])
+
+            rc, ran = counted(run)
+            with open(os.path.join(LOG, f"cli_outputs_{label}.log"),
+                      "w") as f:
+                f.write(out.getvalue())
+            require(rc == 0, f"outputs {label}: CLI exit code {rc}")
+            return ran, {k: GLOBAL_TIMERS.value(k) - before[k]
+                         for k in tap_timers}
+
+        def ck_step(path):
+            with np.load(path) as z:
+                return int(z["step"])
+
+        def host_ms(fn, reps=10):
+            """Median ms of fn() on the host's clock, the card synced."""
+            fn()
+            torch.cuda.synchronize()
+            ts = []
+            for _ in range(reps):
+                t = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                ts.append(1e3 * (time.perf_counter() - t))
+            return statistics.median(ts)
+
+        def station_rows(rundir):
+            return [open(os.path.join(rundir, "stations",
+                                      f"station.{i}")).read().splitlines()
+                    for i in range(5)]
+
+        # (label, write_box_case keywords, type, route, kernels, the
+        # phase-main run of the same case without taps (phase, type))
+        out_cases = (
+            ("box_k5", dict(), "float32", "cuda_chunk", ("brick_chunk",),
+             (main_launches, "float32")),
+            ("soft_k6", dict(damping="bkt", layers=SOFT_LAYERS,
+                             freq=1200.0 / (8 * 7.8125)),
+             "float32", "cuda_bkt_chunk", ("bkt_chunk",), None),
+            ("four_q_k3", four_big, "float32", "cuda_bkt_node_step",
+             ("bkt_node_step",), (node_launches, "float32")),
+            ("thin_k4", thin_big, "float64", "cuda_bkt_corner_step",
+             ("bkt_corner_step",), (corner_by_box["2^20_thin"],
+                                    "float64")),
+            ("graded_q", graded(7.8125, GRADED_Q_LAYERS, damping="bkt"),
+             "float32", "cuda_mesh", ("bkt_step", "bkt_node_step"), None))
+        out_res = {}
+        t_phase = time.perf_counter()
+        for label, kw, dname, route, kernels, main_run in out_cases:
+            a_dir = os.path.join(work, f"outputs_{label}_a")
+            b_dir = os.path.join(work, f"outputs_{label}_b")
+            paths = write_box_case(a_dir, 7.8125, OUT_STEPS, 5, **kw)
+            add_output_keys(paths[1], paths[2], OUT_RATE, PLANE_RATE,
+                            CK_RATE)
+            # run A: 400 steps from zero, every tap on
+            ran_a, sec_a = cli_run(f"{label}_a", paths, dname)
+            ck_a = os.path.join(a_dir, "checkpoints")
+            at = {ck_step(os.path.join(ck_a, f)): f
+                  for f in ("checkpoint.out0", "checkpoint.out1")}
+            require(sorted(at) == [CK_RATE, OUT_STEPS],
+                    f"outputs {label}: checkpoints of steps {sorted(at)}")
+            # run B: A's step-200 checkpoint as checkpoint.in, a copy of
+            # the case
+            shutil.copytree(os.path.join(a_dir, "in"),
+                            os.path.join(b_dir, "in"))
+            shutil.copy(paths[0], b_dir)
+            os.makedirs(os.path.join(b_dir, "checkpoints"))
+            shutil.copy(os.path.join(ck_a, at[CK_RATE]),
+                        os.path.join(b_dir, "checkpoints",
+                                     "checkpoint.in"))
+            b_paths = [os.path.join(b_dir, os.path.relpath(x, a_dir))
+                       for x in paths]
+            ran_b, sec_b = cli_run(f"{label}_b", b_paths, dname)
+            # the straight run to the last 4-D frame's step, no taps
+            sim_c = Simulation.setup(paths[1], paths[2], paths[0])
+            last = (OUT_STEPS - 1) // OUT_RATE * OUT_RATE
+            loop0 = GLOBAL_TIMERS.value("Solver time loop")
+            (state_c, _), ran_c = counted(lambda: sim_c.run(
+                device=dev, dtype=dts[dname], total_steps=last,
+                rundir=a_dir))
+            loop_c = GLOBAL_TIMERS.value("Solver time loop") - loop0
+            require(sim_c.solver_path_name == route,
+                    f"outputs {label}: route {sim_c.solver_path_name}")
+            for ran in (ran_a, ran_b, ran_c):
+                require(all(ran.get(k, 0) > 0 for k in kernels),
+                        f"outputs {label}: a kernel of the path never "
+                        f"ran: {ran}")
+            # the launches: a chunk kernel once per tap interval, a
+            # step kernel (per brick) once per step
+            chunk = np.gcd.reduce([OUT_RATE, PLANE_RATE, CK_RATE])
+            plan_c = build_plan(sim_c.mesh)
+            if route == "cuda_mesh":
+                per_step = fused_mesh.MeshPallasTables(
+                    plan_c, sim_c.tables, dtype=dts[dname],
+                    device=dev).launches_per_step()
+                want_a = {k: n * OUT_STEPS for k, n in per_step.items()}
+                want_b = {k: n * CK_RATE for k, n in per_step.items()}
+            elif route.endswith("chunk"):
+                want_a = {kernels[0]: OUT_STEPS // chunk}
+                want_b = {kernels[0]: CK_RATE // chunk}
+            else:
+                want_a = {kernels[0]: OUT_STEPS}
+                want_b = {kernels[0]: CK_RATE}
+            require(ran_a == want_a and ran_b == want_b,
+                    f"outputs {label}: launches A {ran_a} B {ran_b}, "
+                    f"want {want_a}, {want_b}")
+            # B's station rows are A's from step 200 on; B's 4-D frames
+            # after step 200 are A's, bit for bit (earlier ones holes)
+            rows_a, rows_b = station_rows(a_dir), station_rows(b_dir)
+            require(all(rb[0] == "" and rb[1:] == ra[1 + CK_RATE:]
+                        and len(ra) == 1 + OUT_STEPS
+                        for ra, rb in zip(rows_a, rows_b)),
+                    f"outputs {label}: resumed station rows differ")
+            frames = {}
+            k0 = CK_RATE // OUT_RATE + 1
+            for f in ("disp.h4d", "vel.h4d"):
+                _, fa = read_4d(os.path.join(a_dir, f))
+                _, fb = read_4d(os.path.join(b_dir, f))
+                require(np.array_equal(fa[k0:], fb[k0:])
+                        and not fb[:k0].any() and np.isfinite(fa).all()
+                        and np.abs(fa[-1]).max() > 0,
+                        f"outputs {label}: resumed {f} frames differ")
+                frames[f] = fa
+            # the step-400 checkpoints of A and B hold one state
+            with np.load(os.path.join(ck_a, at[OUT_STEPS])) as za, \
+                    np.load(os.path.join(b_dir, "checkpoints",
+                                         "checkpoint.out0")) as zb:
+                require(int(zb["step"]) == OUT_STEPS
+                        and za.files == zb.files
+                        and all(np.array_equal(za[k], zb[k])
+                                for k in za.files),
+                        f"outputs {label}: step-400 checkpoints differ")
+                ck_parts = {k: [list(za[k].shape), str(za[k].dtype)]
+                            for k in za.files if za[k].ndim}
+            # the last frames are the straight run's state; the plane
+            # records the phi-weighted corner sums of the frames
+            N_c = sim_c.mesh.nnum
+            if route == "cuda_mesh":
+                Ss = state_c[0]
+                u = fused_mesh.mesh_u_global(plan_c, [S[0:3] for S in Ss],
+                                             N_c)
+                up = fused_mesh.mesh_u_global(plan_c,
+                                              [S[3:6] for S in Ss], N_c)
+            else:
+                u = pallas_u_global(plan_c, state_c[0], N_c)
+                up = pallas_u_global(plan_c, state_c[1], N_c)
+            vel = (u - up) / sim_c.params.delta_t
+            # one tap's pieces on the host's clock, median of 10:
+            # plan.gnid_cat's copy to the card (once per run), a global
+            # [N, 3] field (scatter on the card and its copy to the
+            # host), that copy alone, and a plane-only record's corner
+            # gather
+            rows = ([S[0:3] for S in state_c[0]] if route == "cuda_mesh"
+                    else state_c[0])
+            gidx = torch.as_tensor(plan_c.gnid_cat, device=dev)
+            field = torch.as_tensor(u, device=dev)
+            ps = PlaneSet(sim_c.mesh, sim_c.params,
+                          os.path.join(work, f"outputs_{label}_tables"))
+            ps.close()
+            gather = NodeGather(plan_c, ps.all_nodes, N_c)
+            require(np.array_equal(gather(rows), u[ps.all_nodes]),
+                    f"outputs {label}: plane gather vs global field")
+            copies_ms = {
+                "gnid_to_card": host_ms(lambda: torch.as_tensor(
+                    plan_c.gnid_cat, device=dev)),
+                "global_field": host_ms(
+                    lambda: fused_mesh.mesh_u_global(plan_c, rows, N_c, gidx)
+                    if route == "cuda_mesh"
+                    else pallas_u_global(plan_c, rows, N_c, gidx)),
+                "field_to_host": host_ms(lambda: field.cpu().numpy()),
+                "plane_gather": host_ms(lambda: gather(rows))}
+            require(np.array_equal(frames["disp.h4d"][-1],
+                                   u.astype(np.float64))
+                    and np.array_equal(frames["vel.h4d"][-1],
+                                       vel.astype(np.float64)),
+                    f"outputs {label}: last frames are not the state of "
+                    f"the straight run")
+            recs = np.fromfile(os.path.join(a_dir, "planes",
+                                            "planedisplacements.0"))
+            recs = recs.reshape(OUT_STEPS // PLANE_RATE, -1, 3)
+            plane_err = 0.0
+            for k, fr in enumerate(frames["disp.h4d"]):
+                want = np.einsum("mk,mkc->mc", ps.all_phi,
+                                 fr[ps.all_nodes])
+                plane_err = max(plane_err, float(
+                    np.abs(recs[k * OUT_RATE // PLANE_RATE] - want).max()
+                    / max(np.abs(want).max(), 1e-300)))
+            require(plane_err <= 1e-12 and np.abs(recs).max() > 0,
+                    f"outputs {label}: plane records vs frames "
+                    f"{plane_err}")
+            with open(os.path.join(a_dir, "output-stats.txt")) as f:
+                io_s = float(re.search(r"io wall seconds\s*=\s*(\S+)",
+                                       f.read()).group(1))
+            out_res[label] = {
+                "elements": sim_c.mesh.lenum, "nodes": N_c,
+                "dtype": dname, "route": route,
+                "launches": {"a": ran_a, "b": ran_b, "straight": ran_c},
+                "with_taps_s": sec_a, "resumed_s": sec_b,
+                "straight_loop_s": loop_c, "straight_steps": last,
+                "loop_ms_per_step": {
+                    "with_taps": 1e3 * sec_a["Solver time loop"]
+                    / OUT_STEPS,
+                    "straight": 1e3 * loop_c / last},
+                "main_without_taps_s": None if main_run is None
+                else main_run[0]["seconds"][main_run[1]],
+                "disp_io_seconds": io_s, "tap_pieces_ms": copies_ms,
+                "checkpoint_parts": ck_parts,
+                "plane_rel_err": plane_err}
+        emit({"phase": "outputs", "steps": OUT_STEPS,
+              "output_rate": OUT_RATE, "planes_print_rate": PLANE_RATE,
+              "checkpointing_rate": CK_RATE, "card": roofline.card(),
+              "seconds": time.perf_counter() - t_phase, "cases": out_res})
+
         # ---- 16. accuracy: the CUDA mesh route against the brick solver
         def u_state(seed):
             """A random global (u, u-) pair, u ~ 1e-3 N(0, 1)."""
@@ -1381,12 +1689,8 @@ def main():
             ptb.st_phi), 3, 1) / 20]
         C[key] = roofline.route_costs(ptb, sim_bb.mesh.lenum,
                                       chunk=STEPS)["bkt_chunk"]
-        # beside them: the soft box meshed at 2^20 elements (12 rows of
+        # beside them: the soft box at 2^20 elements (12 rows of
         # bfloat16 memory variables, bulk attenuation on)
-        sim_bs, plan_bs, _ = box(7.8125, 20, 5, "big_soft", damping="bkt",
-                                 layers=SOFT_LAYERS,
-                                 freq=1200.0 / (8 * 7.8125))
-        require(sim_bs.mesh.lenum == 1 << 20, "soft 2^20 box")
         pts = tables(sim_bs, plan_bs, f32)
         require(pts.step.conv_dtype == torch.bfloat16, "soft conv type")
         Ss, cs = random_bkt_state(pts)

@@ -20,6 +20,13 @@ set), cuda_bkt_node_step (BKT, several Q sets, node tier),
 cuda_bkt_corner_step (BKT, corner tier) for a one-brick plan;
 cuda_mesh for a graded (multi-brick) plan, each brick on its own step
 kernel; torch_plain for either on --device=cpu.
+
+The JAX CLI's outputs and restart: output_displacement /
+output_velocity (4-D volume files), number_output_planes (plane
+files), use_checkpoint with checkpointing_rate (checkpoint.out0/1 in
+the checkpoint directory); with use_checkpoint = 1 a checkpoint.in
+there resumes the run from its step, and the station files are
+appended to.
 """
 
 from __future__ import annotations
@@ -93,7 +100,8 @@ def main(argv=None):
     from .physics.consts import critical_dt
     from .utils.stats import mesh_stats
 
-    from .sim import Simulation, write_station_files
+    from .sim import (SimOutputs, Simulation, read_restart,
+                      write_station_files)
     from .utils.timers import GLOBAL_TIMERS, measure, print_timing_stat
 
     t0 = time.time()
@@ -192,14 +200,21 @@ def main(argv=None):
         mon.print(f"step {done:8d}/{p.total_steps}  "
                   f"wall {el:8.1f}s  ETA {eta:8.1f}s\n")
 
+    # a checkpoint.in in the checkpoint directory resumes the run: read
+    # (and checked) before the output files are opened; then the 4-D
+    # volume, plane and checkpoint taps (closed by sim.run)
+    restart = read_restart(p, rundir)
+    outputs = SimOutputs(sim.mesh, p, rundir=rundir)
     with measure("Solver", device):
         state, samples = sim.run(
-            device=device, on_chunk=on_chunk,
+            device=device, on_chunk=on_chunk, outputs=outputs,
+            rundir=rundir, restart=restart,
             dtype=None if dtype_name is None else getattr(torch,
                                                           dtype_name))
     el = time.time() - t1
+    done_steps = max(p.total_steps - sim.start_step, 1)
     mon.print(f"solver path: {sim.solver_path_name}  "
-              f"({max(p.total_steps, 1) / max(el, 1e-9):.1f} steps/s)\n")
+              f"({done_steps / max(el, 1e-9):.1f} steps/s)\n")
     mon.print(f"solver_run done: {el:.1f} s\n")
 
     if sim.stations is not None:
@@ -210,7 +225,8 @@ def main(argv=None):
                             print_rate=p.stations_print_rate,
                             velocities=bool(p.print_station_velocities),
                             accelerations=bool(
-                                p.print_station_accelerations))
+                                p.print_station_accelerations),
+                            start_step=sim.start_step)
         mon.print(f"station files written: {outdir}\n")
 
     GLOBAL_TIMERS.stop("Total Wall Clock")

@@ -13,8 +13,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .solver.fused_brick import (PallasBrickTables, pallas_geometry,
-                                 pallas_u_global)
+from .solver.fused_brick import (PallasBrickTables, fit_field_cm,
+                                 pallas_geometry, pallas_u_global)
+from .solver.restart import conv_array
 
 
 def tables_from_jax(tables, plan, dtype=torch.float32, device="cuda",
@@ -41,10 +42,9 @@ def state_from_jax(S_np, plan):
     b = plan.bricks[0]
     LEN = pallas_geometry(b.nb)
     if isinstance(S_np, tuple):
-        u, up = (np.asarray(x) for x in S_np)
+        u, up = (fit_field_cm(plan, x, LEN) for x in S_np)
         S = np.zeros((8, LEN), u.dtype)
-        S[0:3, :b.nb] = u[plan.gnid_cat].T
-        S[3:6, :b.nb] = up[plan.gnid_cat].T
+        S[0:3], S[3:6] = u, up
         return S
     S_np = np.asarray(S_np)
     if S_np.ndim != 2 or S_np.shape[0] != 8 or S_np.shape[1] < b.nb:
@@ -66,21 +66,14 @@ def conv_from_jax(conv, plan):
     - the node tier's carry (conv_node, conv_mix [6 | 12, 8, M]) -> the
       pair (conv, conv_mix), conv_mix passed through.
 
-    Columns past the brick's nb nodes are dropped or zero-padded."""
+    Columns past the brick's nb nodes are dropped or zero-padded
+    (restart.conv_array, which reads a checkpoint's arrays too)."""
     if isinstance(conv, (tuple, list)):
         node, *mix = conv
         return (conv_from_jax(node, plan),) + tuple(
             np.asarray(m).astype(np.float64) for m in mix)
     b = plan.bricks[0]
-    cv = np.asarray(conv).astype(np.float64)
-    if cv.ndim != 2 or cv.shape[0] not in (6, 8, 12, 16, 48, 96) \
-            or cv.shape[1] < b.nb:
-        raise ValueError(f"expected a conv [8|16|48|96, >={b.nb}], got "
-                         f"{cv.shape}")
-    R = {8: 6, 16: 12}.get(cv.shape[0], cv.shape[0])
-    out = np.zeros((R, pallas_geometry(b.nb)))
-    out[:, :b.nb] = cv[:R, :b.nb]
-    return out
+    return conv_array(conv, pallas_geometry(b.nb), b.nb)
 
 
 def state_to_global(S, plan, N):
@@ -97,23 +90,18 @@ def mesh_state_from_jax(carry, plan):
     carry: packed ((S_0, ..., S_loose), ...) with S [8, *], legacy (us,
     ups, conv) with [3, *] entries, or a pair (u, up) of global [N, 3]
     displacement fields."""
-    NB = len(plan.bricks)
-    off_loose = plan.bricks[-1].off + plan.bricks[-1].nb if NB else 0
-    NL = plan.total_nb - off_loose
-    spans = [(b.off, b.nb, pallas_geometry(b.nb)) for b in plan.bricks]
-    spans.append((off_loose, NL, NL))
+    from .solver.fused_mesh import mesh_spans, mesh_states_of_fields
     if not isinstance(carry[0], (tuple, list)):          # global pair
-        u, up = (np.asarray(x) for x in carry)
-        pairs = [(u[plan.gnid_cat[o:o + n]].T, up[plan.gnid_cat[o:o + n]].T)
-                 for o, n, _ in spans]
-    elif np.shape(carry[0][0])[0] == 8:                  # packed
+        return (mesh_states_of_fields(plan, *carry), (), ())
+    if np.shape(carry[0][0])[0] == 8:                    # packed
         pairs = [(np.asarray(S)[0:3], np.asarray(S)[3:6]) for S in carry[0]]
     else:                                                # legacy
         pairs = [(np.asarray(u), np.asarray(up))
                  for u, up in zip(carry[0], carry[1])]
-    if len(pairs) != NB + 1:
-        raise ValueError(f"{len(pairs)} arrays, the plan has {NB} bricks "
-                         f"and the loose section")
+    spans = mesh_spans(plan)
+    if len(pairs) != len(spans):
+        raise ValueError(f"{len(pairs)} arrays, the plan has "
+                         f"{len(spans) - 1} bricks and the loose section")
     Ss = []
     for (o, n, LEN), (u, up) in zip(spans, pairs):
         S = np.zeros((8, LEN), u.dtype)

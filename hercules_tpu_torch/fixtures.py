@@ -206,6 +206,41 @@ def write_box_case(root, edge_m=62.5, steps=200, n_stations=2,
     return cvmdb, physics, numerical
 
 
+# one output plane over the box's surface: (lat, lon, depth, strike step
+# m, points along strike, dip step m, points down dip, strike, dip) --
+# 17 x 17 points 50 m apart from (100, 100) m north and east
+SURFACE_PLANE = (0.001, 0.001, 0.0, 50.0, 17, 50.0, 17, 0.0, 0.0)
+
+
+def add_output_keys(physics_in, numerical_in, output_rate=None,
+                    planes_rate=None, checkpointing_rate=None):
+    """Turn on a case's outputs, each whose rate is given: 4-D
+    displacement and velocity (``disp.h4d``, ``vel.h4d``) every
+    ``output_rate`` steps, SURFACE_PLANE (``planes/``) every
+    ``planes_rate``, checkpoints (``checkpoints/``, use_checkpoint = 1:
+    a ``checkpoint.in`` there resumes the run) every
+    ``checkpointing_rate``."""
+    if output_rate:
+        with open(physics_in, "a") as f:
+            f.write("output_displacement = yes\n"
+                    "output_velocity = yes\n"
+                    "output_displacement_file = disp.h4d\n"
+                    "output_velocity_file = vel.h4d\n")
+    with open(numerical_in, "a") as f:
+        if output_rate:
+            f.write(f"simulation_output_rate = {output_rate}\n")
+        if planes_rate:
+            f.write(f"number_output_planes = 1\n"
+                    f"output_planes_print_rate = {planes_rate}\n"
+                    f"output_planes_directory = planes\n"
+                    f"output_planes =\n"
+                    f" {' '.join(f'{v:g}' for v in SURFACE_PLANE)}\n")
+        if checkpointing_rate:
+            f.write(f"use_checkpoint = 1\n"
+                    f"checkpointing_rate = {checkpointing_rate}\n"
+                    f"checkpoint_path = checkpoints\n")
+
+
 def box_simulation(root, edge_m=62.5, steps=200, n_stations=2, **case):
     """Write the box case into ``root`` and set it up: the port's
     ``Simulation`` (mesh, tables, source forces, stations).  ``case``:
@@ -237,15 +272,12 @@ def _set_keys(path, subs):
 def terashake_case(root):
     """Copy ``examples/terashake/run/`` into ``root`` and make the copy
     run on the port; returns the paths (cvmdb, physics_in,
-    numerical_in).  Two keys change: ``simulation_displacement_out =
-    0`` in numerical.in (the port does not write 4-D output yet), and
-    one time window in the source (``number_of_time_windows = 1``,
-    ``time_windows = 0``): the committed slip.in and rake.in hold one
-    window's 8 x 50 values, where source.in asks for six."""
+    numerical_in).  One time window in the source
+    (``number_of_time_windows = 1``, ``time_windows = 0``): the
+    committed slip.in and rake.in hold one window's 8 x 50 values,
+    where source.in asks for six."""
     shutil.copytree(TERASHAKE_RUN, root, dirs_exist_ok=True)
     numerical = os.path.join(root, "in", "numerical.in")
-    _set_keys(numerical, [(r"^(simulation_displacement_out\s*=\s*)\S+",
-                           r"\g<1>0")])
     _set_keys(os.path.join(root, "in", "src", "source.in"),
               [(r"^(number_of_time_windows\s*=\s*)\S+", r"\g<1>1"),
                (r"^(time_windows\s*=\s*\n)[^\n]*", r"\g<1>0")])

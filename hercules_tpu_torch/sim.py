@@ -6,7 +6,8 @@ Counterpart of ``hercules_tpu/sim.py`` (which imports jax).  The host
 stages are the port's copies of the JAX package's numpy modules
 (``config``, ``cvm``, ``meshgen``, ``mesh``, ``physics``, ``source``);
 ``StationSet``, ``setup_stations`` and ``write_station_files`` are
-copied from it.
+copied from it, ``SimOutputs`` (4-D volume, plane and checkpoint taps)
+ported from it; ``read_restart`` is its restart from ``checkpoint.in``.
 ``Simulation.run`` covers every plan ``build_plan`` makes, with
 Rayleigh, mass or no damping or BKT (on its three tiers: uniform Q,
 general Q with node-basis memory variables, or corner-basis memory
@@ -18,6 +19,7 @@ NotImplementedError naming their ROADMAP.md queue item.
 
 from __future__ import annotations
 
+import math
 import os
 import sys
 from dataclasses import dataclass
@@ -123,6 +125,256 @@ def write_station_files(outdir, stations: StationSet, samples, dt,
             f.write("\n")
 
 
+def _host(t):
+    """A host copy of a state tensor, bfloat16 widened to float32
+    (exactly: numpy has no bfloat16).  A copy, because the routes
+    reuse their buffers while the writers' threads still hold it."""
+    dt = torch.float32 if t.dtype == torch.bfloat16 else t.dtype
+    return t.detach().to("cpu", dt, copy=True).numpy()
+
+
+class SimOutputs:
+    """Per-run output taps: 4-D volume files, plane files, checkpoints
+    (hercules_tpu/sim.py:SimOutputs).
+
+    Every tap fires at a chunk boundary, with the state at that step:
+    the solver runs in chunks of the greatest common divisor of the
+    active rates (the reference taps at loop top with the displacement
+    of the previous update -- equivalent at rate boundaries).  The
+    JAX package's snapshots from inside its scan (``snap_every``), a
+    device for large TPU dispatches, have no counterpart here: a chunk
+    kernel's launch covers one tap interval."""
+
+    def __init__(self, mesh, params, rundir="."):
+        self.mesh = mesh
+        self.params = params
+        self._rundir = rundir
+        self.out4d = []
+        self.planes = None
+        self.ckpt_dir = None
+        rates = []
+        p = params
+
+        def absdir(d):
+            return d if os.path.isabs(d) else os.path.join(rundir, d)
+
+        if p.output_displacement or p.output_velocity:
+            from .io.output4d import Output4D
+            if p.output_displacement:
+                path = absdir(p.output_displacement_file)
+                os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+                self.out4d.append(("displacement",
+                                   Output4D(path, mesh, p,
+                                            "displacement")))
+            if p.output_velocity:
+                path = absdir(p.output_velocity_file)
+                os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+                self.out4d.append(("velocity",
+                                   Output4D(path, mesh, p, "velocity")))
+            rates.append(p.output_rate)
+        if p.number_output_planes:
+            from .io.planes import PlaneSet
+            self.planes = PlaneSet(mesh, p, absdir(p.planes_dir or
+                                                   "planes"))
+            rates.append(p.planes_print_rate)
+        if p.use_checkpoint and p.checkpointing_rate:
+            self.ckpt_dir = absdir(p.checkpoint_path or "checkpoints")
+            rates.append(p.checkpointing_rate)
+        self.active = bool(rates)
+        self._gcd = math.gcd(*rates) if rates else 0
+
+    def chunk_for(self, desired=1000):
+        """Chunk size: the gcd of the active rates, so that every tap
+        falls on a chunk boundary; ``desired`` when no tap is on."""
+        return self._gcd or desired
+
+    def make_hook(self, plan, inner=None, start_step=0):
+        """on_chunk(done, state) of the run: the taps at their rates,
+        then ``inner``.  ``state`` is the route's view: (u, up[, conv[,
+        conv_mix]]) of one brick (fused_brick.packed_snap_of), or the
+        mesh state (Ss, convs, lconv)."""
+        from .solver.fused_brick import pallas_u_global
+        from .solver.fused_mesh import mesh_conv_flat, mesh_u_global
+        N = self.mesh.nnum
+        p = self.params
+
+        def views(state):
+            """(u rows, u- rows, flat memory variables) of a state."""
+            if isinstance(state[0], tuple):
+                Ss = state[0]
+                return ([S[0:3] for S in Ss], [S[3:6] for S in Ss],
+                        mesh_conv_flat(state))
+            return state[0], state[1], tuple(state[2:])
+
+        gnid = {}           # plan.gnid_cat on a device, copied once
+
+        def index_on(dev):
+            if dev not in gnid:
+                gnid[dev] = torch.as_tensor(plan.gnid_cat, device=dev)
+            return gnid[dev]
+
+        def global_of(rows):
+            if isinstance(rows, list):
+                return mesh_u_global(plan, rows, N, index_on(rows[0].device))
+            return pallas_u_global(plan, rows, N, index_on(rows.device))
+
+        gather = []         # the planes' NodeGather, made once
+
+        def plane_values(u_rows):
+            if not gather:
+                gather.append(NodeGather(plan, self.planes.all_nodes, N))
+            return gather[0](u_rows)
+
+        # step-0 records (the reference's loop-top output of the zero
+        # initial field); skipped on checkpoint restart
+        if start_step == 0:
+            zero = np.zeros((N, 3))
+            for kind, w in self.out4d:
+                w.maybe_write(0, zero)
+            if self.planes is not None:
+                self.planes.maybe_write(
+                    0, lambda nodes, phi: np.zeros((len(nodes), 3)))
+
+        def taps(done, state):
+            u_rows, up_rows, tail = views(state)
+            memo = {}
+
+            def ug(which=0):
+                """The global [N, 3] u (0) or u- (1), made once."""
+                if which not in memo:
+                    memo[which] = global_of((u_rows, up_rows)[which])
+                return memo[which]
+
+            due4d = [(kind, w) for kind, w in self.out4d
+                     if done % w.rate == 0 and done // w.rate < w.out_steps]
+            due_ck = (self.ckpt_dir is not None
+                      and done % p.checkpointing_rate == 0)
+            for kind, w in due4d:
+                if kind == "displacement":
+                    w.maybe_write(done, ug())
+                else:
+                    w.maybe_write(done, (ug() - ug(1)) / p.delta_t)
+            if (self.planes is not None and done < p.total_steps
+                    and done % p.planes_print_rate == 0):
+                # the corners from the global field where one is made
+                # at this step, else gathered alone (the same values)
+                def sampler(nodes, phi):
+                    un = (ug()[nodes] if due4d or due_ck
+                          else plane_values(u_rows))
+                    return np.einsum("mk,mkc->mc", phi, un)
+
+                self.planes.maybe_write(done, sampler)
+            if due_ck:
+                from .io.checkpoint import checkpoint_write_async
+                # canonical global [N, 3] fields on every route; the
+                # memory variables in the route's own layout
+                checkpoint_write_async(
+                    self.ckpt_dir, done,
+                    (ug(), ug(1), tuple(_host(x) for x in tail)),
+                    extra={"damping": np.asarray(p.type_of_damping),
+                           "has_nl": np.asarray(
+                               bool(p.include_nonlinear))})
+
+        def hook(done, state):
+            # the taps' host time (device-to-host copies, global fields,
+            # plane sampling, queueing), beside the writers' own
+            # io_seconds
+            with measure("Solver output taps"):
+                taps(done, state)
+            if inner is not None:
+                inner(done, state)
+
+        return hook
+
+    def close(self):
+        if self.ckpt_dir is not None:
+            from .io.checkpoint import checkpoint_flush
+            checkpoint_flush()
+        for _, w in self.out4d:
+            w.close()
+        if self.out4d and self.params.output_stats_file:
+            path = self.params.output_stats_file
+            if not os.path.isabs(path):
+                path = os.path.join(self._rundir, path)
+            self.out4d[0][1].write_stats(path)
+        if self.planes is not None:
+            self.planes.close()
+
+
+class NodeGather:
+    """u at the global nodes ``nodes`` (ids < N, any shape), read from a
+    state where it lies: only those nodes reach the host.
+
+    Each node's array of fused_mesh.mesh_spans (a single brick's state
+    is array 0) and column there are found once; a node held by several
+    arrays is read from the last, as mesh_u_global writes it, and a
+    node of no array reads zero.  So the values are the global field's
+    at those nodes, bit for bit."""
+
+    def __init__(self, plan, nodes, N):
+        from .solver.fused_mesh import mesh_spans
+        g, inv = np.unique(np.asarray(nodes), return_inverse=True)
+        arr_of = np.full(N, -1)
+        col_of = np.zeros(N, np.int64)
+        for a, (off, n, _) in enumerate(mesh_spans(plan)):
+            arr_of[plan.gnid_cat[off:off + n]] = a
+            col_of[plan.gnid_cat[off:off + n]] = np.arange(n)
+        self.n, self.inv = len(g), inv.reshape(np.shape(nodes))
+        self.parts = []     # (array, indices among g, columns)
+        for a in np.unique(arr_of[g]):
+            at = np.flatnonzero(arr_of[g] == a)
+            if a >= 0:
+                self.parts.append((int(a), at, col_of[g[at]]))
+        self._on = {}       # the parts' indices on a device
+
+    def __call__(self, rows):
+        """u [nodes' shape + (3,)] (numpy) from the u rows of one
+        brick's state [3, LEN] or of every array of a mesh state."""
+        rows = rows if isinstance(rows, list) else [rows]
+        dev = rows[0].device
+        if dev not in self._on:
+            self._on[dev] = [(a, torch.as_tensor(at, device=dev),
+                              torch.as_tensor(cols, device=dev))
+                             for a, at, cols in self.parts]
+        vals = rows[0].new_zeros((self.n, 3))
+        for a, at, cols in self._on[dev]:
+            vals[at] = rows[a][:3, cols].T
+        return vals.cpu().numpy()[self.inv]
+
+
+def read_restart(params, rundir="."):
+    """(start_step, restart.Checkpoint or None): the state in
+    ``checkpoint.in`` of the run's checkpoint directory when
+    use_checkpoint = 1 and the file is there (psolve.c:4248), after
+    checking the damping and the nonlinear presence it was written
+    with against this run's."""
+    from .io.checkpoint import checkpoint_read
+    from .solver.restart import Checkpoint
+    p = params
+    if p.use_checkpoint != 1:
+        return 0, None
+    ckdir = p.checkpoint_path or "checkpoints"
+    if not os.path.isabs(ckdir):
+        ckdir = os.path.join(rundir, ckdir)
+    ckin = os.path.join(ckdir, "checkpoint.in")
+    if not os.path.exists(ckin):
+        return 0, None
+    start_step, u_now, u_prev, conv, extras = checkpoint_read(ckin)
+    if "damping" in extras:
+        ck_damp = str(extras["damping"])
+        if ck_damp != p.type_of_damping:
+            raise RuntimeError(f"checkpoint was written with damping="
+                               f"{ck_damp}; this run uses "
+                               f"{p.type_of_damping}")
+    if "has_nl" in extras:
+        ck_nl = bool(extras["has_nl"])
+        if ck_nl != bool(p.include_nonlinear):
+            raise RuntimeError(f"checkpoint nonlinear presence ({ck_nl}) "
+                               f"does not match this run "
+                               f"({bool(p.include_nonlinear)})")
+    return start_step, Checkpoint(u_now, u_prev, tuple(conv))
+
+
 def _unsupported(params):
     """The first feature of ``params`` this slice does not run, with
     the ROADMAP.md queue item that ports it, or None."""
@@ -133,10 +385,6 @@ def _unsupported(params):
         (p.include_buildings, "buildings (Queue 1, item 7)"),
         (p.type_of_damping not in ("rayleigh", "mass", "none", "bkt"),
          f"damping={p.type_of_damping} (Queue 1, item 5)"),
-        (p.use_checkpoint, "checkpoint/restart (Queue 1, item 3)"),
-        (p.output_displacement or p.output_velocity,
-         "4-D volume output (Queue 1, item 3)"),
-        (p.number_output_planes, "plane output (Queue 1, item 3)"),
     )
     for bad, what in checks:
         if bad:
@@ -163,6 +411,8 @@ class Simulation:
     # interfaces reconciled between) or "torch_plain" (the single-brick
     # or the mesh route on the plain versions, on the CPU)
     solver_path_name: str = ""
+    # the step the last .run() started from (a checkpoint's, else 0)
+    start_step: int = 0
 
     @classmethod
     def setup(cls, physics_in, numerical_in=None, cvmdb=None,
@@ -213,7 +463,7 @@ class Simulation:
                    stations=stations)
 
     def run(self, device="cuda", dtype=None, chunk=None, total_steps=None,
-            on_chunk=None):
+            on_chunk=None, outputs=None, rundir=".", restart=None):
         """The time loop on ``device`` in ``dtype`` (float32 on CUDA and
         float64 on the CPU by default), routed by the brick plan: one
         brick with no loose elements takes the single-brick routes
@@ -221,7 +471,17 @@ class Simulation:
         the brick), which return ((u, up[, conv[, conv_mix]]) tensors,
         samples [T, ns, 3] numpy); every other plan (several bricks, or
         one brick with loose elements) the mesh route
-        (fused_mesh.run_mesh_solver: (Ss, convs, lconv), samples)."""
+        (fused_mesh.run_mesh_solver: (Ss, convs, lconv), samples).
+
+        ``outputs``: a SimOutputs whose taps (4-D volume, planes,
+        checkpoints) fire at chunks of the gcd of their rates; it is
+        closed when the loop ends.  With use_checkpoint = 1 and a
+        ``checkpoint.in`` in the checkpoint directory (relative to
+        ``rundir``), the run resumes from it (read_restart) and
+        ``self.start_step`` is its step: the samples then cover steps
+        [start_step, total_steps).  ``restart``: read_restart's result
+        when the caller read it already (the CLI does, before it opens
+        the output files, so that a refused checkpoint touches none)."""
         from .solver.bricks import build_plan
         from .solver.fused_brick import plan_applies, run_pallas_solver
         from .solver.fused_mesh import run_mesh_solver
@@ -233,22 +493,34 @@ class Simulation:
         p = self.params
         steps = total_steps if total_steps is not None else p.total_steps
         st = self.stations
-        try:
-            with measure("Solver plan"):
-                plan = build_plan(self.mesh)
-        except RuntimeError as e:
-            raise NotImplementedError(
-                f"mesh does not decompose into bricks ({e}); the "
-                f"unstructured solver is Queue 1, item 4") from e
 
         def on_route(name):
             self.solver_path_name = name
 
-        kw = dict(st_nodes=None if st is None else st.nodes,
-                  st_phi=None if st is None else st.phi, dtype=dtype,
-                  device=device, chunk=chunk, on_chunk=on_chunk)
-        args = (plan, self.tables, self.src_ids, self.src_forces, steps,
-                p.delta_t)
-        if plan_applies(plan, self.tables.damping):
-            return run_pallas_solver(*args, on_route=on_route, **kw)
-        return run_mesh_solver(*args, on_route=on_route, **kw)
+        try:
+            try:
+                with measure("Solver plan"):
+                    plan = build_plan(self.mesh)
+            except RuntimeError as e:
+                raise NotImplementedError(
+                    f"mesh does not decompose into bricks ({e}); the "
+                    f"unstructured solver is Queue 1, item 4") from e
+            self.start_step, ck = (read_restart(p, rundir)
+                                   if restart is None else restart)
+            hook = on_chunk
+            if outputs is not None and outputs.active:
+                chunk = outputs.chunk_for(chunk or 1000)
+                hook = outputs.make_hook(plan, on_chunk,
+                                         start_step=self.start_step)
+            kw = dict(st_nodes=None if st is None else st.nodes,
+                      st_phi=None if st is None else st.phi, dtype=dtype,
+                      device=device, chunk=chunk, on_chunk=hook, state=ck,
+                      start_step=self.start_step)
+            args = (plan, self.tables, self.src_ids, self.src_forces, steps,
+                    p.delta_t)
+            if plan_applies(plan, self.tables.damping):
+                return run_pallas_solver(*args, on_route=on_route, **kw)
+            return run_mesh_solver(*args, on_route=on_route, **kw)
+        finally:
+            if outputs is not None:
+                outputs.close()

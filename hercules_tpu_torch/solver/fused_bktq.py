@@ -352,22 +352,34 @@ def bkt_step_module(plan, tables, LEN, offs, dtype, device, tier=None):
     (unless bkt_nodeq_tables declines), corner.  A tier named in
     ``tier`` is taken, or ValueError raised if it cannot hold the brick
     (uniform: more than one set; node: more than NODEQ_MAX_SETS sets);
-    a forced node tier ignores the mixed-share and size rules."""
+    a forced node tier ignores the mixed-share and size rules.
+
+    The module also keeps what a restart's basis conversions read
+    (``solver/restart.py``): ``evalid`` [LEN] bool, and ``node_src``
+    and ``mixed_cols``, the node assignment, where the node tables were
+    built (the node tier, and the corner tier the rule fell back to);
+    None elsewhere."""
     if tier not in (None, *BKT_TIERS):
         raise ValueError(f"bkt_tier must be one of {BKT_TIERS}, got {tier!r}")
+    mod = nq = None
     if tier in (None, "uniform"):
         mod = uniform_step_module(plan, tables, LEN, offs, dtype, device)
-        if mod is not None:
-            return mod
-        if tier == "uniform":
+        if mod is None and tier == "uniform":
             raise ValueError("bkt_tier='uniform': the brick has more than "
                              "one BKT coefficient set")
-    if tier in (None, "node"):
+    if mod is None and tier in (None, "node"):
         nq = node_tables(plan, tables, LEN, offs, force=tier == "node")
         if not nq["declined"]:
-            return node_step_module(nq, offs, bkt_kappa_zero(tables.bkt),
-                                    dtype, device), nq["K"]
-        if tier == "node":
+            mod = (node_step_module(nq, offs, bkt_kappa_zero(tables.bkt),
+                                    dtype, device), nq["K"])
+        elif tier == "node":
             raise ValueError(f"bkt_tier='node': {len(nq['sets'])} "
                              f"coefficient sets (at most {NODEQ_MAX_SETS})")
-    return corner_step_module(plan, tables, LEN, offs, dtype, device)
+    if mod is None:
+        mod = corner_step_module(plan, tables, LEN, offs, dtype, device)
+    step = mod[0]
+    step.evalid = np.zeros(LEN, bool)
+    step.evalid[:len(plan.evalid_cat)] = plan.evalid_cat
+    step.node_src = None if nq is None else nq["node_src"]
+    step.mixed_cols = None if nq is None else nq["mixed_cols"]
+    return mod

@@ -50,6 +50,7 @@ from ..kernels.brick_step import brick_step
 from ..utils.timers import measure
 from .chunking import run_chunked
 from .fused_bktq import bkt_step_module
+from .restart import Checkpoint, fit_conv
 
 
 def plan_applies(plan, damping) -> bool:
@@ -262,6 +263,38 @@ def fit_packed_state(pt: PallasBrickTables, state):
     return tuple(out) + want[len(out):]
 
 
+def fit_field_cm(plan, x, LEN):
+    """A displacement field as the brick's [3, LEN] (numpy, in the
+    field's type): canonical global [N, 3], or component-major [3, X]
+    in the brick's column order with any padding (the JAX package's
+    single-brick checkpoints), cut or zero-padded to LEN."""
+    x = np.asarray(x)
+    if x.ndim == 2 and x.shape[1] == 3 and x.shape[0] != 3:
+        x = x[plan.gnid_cat].T
+    if x.ndim != 2 or x.shape[0] != 3:
+        raise RuntimeError("checkpoint field layout does not match the "
+                           "fused kernel")
+    out = np.zeros((3, LEN), x.dtype)
+    w = min(LEN, x.shape[1])
+    out[:, :w] = x[:, :w]
+    return out
+
+
+def restore_packed_state(pt: PallasBrickTables, plan, ck: Checkpoint):
+    """The packed state of a checkpoint (restart.Checkpoint): S from the
+    two fields (fit_field_cm); for BKT the memory variables of the
+    brick's tier from ``ck.conv`` (restart.fit_conv: conv, then the node
+    tier's conv_mix; the other basis converted), in the solver's types
+    and device."""
+    S = np.zeros((8, pt.LEN))
+    S[0:3] = fit_field_cm(plan, ck.u_now, pt.LEN)
+    S[3:6] = fit_field_cm(plan, ck.u_prev, pt.LEN)
+    conv = ()
+    if pt.damping == "bkt":
+        conv = fit_conv(pt.step, pt.LEN, ck.conv)
+    return fit_packed_state(pt, (S,) + conv)
+
+
 def packed_snap_of(state):
     """(u, up[, conv[, conv_mix]]) views of the packed state."""
     return (state[0][0:3], state[0][3:6]) + tuple(state[1:])
@@ -335,6 +368,8 @@ def run_pallas_solver(plan, tables, src_ids, src_forces, total_steps, dt,
     """Chunked time loop on one brick; the contract of the JAX
     package's run_pallas_solver.  ``state``: an initial packed state
     (tensors or arrays, see fit_packed_state), zero when None.
+    A restart.Checkpoint as ``state`` resumes it (restore_packed_state)
+    at ``start_step``.
     ``route``: "chunk" (brick_chunk / bkt_chunk) or "step" (the step
     kernel of the damping and BKT tier); None picks by chunk_applies.
     ``bkt_tier`` forces a BKT tier (PallasBrickTables).  ``on_route``,
@@ -348,8 +383,12 @@ def run_pallas_solver(plan, tables, src_ids, src_forces, total_steps, dt,
                                st_nodes=st_nodes, st_phi=st_phi,
                                dtype=dtype, device=device,
                                bkt_tier=bkt_tier)
-    state = (init_packed_state(pt) if state is None
-             else fit_packed_state(pt, state))
+    if state is None:
+        state = init_packed_state(pt)
+    elif isinstance(state, Checkpoint):
+        state = restore_packed_state(pt, plan, state)
+    else:
+        state = fit_packed_state(pt, state)
     if chunk is None:
         chunk = min(total_steps, 1000)
     if route is None:
@@ -372,10 +411,14 @@ def run_pallas_solver(plan, tables, src_ids, src_forces, total_steps, dt,
     return packed_snap_of(state), samples
 
 
-def pallas_u_global(plan, u_pad, N):
-    """Global [N, 3] displacement from the padded [3, LEN] field."""
-    b = plan.bricks[0]
-    arr = np.asarray(torch.as_tensor(u_pad).cpu())[:, :b.nb].T
-    u = np.zeros((N, 3), arr.dtype)
-    u[plan.gnid_cat] = arr
-    return u
+def pallas_u_global(plan, u_pad, N, gnid=None):
+    """Global [N, 3] displacement (numpy, in the field's type) from the
+    padded [3, LEN] field: scattered where the field lies, then one copy
+    to the host.  ``gnid``: plan.gnid_cat already on the field's device
+    (copied there when None)."""
+    t = torch.as_tensor(u_pad)
+    if gnid is None:
+        gnid = torch.as_tensor(plan.gnid_cat, device=t.device)
+    u = t.new_zeros((N, 3))
+    u[gnid] = t[:3, :plan.bricks[0].nb].T
+    return u.cpu().numpy()

@@ -49,7 +49,7 @@ variables (empty for elastic bricks), lconv the loose elements' tuple
 (empty without BKT or loose elements).
 
 Not ported: the nonlinear and DRM branches of the JAX step (ROADMAP
-Queue 1, item 7), the restart of a mesh state (item 3), and the TPU's
+Queue 1, item 7), and the TPU's
 layout switches (``HT_MESH_PACKED``, ``HT_MESH_ABLATE``,
 ``HT_BKT_UNIFORM``, ``HT_PALLAS_TILE``, the elastic ``_tier_kco``
 tiers).
@@ -69,6 +69,7 @@ from .fused_brick import (BrickStep, pack_constants, pallas_geometry,
                           solver_device)
 from .fused_bktq import bkt_step_module
 from .planerec import PlaneReconciler
+from .restart import Checkpoint, fit_conv
 
 RECONCILERS = ("plane", "index")
 
@@ -306,6 +307,7 @@ class MeshPallasTables:
                              f"None, got {reconciler!r}")
         self.dtype, self.device = dtype, solver_device(device)
         dev = self.device
+        self.plan = plan
         self.damping = tables.damping
         bkt = self.damping == "bkt"
         f = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype,
@@ -440,6 +442,94 @@ def fit_mesh_state(mt: MeshPallasTables, state):
     return fit(tuple(state), want)
 
 
+def mesh_conv_flat(state):
+    """The memory variables of a mesh state (Ss, convs, lconv) in the
+    order of the JAX package's mesh checkpoints: each BKT brick's conv
+    in brick order, the loose elements' four arrays, then the conv_mix
+    of each node-tier brick with mixed elements, in brick order."""
+    _, convs, lconv = state
+    return (tuple(c[0] for c in convs if c) + tuple(lconv)
+            + tuple(c[1] for c in convs if len(c) > 1))
+
+
+def _fit_mesh_conv(mt: MeshPallasTables, conv_flat):
+    """(convs, lconv), float64 numpy, of a checkpoint's flat memory
+    variables (mesh_conv_flat's order).  Each brick's array, in the node
+    or the corner basis, is fitted to its own tier (restart.fit_conv:
+    the other basis converted); the conv_mix arrays are optional, as in
+    the JAX package's mesh checkpoints of the corner basis."""
+    arrays = list(conv_flat)
+    NB = mt.NB
+    n_loose = 4 if mt.El and mt.damping == "bkt" else 0
+    mix_bricks = [b for b in range(NB)
+                  if mt.tiers[b] == "node" and mt.steps[b].mix_M]
+    base = (NB if mt.damping == "bkt" else 0) + n_loose
+    if len(arrays) == base:
+        mixes = {}
+    elif len(arrays) == base + len(mix_bricks):
+        mixes = dict(zip(mix_bricks, arrays[base:]))
+    else:
+        raise RuntimeError(
+            f"checkpoint BKT state has {len(arrays)} arrays; the "
+            f"multi-brick layout wants {NB if base else 0} brick + "
+            f"{n_loose} loose (+ {len(mix_bricks)} mixed-element "
+            f"carries); restart with the solver path that wrote it")
+    if mt.damping != "bkt":
+        return (), ()
+    convs = tuple(
+        fit_conv(mt.steps[b], mt.LENs[b],
+                 (arrays[b],) + ((mixes[b],) if b in mixes else ()))
+        for b in range(NB))
+    lconv = ()
+    if n_loose:
+        want = (mt.El, 8, 3)
+        lconv = tuple(np.asarray(a, np.float64)
+                      for a in arrays[NB:NB + 4])
+        if any(a.shape != want for a in lconv):
+            raise RuntimeError(f"checkpoint loose-element BKT state "
+                               f"{[a.shape for a in lconv]} does not "
+                               f"match {want}")
+    return convs, lconv
+
+
+def mesh_spans(plan):
+    """(first position in plan.gnid_cat, nodes, LEN) of every brick's
+    array, then of the loose section's."""
+    spans = [(b.off, b.nb, pallas_geometry(b.nb)) for b in plan.bricks]
+    off_loose = (plan.bricks[-1].off + plan.bricks[-1].nb
+                 if plan.bricks else 0)
+    NL = plan.total_nb - off_loose
+    return spans + [(off_loose, NL, NL)]
+
+
+def mesh_states_of_fields(plan, u, up):
+    """S [8, LEN] (numpy, in the fields' type) of every brick and of the
+    loose section from two canonical global [N, 3] fields u and u-;
+    RuntimeError for fields of another layout."""
+    u, up = np.asarray(u), np.asarray(up)
+    if any(x.ndim != 2 or x.shape[1] != 3 for x in (u, up)):
+        raise RuntimeError("checkpoint layout does not match the "
+                           "multi-brick solver")
+    Ss = []
+    for off, n, L in mesh_spans(plan):
+        S = np.zeros((8, L), u.dtype)
+        for r, x in zip((0, 3), (u, up)):
+            S[r:r + 3, :n] = x[plan.gnid_cat[off:off + n]].T
+        Ss.append(S)
+    return tuple(Ss)
+
+
+def restore_mesh_state(mt: MeshPallasTables, ck: Checkpoint):
+    """The mesh state (Ss, convs, lconv) of a checkpoint
+    (restart.Checkpoint): canonical global [N, 3] fields split into
+    every brick's and the loose section's S (mesh_states_of_fields),
+    the memory variables by _fit_mesh_conv, in the solver's types and
+    device."""
+    Ss = mesh_states_of_fields(mt.plan, ck.u_now, ck.u_prev)
+    convs, lconv = _fit_mesh_conv(mt, ck.conv)
+    return fit_mesh_state(mt, (Ss, convs, lconv))
+
+
 def make_mesh_step(mt: MeshPallasTables):
     """step(state, spare, srcf) -> (new state, sample [ns, 3]): one step
     from ``state`` into the buffers of ``spare`` (same structure; the
@@ -547,7 +637,8 @@ def run_mesh_solver(plan, tables, src_ids, src_forces, total_steps, dt,
                     on_route=None):
     """Chunked time loop on a multi-brick plan; the contract of the JAX
     package's run_mesh_solver.  ``state``: an initial mesh state (see
-    fit_mesh_state), zero when None.  ``reconciler``: see
+    fit_mesh_state), zero when None; a restart.Checkpoint resumes it
+    (restore_mesh_state) at ``start_step``.  ``reconciler``: see
     MeshPallasTables.  ``on_route``, if given, is called with the
     route's name before the loop.  Returns ((Ss, convs, lconv), samples
     [T, ns, 3] numpy).  Runs on the CUDA device unless ``device`` is the
@@ -567,8 +658,12 @@ def run_mesh(mt: MeshPallasTables, src_forces, total_steps, dt, chunk=None,
              state=None, on_chunk=None, start_step=0, on_samples=None,
              on_route=None):
     """run_mesh_solver's time loop on tables already built."""
-    state = (init_mesh_state(mt) if state is None
-             else fit_mesh_state(mt, state))
+    if state is None:
+        state = init_mesh_state(mt)
+    elif isinstance(state, Checkpoint):
+        state = restore_mesh_state(mt, state)
+    else:
+        state = fit_mesh_state(mt, state)
     if chunk is None:
         chunk = min(total_steps, 1000)
     if on_route is not None:
@@ -594,14 +689,24 @@ def run_mesh(mt: MeshPallasTables, src_forces, total_steps, dt, chunk=None,
                            on_chunk=on_chunk, on_samples=on_samples)
 
 
-def mesh_u_global(plan, Ss, N):
-    """Global [N, 3] displacement from the per-array states (rows 0:3
-    are u; brick columns past nb are padding)."""
-    arrs = [np.asarray(torch.as_tensor(S).cpu()) for S in Ss]
-    u = np.zeros((N, 3), arrs[-1].dtype)
-    for b, arr in zip(plan.bricks, arrs):
-        u[plan.gnid_cat[b.off:b.off + b.nb]] = arr[:3, :b.nb].T
+def mesh_u_global(plan, Ss, N, gnid=None):
+    """Global [N, 3] displacement (numpy, in the states' type) from the
+    per-array states (rows 0:3 are u; brick columns past nb are
+    padding): scattered array by array where the states lie (a node
+    shared by several arrays takes the last one's copy), then one copy
+    to the host.  ``gnid``: plan.gnid_cat already on the states'
+    device (copied there when None)."""
+    ts = [torch.as_tensor(S) for S in Ss]
+    u = ts[-1].new_zeros((N, 3))
+    if gnid is None:
+        gnid = torch.as_tensor(plan.gnid_cat, device=u.device)
+
+    def put(lo, hi, vals):
+        u[gnid[lo:hi]] = vals
+
+    for b, t in zip(plan.bricks, ts):
+        put(b.off, b.off + b.nb, t[:3, :b.nb].T)
     off_loose = (plan.bricks[-1].off + plan.bricks[-1].nb
                  if plan.bricks else 0)
-    u[plan.gnid_cat[off_loose:]] = arrs[-1][:3].T
-    return u
+    put(off_loose, len(plan.gnid_cat), ts[-1][:3].T)
+    return u.cpu().numpy()

@@ -200,3 +200,19 @@ def test_mesh_etree_round_trip_equal(twin, tmp_path):
     assert_same(r.octants(), jr.octants(), "octants")
     idx = np.arange(twin.mesh.lenum)
     assert_same(r.records(idx), jr.records(idx), "records")
+
+
+@pytest.mark.parametrize("module", ["checkpoint", "output4d", "planes"])
+def test_io_copy_is_byte_equal(module):
+    """The port's io/checkpoint.py, io/output4d.py and io/planes.py are
+    the JAX package's files byte for byte (numpy and threads only; the
+    relative imports of planes.py resolve to the port's own copies)."""
+    import importlib
+    import inspect
+    mine = importlib.import_module(f"hercules_tpu_torch.io.{module}")
+    ref = importlib.import_module(f"hercules_tpu.io.{module}")
+    with open(inspect.getfile(mine), "rb") as f, \
+            open(inspect.getfile(ref), "rb") as g:
+        assert f.read() == g.read()
+    if module == "planes":
+        assert mine.locate_points is locate.locate_points

@@ -163,8 +163,8 @@ def test_cli_without_cuda_exits_nonzero(tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("use_checkpoint", "1"),
-    ("number_output_planes", "1"),
+    ("include_nonlinear_analysis", "yes"),
+    ("implement_drm", "yes"),
 ])
 def test_unsupported_features_raise(tmp_path, key, value):
     """Routes outside this slice raise NotImplementedError naming the

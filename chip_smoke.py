@@ -15,6 +15,34 @@ JSON line {"phase": ...}:
               the 2^20-element box, by type and kappa, from the library
               (ht_bkt_corner_grid_*), its slab and work items equal to
               kernels/tiles.py's corner_grid for those resident blocks.
+   unstructured -- the unstructured solver (solver/step.py, torch ops,
+              no kernel launched) through Simulation.run(solver=
+              "unstructured"), 40 steps, on fixture (a) at 62.5 m, the
+              graded box (GRADED_LAYERS, 264 dangling nodes) and the
+              soft BKT box: float64 on the card within 1e-12 of max|u|
+              (and of each memory-variable array's max) of the same run
+              on the CPU, float32 stations within 1e-2 of float64's, a
+              second float32 run bit-identical to the first.  On the
+              2^20-element Rayleigh box in float32: its time loop per
+              step through Simulation.run beside the cuda_chunk route's
+              (K5) and the "bricks" route's (brickstep.run_brick_solver,
+              torch ops: where "auto" sends an unknown damping name and
+              conventional stiffness), in turns; its step back to back,
+              alone, by device
+              time (a CUDA graph of 20 steps), and the host's share of
+              the step (1 - device / alone, as the mesh route's).
+   loh1    -- LOH.1 (validation B2, tools/loh1.py, fixtures.loh1_case:
+              the graded mesh of 5,632 elements, 7,179 nodes and 800
+              dangling nodes, one brick and 1,536 loose elements), 200
+              steps in float32 through Simulation.run, launch counters
+              set to 0 just before each run and read just after: "auto"
+              (route cuda_mesh, K1 launched once per step) and
+              "unstructured" (no kernel); each run's stations scored
+              against tests/goldens/loh1_fine_f64.npz (utils/gof.py),
+              GOF >= 8 on every energetic component, at least 6; the
+              cuda_mesh stations against the unstructured route's on the
+              same inputs, within 1e-4 of their max in float32 and
+              2e-13 in float64 (both routes run again in float64).
 2. k1      -- brick_step (K1) against brick_step_plain on the card: the
               2048-element box and the four-layer Rayleigh box at
               62.5 m (one brick, 2048 elements with four different c1,
@@ -107,8 +135,8 @@ JSON line {"phase": ...}:
               brick of the plans main_mesh_small drives, on the tier the
               rule gives it: GRADED_Q_LAYERS and GRADED_THIN_LAYERS at
               7.8125 m (their fine brick, 282,897 nodes with mixed
-              elements, on K3 and on K4) and the TeraShake copy's brick
-              (K1); 40 steps in float64 (S and the memory variables
+              elements, on K3 and on K4), the TeraShake copy's brick
+              (K1) and the LOH.1 brick phase loh1 runs (K1); 40 steps in float64 (S and the memory variables
               within 2e-13 of their max) and 20 in float32 (1e-4; 1e-3
               on bfloat16 memory variables, 5e-3 on those of
               main_mesh_small's bricks, as phases k3 and k4 hold K3 and
@@ -207,7 +235,8 @@ JSON line {"phase": ...}:
               sets it, the share of the bound its time reaches, its
               traffic's share of the measured aliased stream ceiling
               (phase 18), its launches on its main paths (the graded
-              path's included), the time it loses there (launches x
+              path's included; in the kernel table K1's also phase
+              loh1's), the time it loses there (launches x
               steps per launch x (time - bound), per type and timed
               shape), and the library call's time where one PyTorch
               call computes the same function (K7: torch.add); K5's
@@ -458,6 +487,56 @@ def main():
         err = (a.double() - b).abs().max().item()
         return err / scale, err
 
+    def timed(fn, reps, warm):
+        """Median milliseconds of fn() over reps calls, after warm
+        calls."""
+        for _ in range(warm):
+            fn()
+        evs = [(torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+               for _ in range(reps)]
+        for a, b in evs:
+            a.record()
+            fn()
+            b.record()
+        torch.cuda.synchronize()
+        return statistics.median(a.elapsed_time(b) for a, b in evs)
+
+    def lone(fn, reps=60, warm=5):
+        """Median milliseconds of one call of fn() on an idle device:
+        synchronise, then events around the call."""
+        for _ in range(warm):
+            fn()
+        ts = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            ts.append(a.elapsed_time(b))
+        return statistics.median(ts)
+
+    def graph_ms(fn, n=20, reps=10):
+        """Device ms of one fn() from a CUDA graph of n calls."""
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(n):
+                fn()
+        return timed(g.replay, reps, 2) / n
+
+    # the launch counters of the kernels the solver routes launch
+    counters = (brick_step, brick_chunk, bkt_step, bkt_chunk, bkt_node_step,
+                bkt_corner_step)
+
     try:
         # ---- 1. build ------------------------------------------------
         t0 = time.perf_counter()
@@ -502,6 +581,174 @@ def main():
         valid = pt.K[0] != 0
         require(all(len(torch.unique(pt.K[r][valid])) == 4
                     for r in range(3)), "layered box coefficients")
+
+        # ---- unstructured: the unstructured solver on the card -------
+        from hercules_tpu_torch.solver import step as ustep
+        from hercules_tpu_torch.utils.timers import GLOBAL_TIMERS
+        t_phase = time.perf_counter()
+        card = roofline.card()
+
+        def flat_state(state):
+            """u, u- and the memory variables of an unstructured state,
+            on the host."""
+            u, up, conv = state
+            return [x.cpu() for x in (u, up, *(conv or ()))]
+
+        u_cases = {}
+        for label, case in (
+                ("box", {}),
+                ("graded", dict(layers=GRADED_LAYERS,
+                                freq=four_q_freq(62.5))),
+                ("soft_bkt", dict(damping="bkt", layers=SOFT_LAYERS,
+                                  freq=SOFT_FREQ))):
+            sim, _, _ = box(62.5, 40, 5, f"unstructured_{label}", **case)
+            runs = {}
+            for key, d_, dt_ in (("cuda_f64", dev, f64),
+                                 ("cpu_f64", "cpu", f64),
+                                 ("cuda_f32", dev, f32),
+                                 ("cuda_f32_again", dev, f32)):
+                for c in counters:
+                    c.launches = 0
+                state, smp = sim.run(device=d_, dtype=dt_,
+                                     solver="unstructured")
+                require(sim.solver_path_name == "unstructured",
+                        f"unstructured {label}: {sim.solver_path_name}")
+                require(not any(c.launches for c in counters),
+                        f"unstructured {label}: a kernel was launched")
+                require(np.isfinite(smp).all() and np.abs(smp).max() > 0,
+                        f"unstructured {label} {key}: stations")
+                runs[key] = (flat_state(state), smp)
+            (g64, s64), (gc, sc) = runs["cuda_f64"], runs["cpu_f64"]
+            f64_vs_cpu = max((a - b).abs().max().item()
+                             / b.abs().max().item()
+                             for a, b in zip(g64, gc) if b.abs().max() > 0)
+            s32 = runs["cuda_f32"][1]
+            st_rel = float(np.abs(s32 - s64).max() / np.abs(s64).max())
+            same = (all(torch.equal(a, b) for a, b in zip(
+                runs["cuda_f32"][0], runs["cuda_f32_again"][0]))
+                and np.array_equal(s32, runs["cuda_f32_again"][1]))
+            u_cases[label] = {
+                "elements": sim.mesh.lenum, "nodes": sim.mesh.nnum,
+                "dangling": len(sim.mesh.dn_ids),
+                "damping": sim.tables.damping, "steps": 40,
+                "state_arrays": len(g64),
+                "f64_card_vs_cpu_rel": f64_vs_cpu,
+                "f64_samples_card_vs_cpu_rel":
+                    float(np.abs(s64 - sc).max() / np.abs(sc).max()),
+                "f32_vs_f64_stations_rel": st_rel,
+                "f32_repeat_bit_identical": same}
+            require(f64_vs_cpu <= 1e-12 and st_rel <= 1e-2 and same,
+                    f"unstructured {label}: {u_cases[label]}")
+        # the route at 2^20 elements (the Rayleigh box), float32: its
+        # time loop per step through Simulation.run beside the same box's
+        # cuda_chunk (K5) and bricks loops, in turns (unstructured, chunk,
+        # bricks, bricks, chunk, unstructured); its step back to back and alone, by device time
+        # (a CUDA graph of 20 steps) and the host's share of the step
+        loop_ms = {}
+        for solver in ("unstructured", "auto", "bricks", "bricks", "auto",
+                       "unstructured"):
+            t_loop = GLOBAL_TIMERS.value("Solver time loop")
+            sim_b.run(device=dev, dtype=f32, total_steps=40, solver=solver)
+            loop_ms.setdefault(sim_b.solver_path_name, []).append(
+                (GLOBAL_TIMERS.value("Solver time loop") - t_loop) / 40 * 1e3)
+        require(sorted(loop_ms) == ["bricks", "cuda_chunk", "unstructured"],
+                f"2^20 routes {sorted(loop_ms)}")
+        st_b = sim_b.stations
+        ufn, _ = ustep.make_step(sim_b.tables, sim_b.src_ids, st_b.nodes,
+                                 st_b.phi, f32, device=dev)
+        r_u = np.random.default_rng(5)
+        u0 = 1e-3 * r_u.standard_normal((sim_b.mesh.nnum, 3))
+        carry = [(torch.as_tensor(u0, dtype=f32, device=dev),
+                  torch.as_tensor(u0 * (1 - 1e-3), dtype=f32, device=dev),
+                  None)]
+        src1 = torch.as_tensor(sim_b.src_forces[0] * dt2_b, dtype=f32,
+                               device=dev)
+
+        def ustep_call():
+            carry[0] = ufn(carry[0], (src1, 0))[0]
+
+        back = [timed(ustep_call, 30, 5), timed(ustep_call, 30, 5)]
+        alone = [lone(ustep_call, 30), lone(ustep_call, 30)]
+        device_ms = graph_ms(ustep_call)
+        ucost = roofline.unstructured_cost(sim_b.tables, f32)
+        emit({"phase": "unstructured", "card": card, "cases": u_cases,
+              "bound_f64_card_vs_cpu": 1e-12, "bound_f32_vs_f64": 1e-2,
+              "timing_2^20": {
+                  "elements": sim_b.mesh.lenum, "dtype": str(f32),
+                  "loop_ms_per_step_runs": loop_ms,
+                  "loop_ms_per_step": {k: min(v)
+                                       for k, v in loop_ms.items()},
+                  "step_ms_runs": back, "step_lone_ms_runs": alone,
+                  "step_ms": min(back), "step_lone_ms": min(alone),
+                  "step_device_ms": device_ms,
+                  "host_ms": min(alone) - device_ms,
+                  "host_share": 1 - device_ms / min(alone),
+                  "bytes": ucost.bytes, "flop": ucost.flop,
+                  "bound_ms": ucost.bound_ms, "bound_by": ucost.bound_by,
+                  "share_of_bound": ucost.bound_ms / device_ms},
+              "seconds": time.perf_counter() - t_phase})
+        del carry, ufn
+
+        # ---- loh1: the LOH.1 gate on the card ------------------------
+        from hercules_tpu_torch.cvm import CVM
+        from hercules_tpu_torch.tools import loh1
+        t_phase = time.perf_counter()
+        loh_dir = os.path.join(work, "loh1")
+        sim_loh = loh1.simulation(loh_dir)
+        plan_loh = build_plan(sim_loh.mesh)
+        loh1.check_meshes(sim_loh.mesh, loh1.fine_mesh(
+            sim_loh.params, CVM(os.path.join(loh_dir, "loh1.e"))))
+        require((sim_loh.mesh.lenum, sim_loh.mesh.nnum,
+                 len(sim_loh.mesh.dn_ids), len(plan_loh.bricks),
+                 len(plan_loh.loose_eidx)) == (5632, 7179, 800, 1, 1536),
+                "LOH.1 graded mesh")
+        loh_runs, loh_smp = {}, {}
+        for solver in ("auto", "unstructured"):
+            for c in counters:
+                c.launches = 0
+            t_run = time.perf_counter()
+            _, smp = sim_loh.run(device=dev, dtype=f32, solver=solver)
+            torch.cuda.synchronize()
+            ran = {c.__name__: c.launches for c in counters if c.launches}
+            scores = loh1.gof_scores(smp)
+            loh_smp[solver, "float32"] = smp
+            loh_runs[solver] = {
+                "route": sim_loh.solver_path_name, "launches": ran,
+                "steps": sim_loh.params.total_steps,
+                "run_s": time.perf_counter() - t_run,
+                "gof": {f"station{s_} component{c_}": v
+                        for (s_, c_), v in scores.items()},
+                "gof_min": min(scores.values())}
+            require(len(scores) >= 6 and min(scores.values()) >= 8.0,
+                    f"LOH.1 {solver}: {loh_runs[solver]}")
+        require(loh_runs["auto"]["route"] == "cuda_mesh"
+                and loh_runs["auto"]["launches"].get("brick_step", 0) > 0,
+                f"LOH.1 auto: {loh_runs['auto']}")
+        require(loh_runs["unstructured"]["route"] == "unstructured"
+                and not loh_runs["unstructured"]["launches"],
+                f"LOH.1 unstructured: {loh_runs['unstructured']}")
+        loh1_launches = loh_runs["auto"]["launches"]["brick_step"]
+        # the kernel route against the unstructured route on the same
+        # inputs: float32 (the runs above) and float64 (run here, after
+        # the launches were read)
+        for solver in ("auto", "unstructured"):
+            loh_smp[solver, "float64"] = sim_loh.run(
+                device=dev, dtype=f64, solver=solver)[1]
+        loh_cross = {}
+        for dname, bound in (("float32", 1e-4), ("float64", 2e-13)):
+            a, b = loh_smp["auto", dname], loh_smp["unstructured", dname]
+            loh_cross[dname] = {
+                "cuda_mesh_vs_unstructured_rel":
+                    float(np.abs(a - b).max() / np.abs(b).max()),
+                "bound": bound}
+            require(loh_cross[dname]["cuda_mesh_vs_unstructured_rel"]
+                    <= bound, f"LOH.1 cuda_mesh vs unstructured {dname}: "
+                    f"{loh_cross[dname]}")
+        emit({"phase": "loh1", "card": card, "dtype": str(f32),
+              "elements": sim_loh.mesh.lenum, "nodes": sim_loh.mesh.nnum,
+              "dangling": len(sim_loh.mesh.dn_ids), "gof_bound": 8.0,
+              "runs": loh_runs, "cross_route": loh_cross,
+              "seconds": time.perf_counter() - t_phase})
 
         # ---- 2. K1 against its plain version ------------------------
         cases = []
@@ -577,8 +824,6 @@ def main():
         # ---- 4. the main path through the CLI ------------------------
         from hercules_tpu_torch import cli
         from hercules_tpu_torch.utils.timers import GLOBAL_TIMERS
-        counters = (brick_step, brick_chunk, bkt_step, bkt_chunk,
-                    bkt_node_step, bkt_corner_step)
 
         def main_path(phase, routes, kernels, edge=7.8125, tag="",
                       mesh=None, **case):
@@ -1125,6 +1370,9 @@ def main():
                         dtype, steps, bound,
                         mbound if dtype == f64 else 5e-3)
                        for label, (sim, plan, _) in small.items()]
+            # the LOH.1 brick phase loh1 runs K1 on (damping none)
+            kcases.append(("loh1", sim_loh, plan_loh, (0,), None, dtype,
+                           steps, bound, mbound))
         cases = []
         mesh_err = {}
         for label, sim, plan, bricks, tier, dtype, steps, bound, mbound \
@@ -1580,38 +1828,6 @@ def main():
         card = roofline.card()
         STEPS = 400             # the main paths' steps (K5/K6: one launch)
 
-        def timed(fn, reps, warm):
-            """Median milliseconds of fn() over reps calls, after warm
-            calls."""
-            for _ in range(warm):
-                fn()
-            evs = [(torch.cuda.Event(enable_timing=True),
-                    torch.cuda.Event(enable_timing=True))
-                   for _ in range(reps)]
-            for a, b in evs:
-                a.record()
-                fn()
-                b.record()
-            torch.cuda.synchronize()
-            return statistics.median(a.elapsed_time(b) for a, b in evs)
-
-        def lone(fn, reps=60, warm=5):
-            """Median milliseconds of one call of fn() on an idle device:
-            synchronise, then events around the call."""
-            for _ in range(warm):
-                fn()
-            ts = []
-            for _ in range(reps):
-                torch.cuda.synchronize()
-                a = torch.cuda.Event(enable_timing=True)
-                b = torch.cuda.Event(enable_timing=True)
-                a.record()
-                fn()
-                b.record()
-                torch.cuda.synchronize()
-                ts.append(a.elapsed_time(b))
-            return statistics.median(ts)
-
         def twice(kernel, plain, reps=30, preps=10):
             """(kernel ms, plain ms), each timed twice in turns (kernel,
             plain, plain, kernel); the lower of each pair."""
@@ -1775,20 +1991,6 @@ def main():
         # reordered axes): its step back to back and alone, each brick's
         # kernel by device time (a CUDA graph of its launches: no host
         # work between them), and K1-K4 at the fine brick's shape
-        def graph_ms(fn, n=20, reps=10):
-            """Device ms of one fn() from a CUDA graph of n calls."""
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                for _ in range(3):
-                    fn()
-            torch.cuda.current_stream().wait_stream(side)
-            g = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(g):
-                for _ in range(n):
-                    fn()
-            return timed(g.replay, reps, 2) / n
-
         def fine_of(plan):
             """(index, elements) of the plan's largest brick."""
             b = int(np.argmax([x.nb for x in plan.bricks]))
@@ -1922,6 +2124,8 @@ def main():
         total_launches = {k: sum(launches[k].values())
                           + sum(mesh_launches[k].values())
                           for k in launches}
+        # and K1's on the LOH.1 gate's cuda_mesh run (phase loh1)
+        total_launches["brick_step"] += loh1_launches
         # K4's launches on each box of its main path (the forced box:
         # none)
         box_launches = {(f"bkt_corner_step{lb}", d): k4_by_type[b][d]

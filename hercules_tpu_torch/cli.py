@@ -19,7 +19,11 @@ or cuda_step (elastic), cuda_bkt_chunk or cuda_bkt_step (BKT, one Q
 set), cuda_bkt_node_step (BKT, several Q sets, node tier),
 cuda_bkt_corner_step (BKT, corner tier) for a one-brick plan;
 cuda_mesh for a graded (multi-brick) plan, each brick on its own step
-kernel; torch_plain for either on --device=cpu.
+kernel; torch_plain for either on --device=cpu; bricks (the plain
+brick solver) for a plan the kernels do not run (a damping name other
+than rayleigh, mass, none or bkt, which runs undamped, or
+stiffness_calculation_method = conventional); unstructured for a mesh
+that does not decompose into bricks.
 
 The JAX CLI's outputs and restart: output_displacement /
 output_velocity (4-D volume files), number_output_planes (plane
@@ -159,6 +163,13 @@ def main(argv=None):
             os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
             with open(path, "w") as f:
                 f.write(buf.getvalue())
+
+    if os.environ.get("IO_PES"):
+        # the reference splits IO-server ranks off comm_solver
+        # (psolve.c:7360-7389); here output overlap comes from the
+        # async writer threads, so the env var is a no-op
+        mon.print("IO_PES set: async writer threads subsume the "
+                  "reference's IO pool; no ranks reserved\n")
 
     if p.damping_statistics:
         from .utils.stats import critical_t_stats, damping_histograms

@@ -5,7 +5,8 @@ node grid of each ``plan.bricks[b]``, then the loose node section of a
 multi-brick plan); they differ only in the zero padding after the nb
 node columns (the JAX package pads to whole kernel tiles, the port to
 ``pallas_geometry(nb)``).  So the tests can feed the same tables and
-states to both.
+states to both.  The unstructured solvers' states are global ([N, 3]
+fields, [E, 8, 3] memory variables) in both packages.
 """
 
 from __future__ import annotations
@@ -116,3 +117,29 @@ def mesh_state_to_global(Ss, plan, N):
     either package (rows 0:3 = u)."""
     from .solver.fused_mesh import mesh_u_global
     return mesh_u_global(plan, Ss, N)
+
+
+def _numpy_state(state, host):
+    """(u, u-, conv) with ``host`` applied to each array; conv None or a
+    tuple."""
+    if len(state) != 3:
+        raise ValueError(f"expected an unstructured state (u, u-, conv), "
+                         f"got {len(state)} entries (the nonlinear carry "
+                         f"is Queue 1, item 7)")
+    u, up, conv = state
+    return (host(u), host(up),
+            None if conv is None else tuple(host(c) for c in conv))
+
+
+def unstructured_state_from_jax(carry):
+    """The port's unstructured state (step.run_solver's ``state``), numpy,
+    from the JAX package's run_solver carry: global u and u- [N, 3], and
+    conv None or, with BKT, four [E, 8, 3] memory-variable arrays.  Both
+    packages lay it out alike, so the arrays pass as they are."""
+    return _numpy_state(carry, np.asarray)
+
+
+def unstructured_state_to_global(state):
+    """The global (u [N, 3], u- [N, 3], conv) numpy arrays of the port's
+    unstructured state (tensors on any device)."""
+    return _numpy_state(state, lambda x: torch.as_tensor(x).cpu().numpy())

@@ -291,3 +291,38 @@ def box_stats(edge_m):
                                                   DEPTH_M))
     return nx * ny * nz, (nx + 1) * (ny + 1) * (nz + 1)
 
+
+def one_torch_thread():
+    """An autouse, module-scoped pytest fixture that runs the module's
+    torch work on one intra-op thread and restores the count after:
+    ``_one_torch_thread = one_torch_thread()`` in a test module.  Its
+    tensors are small, and under parallel test workers several threads
+    per op run tens of times slower, not faster."""
+    import pytest
+    import torch
+
+    @pytest.fixture(autouse=True, scope="module")
+    def _one_torch_thread():
+        n = torch.get_num_threads()
+        torch.set_num_threads(1)
+        yield
+        torch.set_num_threads(n)
+
+    return _one_torch_thread
+
+
+def loh1_case(root):
+    """Write the LOH.1 benchmark (validation B2, ``tools/loh1.py``) as a
+    run directory under ``root``: ``loh1.e`` (the layered CVM, 250 m
+    octants) and the box case's input files with the LOH.1 region,
+    time step, end time and source (``loh1.write_inputs``); returns the
+    paths (cvmdb, physics_in, numerical_in).  The vs-rule meshes it at
+    375 m in the layer and 750 m below, a graded mesh of 5,632
+    elements, 7,179 nodes and 800 dangling nodes, 200 steps; no
+    stations in the files (``loh1.simulation`` samples the benchmark's
+    three)."""
+    from .tools import loh1
+    os.makedirs(root, exist_ok=True)
+    loh1.build_cvm(root)
+    physics, numerical = loh1.write_inputs(root)
+    return os.path.join(root, "loh1.e"), physics, numerical

@@ -8,13 +8,17 @@ stages are the port's copies of the JAX package's numpy modules
 ``StationSet``, ``setup_stations`` and ``write_station_files`` are
 copied from it, ``SimOutputs`` (4-D volume, plane and checkpoint taps)
 ported from it; ``read_restart`` is its restart from ``checkpoint.in``.
-``Simulation.run`` covers every plan ``build_plan`` makes, with
+``Simulation.run`` takes the JAX package's ``solver=`` choice: the
+CUDA kernel routes cover every plan ``build_plan`` makes, with
 Rayleigh, mass or no damping or BKT (on its three tiers: uniform Q,
 general Q with node-basis memory variables, or corner-basis memory
 variables): the single-brick routes and the multi-brick mesh route
-(the graded meshes, any number of bricks).  A mesh that does not
-decompose into bricks, and the features ``_unsupported`` lists, raise
-NotImplementedError naming their ROADMAP.md queue item.
+(the graded meshes, any number of bricks); the plain brick solver
+(``solver/brickstep.py``, "bricks") runs a plan the kernels do not take
+(another damping name, ``stiffness_calculation_method = conventional``)
+and the unstructured solver (``solver/step.py``, "unstructured") a mesh
+that does not decompose into bricks.  The features ``_unsupported``
+lists raise NotImplementedError naming their ROADMAP.md queue item.
 """
 
 from __future__ import annotations
@@ -125,6 +129,15 @@ def write_station_files(outdir, stations: StationSet, samples, dt,
             f.write("\n")
 
 
+def _flat(tree):
+    """The tensors of a nest of tuples, in order, Nones dropped."""
+    if tree is None:
+        return ()
+    if isinstance(tree, (tuple, list)):
+        return tuple(x for t in tree for x in _flat(t))
+    return (tree,)
+
+
 def _host(t):
     """A host copy of a state tensor, bfloat16 widened to float32
     (exactly: numpy has no bfloat16).  A copy, because the routes
@@ -188,11 +201,14 @@ class SimOutputs:
         falls on a chunk boundary; ``desired`` when no tap is on."""
         return self._gcd or desired
 
-    def make_hook(self, plan, inner=None, start_step=0):
+    def make_hook(self, plan, inner=None, start_step=0, concat=False):
         """on_chunk(done, state) of the run: the taps at their rates,
         then ``inner``.  ``state`` is the route's view: (u, up[, conv[,
-        conv_mix]]) of one brick (fused_brick.packed_snap_of), or the
-        mesh state (Ss, convs, lconv)."""
+        conv_mix]]) of one brick (fused_brick.packed_snap_of), the mesh
+        state (Ss, convs, lconv), with ``concat`` the plain brick
+        solver's (u, up, conv) over the plan's concatenated columns
+        [3, TOT], or with ``plan`` None the unstructured solver's
+        global (u [N, 3], up, conv) (the JAX package's slot_global)."""
         from .solver.fused_brick import pallas_u_global
         from .solver.fused_mesh import mesh_conv_flat, mesh_u_global
         N = self.mesh.nnum
@@ -204,7 +220,7 @@ class SimOutputs:
                 Ss = state[0]
                 return ([S[0:3] for S in Ss], [S[3:6] for S in Ss],
                         mesh_conv_flat(state))
-            return state[0], state[1], tuple(state[2:])
+            return state[0], state[1], _flat(state[2:])
 
         gnid = {}           # plan.gnid_cat on a device, copied once
 
@@ -214,11 +230,16 @@ class SimOutputs:
             return gnid[dev]
 
         def global_of(rows):
+            if plan is None:
+                return _host(rows)
             if isinstance(rows, list):
                 return mesh_u_global(plan, rows, N, index_on(rows[0].device))
             return pallas_u_global(plan, rows, N, index_on(rows.device))
 
         gather = []         # the planes' NodeGather, made once
+        # a plane record alone gathers its corners where the state lies
+        # (the kernel routes); else it reads the global field
+        gathers = plan is not None and not concat
 
         def plane_values(u_rows):
             if not gather:
@@ -259,7 +280,7 @@ class SimOutputs:
                 # the corners from the global field where one is made
                 # at this step, else gathered alone (the same values)
                 def sampler(nodes, phi):
-                    un = (ug()[nodes] if due4d or due_ck
+                    un = (ug()[nodes] if due4d or due_ck or not gathers
                           else plane_values(u_rows))
                     return np.einsum("mk,mkc->mc", phi, un)
 
@@ -383,8 +404,6 @@ def _unsupported(params):
         (p.include_nonlinear, "nonlinear soil (Queue 1, item 7)"),
         (p.implement_drm, "DRM (Queue 1, item 7)"),
         (p.include_buildings, "buildings (Queue 1, item 7)"),
-        (p.type_of_damping not in ("rayleigh", "mass", "none", "bkt"),
-         f"damping={p.type_of_damping} (Queue 1, item 5)"),
     )
     for bad, what in checks:
         if bad:
@@ -408,8 +427,11 @@ class Simulation:
     # (bkt_node_step per step, the mixed elements included),
     # "cuda_bkt_corner_step" (bkt_corner_step per step), "cuda_mesh"
     # (a multi-brick plan: each brick's step kernel per step, the
-    # interfaces reconciled between) or "torch_plain" (the single-brick
-    # or the mesh route on the plain versions, on the CPU)
+    # interfaces reconciled between), "torch_plain" (the single-brick
+    # or the mesh route on the plain versions, on the CPU), "bricks"
+    # (the plain brick solver, brickstep.run_brick_solver) or
+    # "unstructured" (step.run_solver); the last two as the JAX
+    # package names them, on either device
     solver_path_name: str = ""
     # the step the last .run() started from (a checkpoint's, else 0)
     start_step: int = 0
@@ -463,15 +485,32 @@ class Simulation:
                    stations=stations)
 
     def run(self, device="cuda", dtype=None, chunk=None, total_steps=None,
-            on_chunk=None, outputs=None, rundir=".", restart=None):
+            on_chunk=None, outputs=None, rundir=".", restart=None,
+            solver="auto"):
         """The time loop on ``device`` in ``dtype`` (float32 on CUDA and
-        float64 on the CPU by default), routed by the brick plan: one
-        brick with no loose elements takes the single-brick routes
-        (fused_brick.run_pallas_solver; BKT on the first tier that holds
-        the brick), which return ((u, up[, conv[, conv_mix]]) tensors,
-        samples [T, ns, 3] numpy); every other plan (several bricks, or
-        one brick with loose elements) the mesh route
-        (fused_mesh.run_mesh_solver: (Ss, convs, lconv), samples).
+        float64 on the CPU by default), on the route ``solver`` names
+        (the JAX package's choice, hercules_tpu/sim.py:498-506):
+
+        - "pallas": the CUDA kernel routes (the JAX package's fused
+          route; their plain versions on the CPU).  A plan of one brick
+          with no loose elements takes the single-brick routes
+          (fused_brick.run_pallas_solver; BKT on the first tier that
+          holds the brick), which return ((u, up[, conv[, conv_mix]])
+          tensors, samples [T, ns, 3] numpy); every other plan (several
+          bricks, or one brick with loose elements) the mesh route
+          (fused_mesh.run_mesh_solver: (Ss, convs, lconv), samples).
+          Raises if the mesh does not decompose into bricks or the
+          damping is none the kernels run;
+        - "bricks": the plain brick solver (brickstep.run_brick_solver:
+          (u, up, conv) over the plan's concatenated columns); raises
+          if the mesh does not decompose into bricks;
+        - "unstructured": step.run_solver ((u, up, conv), global);
+        - "auto": the kernel routes where they take the plan, the plain
+          brick solver where they do not (a damping name they do not
+          run, which the JAX package runs undamped, or
+          stiffness_calculation_method = conventional, the merged-K
+          evaluation the JAX package pins to its XLA paths), the
+          unstructured solver where ``build_plan`` raises.
 
         ``outputs``: a SimOutputs whose taps (4-D volume, planes,
         checkpoints) fire at chunks of the gcd of their rates; it is
@@ -483,14 +522,20 @@ class Simulation:
         when the caller read it already (the CLI does, before it opens
         the output files, so that a refused checkpoint touches none)."""
         from .solver.bricks import build_plan
+        from .solver.brickstep import run_brick_solver
         from .solver.fused_brick import plan_applies, run_pallas_solver
-        from .solver.fused_mesh import run_mesh_solver
+        from .solver.fused_mesh import mesh_plan_applies, run_mesh_solver
+        from .solver.step import run_solver
 
+        if solver not in SOLVERS:
+            raise ValueError(f"solver={solver!r}; expected one of "
+                             f"{', '.join(SOLVERS)}")
         device = torch.device(device)
         if dtype is None:
             dtype = torch.float32 if device.type == "cuda" else \
                 torch.float64
         p = self.params
+        damping = self.tables.damping
         steps = total_steps if total_steps is not None else p.total_steps
         st = self.stations
 
@@ -498,29 +543,93 @@ class Simulation:
             self.solver_path_name = name
 
         try:
-            try:
-                with measure("Solver plan"):
-                    plan = build_plan(self.mesh)
-            except RuntimeError as e:
-                raise NotImplementedError(
-                    f"mesh does not decompose into bricks ({e}); the "
-                    f"unstructured solver is Queue 1, item 4") from e
+            plan = None
+            if solver != "unstructured":
+                try:
+                    with measure("Solver plan"):
+                        plan = build_plan(self.mesh)
+                except RuntimeError:
+                    if solver != "auto":
+                        raise
+            conventional = (solver == "auto"
+                            and p.stiffness_method == "conventional")
+            kernels = (plan is not None and solver in ("auto", "pallas")
+                       and not conventional
+                       and mesh_plan_applies(plan, damping))
+            if solver == "pallas" and not kernels:
+                raise RuntimeError(f"no CUDA kernel route runs "
+                                   f"damping={damping}")
             self.start_step, ck = (read_restart(p, rundir)
                                    if restart is None else restart)
             hook = on_chunk
             if outputs is not None and outputs.active:
                 chunk = outputs.chunk_for(chunk or 1000)
                 hook = outputs.make_hook(plan, on_chunk,
-                                         start_step=self.start_step)
+                                         start_step=self.start_step,
+                                         concat=not kernels)
             kw = dict(st_nodes=None if st is None else st.nodes,
                       st_phi=None if st is None else st.phi, dtype=dtype,
-                      device=device, chunk=chunk, on_chunk=hook, state=ck,
+                      device=device, chunk=chunk, on_chunk=hook,
                       start_step=self.start_step)
-            args = (plan, self.tables, self.src_ids, self.src_forces, steps,
+            args = (self.tables, self.src_ids, self.src_forces, steps,
                     p.delta_t)
-            if plan_applies(plan, self.tables.damping):
-                return run_pallas_solver(*args, on_route=on_route, **kw)
-            return run_mesh_solver(*args, on_route=on_route, **kw)
+            if kernels:
+                run = (run_pallas_solver if plan_applies(plan, damping)
+                       else run_mesh_solver)
+                return run(plan, *args, on_route=on_route, state=ck, **kw)
+            if plan is not None:
+                state = (None if ck is None else
+                         _brick_restart_state(plan, damping, ck, dtype,
+                                              device))
+                on_route("bricks")
+                return run_brick_solver(plan, *args, state=state, **kw)
+            state = (None if ck is None else
+                     _global_restart_state(self.tables, ck))
+            on_route("unstructured")
+            return run_solver(*args, state=state, **kw)
         finally:
             if outputs is not None:
                 outputs.close()
+
+
+# Simulation.run's routes, by the JAX package's names
+SOLVERS = ("auto", "pallas", "bricks", "unstructured")
+
+
+def _global_restart_state(tables, ck):
+    """The unstructured solver's state (u, u-, conv), numpy, from a
+    checkpoint:
+    global [N, 3] fields and, with BKT, the four [E, 8, 3] memory
+    variable arrays (hercules_tpu/sim.py:886-900).  Any other layout
+    raises."""
+    nconv = 4 if tables.damping == "bkt" else 0
+    if (any(np.shape(x) != (tables.N, 3) for x in (ck.u_now, ck.u_prev))
+            or len(ck.conv) != nconv
+            or any(np.shape(c) != (tables.E, 8, 3) for c in ck.conv)):
+        raise RuntimeError("checkpoint layout does not match the "
+                           "unstructured solver")
+    return (ck.u_now, ck.u_prev, tuple(ck.conv) or None)
+
+
+def _brick_restart_state(plan, damping, ck, dtype, device):
+    """The plain brick solver's state (u, u-, conv) over the plan's
+    concatenated columns from a checkpoint (hercules_tpu/sim.py:865-877):
+    fields global [N, 3] or component-major [3, X] (cut or zero-padded
+    to the plan's columns); with BKT, four arrays per brick ([24, S]
+    each) and four for the loose elements ([El, 8, 3]), as this solver
+    writes them.  Any other layout raises."""
+    from .solver.brickstep import brick_meta
+    from .solver.fused_brick import fit_field_cm
+    f = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+    u, up = (f(fit_field_cm(plan, x, plan.total_nb))
+             for x in (ck.u_now, ck.u_prev))
+    conv = ()
+    if damping == "bkt":
+        shapes = [(24, m.S) for m in brick_meta(plan) for _ in range(4)]
+        if len(plan.loose_eidx):
+            shapes += [(len(plan.loose_eidx), 8, 3)] * 4
+        if [np.shape(c) for c in ck.conv] != shapes:
+            raise RuntimeError("checkpoint BKT state does not match plan")
+        arrs = [f(c) for c in ck.conv]
+        conv = tuple(tuple(arrs[i:i + 4]) for i in range(0, len(arrs), 4))
+    return (u, up, conv)

@@ -1,6 +1,7 @@
 """The multi-brick solver in plain PyTorch ops: the oracle of the CUDA
-mesh route (``fused_mesh.py``), on the CPU and on the card; no route of
-``Simulation.run`` takes it.
+mesh route (``fused_mesh.py``), on the CPU and on the card, and the
+"bricks" route of ``Simulation.run`` (a plan the kernel routes do not
+take, as the JAX package routes it).
 
 Counterpart of ``hercules_tpu/solver/brickstep.py``; the JAX names are
 kept (``BrickMeta``, ``assemble_brick_tables``, ``make_brick_step``,

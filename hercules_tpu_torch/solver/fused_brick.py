@@ -265,15 +265,17 @@ def fit_packed_state(pt: PallasBrickTables, state):
 
 def fit_field_cm(plan, x, LEN):
     """A displacement field as the brick's [3, LEN] (numpy, in the
-    field's type): canonical global [N, 3], or component-major [3, X]
-    in the brick's column order with any padding (the JAX package's
-    single-brick checkpoints), cut or zero-padded to LEN."""
+    field's type), or the plain brick solver's [3, plan.total_nb] over
+    the plan's concatenated columns: canonical global [N, 3], or
+    component-major [3, X] in the plan's column order with any padding
+    (the JAX package's single-brick checkpoints), cut or zero-padded to
+    LEN."""
     x = np.asarray(x)
     if x.ndim == 2 and x.shape[1] == 3 and x.shape[0] != 3:
         x = x[plan.gnid_cat].T
     if x.ndim != 2 or x.shape[0] != 3:
         raise RuntimeError("checkpoint field layout does not match the "
-                           "fused kernel")
+                           "brick layout")
     out = np.zeros((3, LEN), x.dtype)
     w = min(LEN, x.shape[1])
     out[:, :w] = x[:, :w]
@@ -413,12 +415,14 @@ def run_pallas_solver(plan, tables, src_ids, src_forces, total_steps, dt,
 
 def pallas_u_global(plan, u_pad, N, gnid=None):
     """Global [N, 3] displacement (numpy, in the field's type) from the
-    padded [3, LEN] field: scattered where the field lies, then one copy
-    to the host.  ``gnid``: plan.gnid_cat already on the field's device
-    (copied there when None)."""
+    padded [3, LEN] field of a one-brick plan, or the [3, TOT] field of
+    the plain brick solver over the plan's concatenated columns:
+    scattered where the field lies, then one copy to the host.
+    ``gnid``: plan.gnid_cat already on the field's device (copied there
+    when None)."""
     t = torch.as_tensor(u_pad)
     if gnid is None:
         gnid = torch.as_tensor(plan.gnid_cat, device=t.device)
     u = t.new_zeros((N, 3))
-    u[gnid] = t[:3, :plan.bricks[0].nb].T
+    u[gnid] = t[:3, :len(plan.gnid_cat)].T
     return u.cpu().numpy()

@@ -216,6 +216,27 @@ def step_cost(step, LEN, elements, dtype) -> KernelCost:
                        mixed=getattr(step, "mix_M", 0))
 
 
+def unstructured_cost(tables, dtype=torch.float32) -> KernelCost:
+    """Cost per step of the unstructured solver's elastic step
+    (``solver/step.py``: torch ops, no kernel of its own) on the
+    ``assemble`` tables: reading u and u- [N, 3], the element table
+    lnid [E, 8], c1-c4 [E], inv_mass [N], mass_minusaM [N, 3] and the
+    scatter plan (scat_perm [8E] and N segment lengths), indices as
+    int32, and writing u+ [N, 3], each once; the operations of the dense
+    [E, 48] @ [48, 24] product the step computes, its operand (7 per
+    entry of the 24), the negation and the scatter adds, and the node
+    update.  ``moved`` repeats ``bytes``: the torch ops' own traffic is
+    not counted."""
+    if tables.damping == "bkt":
+        raise ValueError("the unstructured cost model is elastic only")
+    N, E = tables.N, tables.E
+    w = torch.finfo(dtype).bits // 8
+    nbytes = (w * (2 * 3 * N + 4 * E + N + 3 * N + 3 * N)
+              + 4 * (8 * E + 8 * E + N))
+    flop = E * (2 * 48 * 24 + 7 * 24 + 24 + 24) + N * UPDATE_FLOP
+    return KernelCost("unstructured_step", nbytes, nbytes, flop, dtype)
+
+
 def card() -> str:
     """The card's name and power limit as nvidia-smi reports them
     ("NVIDIA H100 80GB HBM3, 700.00 W")."""

@@ -28,7 +28,8 @@ from hercules_tpu.solver import pallas_brick as jpb
 from hercules_tpu_torch.convert import conv_from_jax, state_from_jax
 from hercules_tpu_torch.fixtures import (FOUR_Q_LAYERS, SOFT_FREQ,
                                          THIN_Q_LAYERS, TWO_LAYERS,
-                                         box_simulation, four_q_freq)
+                                         box_simulation, four_q_freq,
+                                         one_torch_thread)
 from hercules_tpu_torch.kernels import bkt_corner_step as k4
 from hercules_tpu_torch.kernels.bkt_corner_step import (
     bkt_corner_step, bkt_corner_step_plain)
@@ -50,6 +51,9 @@ CASES = {
 }
 # the tier each package picks by its rule
 TIER = {"two": "node", "two_shear": "node", "four": "corner"}
+
+
+_one_torch_thread = one_torch_thread()
 
 
 @pytest.fixture(scope="module", params=sorted(CASES))

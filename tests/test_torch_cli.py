@@ -2,13 +2,17 @@
 (hercules_tpu/cli.py:124-180): on the BKT box at 62.5 m, both CLIs on
 the CPU with one key set at a time; the K matrices and the schedule
 statistics on stdout, the schedule file, the monitor's damping
-statistics and the MATLAB mesh files are equal (timings excluded)."""
+statistics and the MATLAB mesh files are equal (timings excluded).
+It routes and names as the JAX CLI does what the kernels do not run: a
+damping name they do not know (run undamped) and the conventional
+stiffness key; and it writes the JAX CLI's IO_PES line."""
 
 import os
 import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 from hercules_tpu_torch.fixtures import write_box_case
@@ -25,18 +29,21 @@ KEYS = {
 }
 
 
-def _run_both(tmp_path, keys):
+def _run_both(tmp_path, keys, damping="bkt", steps=2, **env_extra):
     """Both CLIs (the port with --device=cpu, the JAX package on one CPU
-    device) on the BKT box with ``keys``; returns {name: (run
-    directory, stdout)}."""
-    env = dict(os.environ, PYTHONPATH=ROOT, HT_PLATFORM="cpu")
+    device) on the box with ``damping`` and ``keys``, ``env_extra`` in
+    their environment; returns {name: (run directory, stdout)}."""
+    # one OpenMP thread per CLI: the parallel test workers share the
+    # cores, and small ops on several threads run far slower there
+    env = dict(os.environ, PYTHONPATH=ROOT, HT_PLATFORM="cpu",
+               OMP_NUM_THREADS="1", **env_extra)
     procs = {}
     for name, cmd in (
             ("port", [sys.executable, "-m", "hercules_tpu_torch.cli",
                       "--device=cpu"]),
             ("jax", [sys.executable, "-m", "hercules_tpu.cli", "--ndev=1"])):
         d = tmp_path / name
-        paths = write_box_case(str(d), 62.5, 2, 2, damping="bkt")
+        paths = write_box_case(str(d), 62.5, steps, 2, damping=damping)
         with open(paths[2], "a") as f:
             f.write(f"\n{keys}\n")
         procs[name] = (d, subprocess.Popen(
@@ -90,3 +97,41 @@ def test_cli_optional_outputs_match_jax(tmp_path, case):
         assert "matlab mesh coordinates written" in \
             (pdir / "monitor.txt").read_text()
         assert "(2048 elements)" in pout and "(2048 elements)" in jout
+
+
+def _stations(rundir):
+    return [np.loadtxt(rundir / "stations" / f"station.{i}", skiprows=1)
+            for i in range(2)]
+
+
+def test_cli_unknown_damping_runs_as_jax(tmp_path):
+    """type_of_damping = kelvin (no damping the kernels run): both CLIs
+    run it undamped on the plain brick solver, name the route "bricks",
+    and write station files equal to their printed precision (as
+    tests/test_torch_sim.py holds the kernel route's)."""
+    runs = _run_both(tmp_path, "", damping="kelvin", steps=40)
+    (pdir, _), (jdir, _) = runs["port"], runs["jax"]
+    for d in (pdir, jdir):
+        assert "solver path: bricks" in (d / "monitor.txt").read_text()
+    for a, b in zip(_stations(pdir), _stations(jdir)):
+        assert a.shape == b.shape == (40, 4)
+        np.testing.assert_array_equal(a[:, 0], b[:, 0])
+        scale = np.abs(b[:, 1:]).max()
+        assert scale > 0
+        np.testing.assert_allclose(a[:, 1:], b[:, 1:], rtol=1e-6,
+                                   atol=1e-12 * scale)
+
+
+def test_cli_conventional_stiffness_names_bricks(tmp_path):
+    runs = _run_both(tmp_path, "stiffness_calculation_method = "
+                               "conventional", damping="rayleigh")
+    for d, _ in runs.values():
+        assert "solver path: bricks" in (d / "monitor.txt").read_text()
+
+
+def test_cli_io_pes_line(tmp_path):
+    """With IO_PES set, both monitors carry the same line."""
+    runs = _run_both(tmp_path, "", IO_PES="2")
+    lines = [[ln for ln in (d / "monitor.txt").read_text().splitlines()
+              if ln.startswith("IO_PES")] for d, _ in runs.values()]
+    assert lines[0] == lines[1] and len(lines[0]) == 1

@@ -216,3 +216,19 @@ def test_io_copy_is_byte_equal(module):
         assert f.read() == g.read()
     if module == "planes":
         assert mine.locate_points is locate.locate_points
+
+
+def test_gof_copy_is_byte_equal():
+    """The port's utils/gof.py (numpy only) is the JAX package's file
+    byte for byte, and scores alike."""
+    import inspect
+
+    from hercules_tpu.utils import gof as jgof
+    from hercules_tpu_torch.utils import gof
+    with open(inspect.getfile(gof), "rb") as f, \
+            open(inspect.getfile(jgof), "rb") as g:
+        assert f.read() == g.read()
+    rng = np.random.default_rng(3)
+    ref = rng.standard_normal((200, 3))
+    sim = ref + 0.1 * rng.standard_normal((200, 3))
+    assert np.array_equal(gof.gof_score(ref, sim), jgof.gof_score(ref, sim))

@@ -54,6 +54,9 @@ MODULES = ("hercules_tpu_torch", "hercules_tpu_torch.cli",
            "hercules_tpu_torch.solver.brickstep",
            "hercules_tpu_torch.solver.planerec",
            "hercules_tpu_torch.solver.fused_mesh",
+           "hercules_tpu_torch.solver.step",
+           "hercules_tpu_torch.tools.loh1",
+           "hercules_tpu_torch.utils.gof",
            "hercules_tpu_torch.kernels.build",
            "hercules_tpu_torch.kernels.brick_step",
            "hercules_tpu_torch.kernels.brick_chunk",

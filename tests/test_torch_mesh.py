@@ -26,7 +26,8 @@ from hercules_tpu_torch.convert import (mesh_state_from_jax,
                                         tables_from_jax)
 from hercules_tpu_torch.fixtures import (GRADED_LAYERS, GRADED_Q_LAYERS,
                                          GRADED_THIN_LAYERS, four_q_freq,
-                                         terashake_case, write_box_case)
+                                         one_torch_thread, terashake_case,
+                                         write_box_case)
 from hercules_tpu_torch.sim import Simulation
 from hercules_tpu_torch.solver import bricks as port_bricks
 from hercules_tpu_torch.solver import brickstep, fused_mesh
@@ -40,6 +41,9 @@ CASES = {"graded62": (GRADED_LAYERS, 62.5),
          "graded15": (GRADED_LAYERS, 15.625),
          "q7": (GRADED_Q_LAYERS, 7.8125),
          "thin15": (GRADED_THIN_LAYERS, 15.625)}
+
+
+_one_torch_thread = one_torch_thread()
 
 
 class _Cases:

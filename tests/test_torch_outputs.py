@@ -9,7 +9,10 @@
   (bfloat16 memory variables in the float32 cases), with the 4-D and
   plane files of the resumed run equal to the straight run's;
 - the basis conversions and the fitters equal the JAX package's;
-- a checkpoint of the JAX package's Pallas route resumes in the port;
+- a checkpoint of the JAX package's Pallas route resumes in the port,
+  and one of its unstructured solver on the port's unstructured route;
+- the unstructured route restarts bit for bit, and writes the JAX
+  package's files;
 - a checkpoint of other physics or of a foreign layout raises."""
 
 import os
@@ -25,7 +28,7 @@ from hercules_tpu_torch.fixtures import (FOUR_Q_LAYERS, GRADED_LAYERS,
                                          GRADED_Q_LAYERS, SOFT_FREQ,
                                          SOFT_LAYERS, TWO_LAYERS,
                                          add_output_keys, four_q_freq,
-                                         write_box_case)
+                                         one_torch_thread, write_box_case)
 from hercules_tpu_torch.io.checkpoint import checkpoint_read
 from hercules_tpu_torch.io.output4d import read_4d
 from hercules_tpu_torch.sim import SimOutputs, Simulation
@@ -64,6 +67,9 @@ CASES = {
 N, M = 10, 10         # steps before and after the checkpoint
 
 
+_one_torch_thread = one_torch_thread()
+
+
 def _case(root, name, steps=N + M, **rates):
     edge, kw, _ = CASES[name]
     paths = write_box_case(str(root), edge, steps, 2, **kw)
@@ -72,8 +78,9 @@ def _case(root, name, steps=N + M, **rates):
 
 
 def _run(paths, dtype, **kw):
-    """Simulation.run on the CPU with the case's outputs on; returns
-    (sim, state, samples)."""
+    """Simulation.run on the CPU with the case's outputs on (``kw``:
+    run's keywords, ``solver`` among them); returns (sim, state,
+    samples)."""
     sim = Simulation.setup(paths[1], paths[2], cvmdb=paths[0])
     rundir = os.path.dirname(os.path.dirname(paths[1]))
     out = SimOutputs(sim.mesh, sim.params, rundir=rundir)
@@ -83,21 +90,23 @@ def _run(paths, dtype, **kw):
 
 
 def _parts(state):
-    """Every tensor of a route's state, flat."""
-    if isinstance(state[0], tuple):
-        Ss, convs, lconv = state
-        return list(Ss) + [x for c in convs for x in c] + list(lconv)
-    return list(state)
+    """Every tensor of a route's state (nested tuples, Nones dropped),
+    flat."""
+    if state is None:
+        return []
+    if isinstance(state, (tuple, list)):
+        return [x for part in state for x in _parts(part)]
+    return [state]
 
 
-def _resume(root, name, dtype):
+def _resume(root, name, dtype, **kw):
     """Run A (N + M steps, checkpoints every N) and run B (A's step-N
-    checkpoint as checkpoint.in, in a copy of the case): (A, B, their
-    directories)."""
+    checkpoint as checkpoint.in, in a copy of the case), both with run's
+    keywords ``kw``: (A, B, their directories)."""
     a_dir, b_dir = root / "a", root / "b"
     paths = _case(a_dir, name, output_rate=5, planes_rate=2,
                   checkpointing_rate=N)
-    run_a = _run(paths, dtype)
+    run_a = _run(paths, dtype, **kw)
     shutil.copytree(a_dir / "in", b_dir / "in")
     shutil.copy(paths[0], b_dir / "box.e")
     (b_dir / "checkpoints").mkdir()
@@ -108,7 +117,7 @@ def _resume(root, name, dtype):
     assert sorted(step_of.values()) == [N, N + M]
     shutil.copy(ck / first, b_dir / "checkpoints" / "checkpoint.in")
     bp = [str(b_dir / os.path.relpath(p, a_dir)) for p in paths]
-    run_b = _run(bp, dtype)
+    run_b = _run(bp, dtype, **kw)
     return run_a, run_b, a_dir, b_dir
 
 
@@ -154,6 +163,48 @@ def test_restart_is_bit_exact(tmp_path, name, dtype):
     rec = 17 * 17 * 3
     assert len(pa_) == (N + M) // 2 * rec
     assert len(pb_) == (M // 2 - 1) * rec
+    assert np.array_equal(pa_[(N // 2 + 1) * rec:], pb_)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("name,solver", [("box", "unstructured"),
+                                         ("soft", "unstructured"),
+                                         ("graded15", "unstructured"),
+                                         ("bkt", "bricks"),
+                                         ("graded15", "bricks")])
+def test_plain_route_restart_is_bit_exact(tmp_path, name, solver, dtype):
+    """The unstructured solver (global state: elastic, BKT with the bulk
+    attenuation, the graded box's 3,936 dangling nodes) and the plain
+    brick solver (BKT memory variables per brick and for the 1,024 loose
+    elements): N steps, a checkpoint, a restart and M more steps land
+    bit for bit where N + M straight steps land, and so do the 4-D
+    frames and plane records after step N."""
+    (sim_a, st_a, smp_a), (sim_b, st_b, smp_b), a_dir, b_dir = _resume(
+        tmp_path, name, getattr(torch, dtype), solver=solver)
+    assert sim_a.solver_path_name == sim_b.solver_path_name == solver
+    assert sim_b.start_step == N
+    pa, pb = _parts(st_a), _parts(st_b)
+    # u, u-, and four memory-variable arrays: one set on the global
+    # state, one per brick and one for the loose elements on the bricks
+    n_conv = {("box", "unstructured"): 0, ("graded15", "bricks"): 3}.get(
+        (name, solver), 1)
+    assert len(pa) == len(pb) == 2 + 4 * n_conv
+    for x, y in zip(pa, pb):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+    assert np.array_equal(smp_b, smp_a[N:]) and np.abs(smp_a).max() > 0
+    ck = checkpoint_read(str(b_dir / "checkpoints" / "checkpoint.in"))
+    if solver == "unstructured":
+        assert ck[1].shape == (sim_a.mesh.nnum, 3)
+        assert [c.shape for c in ck[3]] == (
+            [] if name == "box" else [(sim_a.mesh.lenum, 8, 3)] * 4)
+    for f in ("disp.h4d", "vel.h4d"):
+        _, da = read_4d(str(a_dir / f))
+        _, db = read_4d(str(b_dir / f))
+        assert np.array_equal(da[N // 5 + 1:], db[N // 5 + 1:])
+        assert da[1:].any()
+    pa_ = np.fromfile(a_dir / "planes" / "planedisplacements.0")
+    pb_ = np.fromfile(b_dir / "planes" / "planedisplacements.0")
+    rec = 17 * 17 * 3
     assert np.array_equal(pa_[(N // 2 + 1) * rec:], pb_)
 
 
@@ -570,6 +621,94 @@ def test_jax_pallas_checkpoint_resumes(tmp_path, name):
     np.testing.assert_allclose(u, uj, rtol=0, atol=2e-13 * scale)
     np.testing.assert_allclose(samp, jsamp[N:], rtol=0,
                                atol=2e-13 * np.abs(jsamp).max())
+
+
+@pytest.mark.parametrize("name", ["box", "soft"])
+def test_jax_unstructured_checkpoint_resumes(tmp_path, name):
+    """A checkpoint of the JAX package's unstructured solver (global
+    [N, 3] fields, BKT's four [E, 8, 3] arrays) resumes the port's
+    unstructured route within 2e-13 of max|u| of the JAX straight run;
+    the port's other routes refuse its memory variables."""
+    paths = _case(tmp_path, name, checkpointing_rate=N)
+    jsim, jstate, jsamp = _jax_run(paths, tmp_path, "unstructured")
+    assert jsim.solver_path_name == "unstructured"
+    _checkpoint_in(tmp_path, N)
+    ck = checkpoint_read(str(tmp_path / "checkpoints" / "checkpoint.in"))
+    assert ck[1].shape == (jsim.mesh.nnum, 3)
+    assert len(ck[3]) == {"box": 0, "soft": 4}[name]
+    sim = Simulation.setup(paths[1], paths[2], cvmdb=paths[0])
+    (u, _, _), samp = sim.run(device="cpu", rundir=str(tmp_path),
+                              solver="unstructured")
+    assert sim.start_step == N and sim.solver_path_name == "unstructured"
+    uj = np.asarray(jstate[0])
+    scale = np.abs(uj).max()
+    assert scale > 0
+    np.testing.assert_allclose(u.numpy(), uj, rtol=0, atol=2e-13 * scale)
+    np.testing.assert_allclose(samp, jsamp[N:], rtol=0,
+                               atol=2e-13 * np.abs(jsamp).max())
+    if name == "soft":
+        with pytest.raises(RuntimeError, match="does not match plan"):
+            sim.run(device="cpu", rundir=str(tmp_path), solver="bricks")
+
+
+def test_unstructured_checkpoint_of_other_layout_raises(tmp_path):
+    """A checkpoint the unstructured solver cannot read (the fields of
+    another mesh, BKT arrays of the kernel route's layout) raises in the
+    JAX package's words instead of starting from zero."""
+    paths = _case(tmp_path, "bkt", checkpointing_rate=N)
+    _run(paths, torch.float64)
+    _checkpoint_in(tmp_path, N)
+    sim = Simulation.setup(paths[1], paths[2], cvmdb=paths[0])
+    with pytest.raises(RuntimeError, match="does not match the "
+                                           "unstructured solver"):
+        sim.run(device="cpu", rundir=str(tmp_path), solver="unstructured")
+
+
+@pytest.mark.parametrize("damping", ["rayleigh", "bkt"])
+def test_unstructured_files_match_jax(tmp_path, damping):
+    """Both packages' unstructured routes through Simulation.run with 4-D
+    displacement and velocity, one plane and checkpoints, float64, on
+    fixture (a): the 4-D headers equal byte for byte but for
+    generation_date, the plane coordinates byte for byte, the 4-D and
+    plane data and the checkpoint fields within 2e-13 of their max (the
+    two float64 paths differ in the last bits)."""
+    runs = {}
+    for name in ("port", "jax"):
+        d = tmp_path / name
+        paths = write_box_case(str(d), 62.5, N + M, 2, damping=damping)
+        add_output_keys(paths[1], paths[2], output_rate=4, planes_rate=2,
+                        checkpointing_rate=N)
+        if name == "jax":
+            _jax_run(paths, d, "unstructured")
+        else:
+            sim, _, _ = _run(paths, torch.float64, solver="unstructured")
+            assert sim.solver_path_name == "unstructured"
+        runs[name] = d
+    P, J = runs["port"], runs["jax"]
+
+    def close(a, b):
+        scale = np.abs(b).max()
+        assert a.shape == b.shape and scale > 0
+        np.testing.assert_allclose(a, b, rtol=0, atol=2e-13 * scale)
+
+    for f in ("disp.h4d", "vel.h4d"):
+        hp, dp = read_4d(str(P / f))
+        hj, dj = read_4d(str(J / f))
+        for k in hp.dtype.names:
+            if k != "generation_date":
+                assert hp[k].tobytes() == hj[k].tobytes(), k
+        close(dp, dj)
+    assert (P / "planes" / "planecoords.0").read_bytes() == \
+        (J / "planes" / "planecoords.0").read_bytes()
+    close(np.fromfile(P / "planes" / "planedisplacements.0"),
+          np.fromfile(J / "planes" / "planedisplacements.0"))
+    for k in (0, 1):
+        ckp = checkpoint_read(str(P / "checkpoints" / f"checkpoint.out{k}"))
+        ckj = checkpoint_read(str(J / "checkpoints" / f"checkpoint.out{k}"))
+        assert ckp[0] == ckj[0] and ckp[4].keys() == ckj[4].keys()
+        assert len(ckp[3]) == len(ckj[3]) == (4 if damping == "bkt" else 0)
+        for a, b in zip(ckp[1:3], ckj[1:3]):
+            close(a, b)
 
 
 def test_checkpoint_of_other_damping_raises(tmp_path):

@@ -43,6 +43,42 @@ JSON line {"phase": ...}:
               cuda_mesh stations against the unstructured route's on the
               same inputs, within 1e-4 of their max in float32 and
               2e-13 in float64 (both routes run again in float64).
+   nonlinear -- nonlinear soil at full width (item7_phases): the CLI
+              on GRADED_Q_LAYERS at 3.90625 m (2,424,832 elements; the
+              top 31.25 m, 524,288 elements, nonlinear: von Mises,
+              rate-independent, Vs cut 700 m/s), 400 float32 steps, with
+              and without geostatic loading: route cuda_mesh, K1 launched
+              3 x 400 times, stations finite and non-zero, the stations
+              in nonlinear elements with the 17 extra columns and
+              plastic flow; "Solver", plan, tables and loop.  The step
+              from the state after 200 steps (ep > 0 required), float32:
+              back to back and alone, its device time by CUDA graph and
+              the host's share, beside the same step without the subset
+              pass (the same masked K1 tables), and the subset pass
+              alone (its share of the step's device time).
+   nonlinear_accuracy -- GRADED_Q_LAYERS at 62.5 m (40 steps) and at
+              7.8125 m (303,104 elements, 65,536 nonlinear; 80 steps), with and
+              without geostatic loading: float64 cuda_mesh against the
+              unstructured route on the card within 5e-12 of max|u| and
+              of each plastic state array; float32 stations within 1e-2
+              of float64.  nonlinear_restart: 400 float32 steps with a
+              checkpoint at 200 (geostatic: the captured bottom
+              reactions ride it), resumed: states, samples and plastic
+              state bit for bit on cuda_mesh.
+   drm     -- GRADED_Q_LAYERS at 7.8125 m undamped, the shallow DRM box
+              (fixtures.DRM_SHALLOW_BOX), 200 steps: part 1 on cuda_mesh
+              with a source outside the box, part 2 with zero source on
+              cuda_mesh (and on the unstructured route in float64); in
+              float64 part 2 reproduces part 1's field inside the box
+              within 1e-9 of its max and leaves at most 1e-9 outside,
+              cuda_mesh within 5e-12 of unstructured; in float32 within
+              1e-3.
+   buildings -- fixture (a) with the building of the JAX building
+              tests, carved (route cuda_mesh, one brick and loose
+              elements) and fixed-base (the unstructured route, the
+              reason recorded), 40 float64 steps: card against CPU
+              within 1e-12, the base nodes equal to the prescribed
+              series at the last step.
 2. k1      -- brick_step (K1) against brick_step_plain on the card: the
               2048-element box and the four-layer Rayleigh box at
               62.5 m (one brick, 2048 elements with four different c1,
@@ -236,9 +272,9 @@ JSON line {"phase": ...}:
               traffic's share of the measured aliased stream ceiling
               (phase 18), its launches on its main paths (the graded
               path's included; in the kernel table K1's also phase
-              loh1's), the time it loses there (launches x
-              steps per launch x (time - bound), per type and timed
-              shape), and the library call's time where one PyTorch
+              loh1's and the item-7 phases'), the time it loses there
+              (launches x steps per launch x (time - bound), per type
+              and timed shape), and the library call's time where one PyTorch
               call computes the same function (K7: torch.add); K5's
               step beside the K1 route step and K6's beside the K2
               route step (float32, back to back), the routing rule's
@@ -309,6 +345,436 @@ def tile_registers(log):
             regs[entry] = int(m.group(1))
             entry = None
     return regs
+
+
+def count_launches(counters, fn):
+    """fn() with every launch counter set to 0 just before and read just
+    after: (its result, {kernel: launches})."""
+    for c in counters:
+        c.launches = 0
+    res = fn()
+    return res, {c.__name__: c.launches for c in counters if c.launches}
+
+
+def item7_phases(dev, work, counters, timed, lone, graph_ms):
+    """The phases of nonlinear soil, DRM and buildings (ROADMAP Queue 1,
+    item 7) on the CUDA device ``dev``, each printing one JSON line:
+    nonlinear (the CLI at full width, both loadings, and the step's
+    timing), nonlinear_accuracy, nonlinear_restart, drm and buildings
+    (see the module docstring).  ``counters``: the launch counters;
+    ``timed``, ``lone``, ``graph_ms``: main's CUDA-event timers.
+    Returns {run: K1 launches}."""
+    import numpy as np
+    import torch
+
+    from hercules_tpu_torch import cli
+    from hercules_tpu_torch.convert import nonlinear_state
+    from hercules_tpu_torch.fixtures import (
+        BUILDING_DT, DRM_HYPOCENTER, DRM_SHALLOW_BOX, GRADED_Q_LAYERS,
+        add_building_keys, add_drm_keys, add_nonlinear_keys,
+        add_output_keys, box_dt, four_q_freq, write_box_case)
+    from hercules_tpu_torch.nonlinear import nl_state_update
+    from hercules_tpu_torch.sim import SimOutputs, Simulation
+    from hercules_tpu_torch.solver import fused_mesh
+    from hercules_tpu_torch.solver.bricks import build_plan
+    from hercules_tpu_torch.utils import roofline
+    from hercules_tpu_torch.utils.timers import GLOBAL_TIMERS
+
+    f32, f64 = torch.float32, torch.float64
+    # the nonlinear cut selects GRADED_Q_LAYERS' top 31.25 m (Vs 600 m/s,
+    # von Mises, rate-independent, k = 1 kPa: fixtures.NL_PROPERTIES);
+    # the source 40 m under station 0 (the waves reach it within the
+    # 0.104 s of the full-width run)
+    NL_CUT, NL_HYPO = 700.0, (263.0, 241.0, 40.0)
+    out = {}
+
+    def counted(fn):
+        return count_launches(counters, fn)
+
+    def want_k1(ran, steps, bricks, what):
+        """K1's launches of a mesh-route run: once per brick and step."""
+        require(ran == {"brick_step": steps * bricks},
+                f"{what}: launches {ran}, want brick_step {steps} x "
+                f"{bricks}")
+        return ran["brick_step"]
+
+    def nl_case(name, edge, steps, geostatic=False):
+        """GRADED_Q_LAYERS at ``edge`` with nonlinear soil, 5 stations;
+        with ``geostatic``, loading over 30 % of the run plus a 10 %
+        cushion (the reactions captured at step 0.4 x steps)."""
+        cv, ph, nu = write_box_case(os.path.join(work, name), edge, steps,
+                                    5, layers=GRADED_Q_LAYERS,
+                                    freq=four_q_freq(edge),
+                                    hypocenter=NL_HYPO)
+        dt = box_dt(edge)
+        add_nonlinear_keys(nu, NL_CUT, **(dict(
+            geostatic_s=0.3 * steps * dt, cushion_s=0.1 * steps * dt)
+            if geostatic else {}))
+        return cv, ph, nu
+
+    def rel(a, b):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        scale = np.abs(b).max()
+        require(scale > 0, "zero reference")
+        return float(np.abs(a - b).max() / scale)
+
+    # ---- nonlinear: the CLI at full width ----------------------------
+    t_phase = time.perf_counter()
+    parts = ("Solver", "Solver plan", "Solver tables", "Solver time loop")
+    full = {}
+    for geo in (False, True):
+        label = "geostatic" if geo else "plain"
+        cv, ph, nu = nl_case(f"nl_full_{label}", 3.90625, 400, geo)
+        rundir = os.path.dirname(os.path.dirname(ph))
+        before = {k: GLOBAL_TIMERS.value(k) for k in parts}
+        log = io.StringIO()
+
+        def run():
+            with contextlib.redirect_stdout(log):
+                return cli.main(["--dtype=float32", cv, ph, nu])
+
+        rc, ran = counted(run)
+        with open(os.path.join(LOG, f"cli_nonlinear_{label}.log"), "w") as f:
+            f.write(log.getvalue())
+        require(rc == 0, f"nonlinear {label}: CLI exit code {rc}")
+        spent = {k: GLOBAL_TIMERS.value(k) - before[k] for k in parts}
+        with open(os.path.join(rundir, "monitor.txt")) as f:
+            mon = f.read()
+        route = re.findall(r"^solver path: (\S+)", mon, re.M)
+        require(route == ["cuda_mesh"] and "solver path reason" not in mon,
+                f"nonlinear {label}: route {route}")
+        mesh = re.search(r"Total elements: (\d+)", mon).group(1)
+        k1 = want_k1(ran, 400, 3, f"nonlinear {label}")
+        st = [np.loadtxt(os.path.join(rundir, "stations", f"station.{i}"),
+                         skiprows=1) for i in range(5)]
+        heads = [open(os.path.join(rundir, "stations", f"station.{i}")
+                      ).readline() for i in range(5)]
+        nl_st = [i for i in range(5) if heads[i].rstrip().endswith("kh(Pa)")]
+        require(nl_st and all(st[i].shape == (400, 4 + 17) for i in nl_st)
+                and all(st[i].shape == (400, 4) for i in range(5)
+                        if i not in nl_st),
+                f"nonlinear {label}: station columns "
+                f"{[s.shape for s in st]}")
+        disp = np.stack([s[:, 1:4] for s in st])
+        require(np.isfinite(disp).all() and np.abs(disp).max() > 0,
+                f"nonlinear {label}: stations not finite and non-zero")
+        dlam = max(float(st[i][:, 4 + 14].max()) for i in nl_st)
+        require(dlam > 0, f"nonlinear {label}: no plastic flow at a "
+                          f"station")
+        full[label] = {
+            "elements": int(mesh), "route": route[0], "launches": ran,
+            "seconds": spent, "stations_in_nonlinear_elements": nl_st,
+            "max_station_dlambda": dlam,
+            "loop_ms_per_step": spent["Solver time loop"] / 400 * 1e3}
+        out[f"nonlinear {label}"] = k1
+
+    # the step at full width, float32, from a state after 200 steps: with
+    # and without the subset pass (the same plan and K1 tables, the
+    # nonlinear columns masked in both), and the pass alone
+    cv, ph, nu = nl_case("nl_full_timing", 3.90625, 400)
+    sim = Simulation.setup(ph, nu, cvmdb=cv)
+    plan = build_plan(sim.mesh)
+    st_ = sim.stations
+    bundle = fused_mesh.attach_nonlinear_mesh(
+        sim.mesh, sim.params, sim.tables, sim.nl_tables, plan, f32, dev)
+    mt = fused_mesh.MeshPallasTables(plan, sim.tables, sim.src_ids,
+                                     st_.nodes, st_.phi, f32, dev,
+                                     nl=bundle)
+    (state, _), ran = counted(lambda: fused_mesh.run_mesh(
+        mt, sim.src_forces, 200, sim.params.delta_t))
+    out["nonlinear timing run"] = want_k1(ran, 200, 3,
+                                          "nonlinear timing run")
+    ep = nonlinear_state(state)[2]
+    require(np.isfinite(ep).all() and ep.max() > 0,
+            "nonlinear: no plastic flow in 200 steps")
+    timing_res = {"nonlinear_elements": int(sim.nl_tables.n),
+                  "elements": int(sim.mesh.lenum),
+                  "plastic_quadrature_points_share":
+                      float((ep > 0).mean()),
+                  "nl_state_MB": sum(a.nbytes for a in nonlinear_state(
+                      state)) / 1e6}
+    spare = fused_mesh.init_mesh_state(mt)
+    step = fused_mesh.make_mesh_step(mt)
+    srcf1 = torch.as_tensor(sim.src_forces[200] * sim.params.delta_t ** 2,
+                            dtype=f32, device=dev)
+    mt_el = fused_mesh.MeshPallasTables(plan, sim.tables, sim.src_ids,
+                                        st_.nodes, st_.phi, f32, dev)
+    for b in range(mt.NB):          # the same masked K1 tables
+        mt_el.steps[b] = mt.steps[b]
+    step_el = fused_mesh.make_mesh_step(mt_el)
+    spare_el = fused_mesh.init_mesh_state(mt_el)
+    calls = {
+        "nonlinear": lambda: step(state, spare, srcf1, 200),
+        "elastic": lambda: step_el(state[:3], spare_el, srcf1, 200)}
+    n = bundle["n"]
+
+    def subset_pass():
+        ue = fused_mesh._gather_corners(state[0], bundle["gather"], n,
+                                        0).reshape(n, 24)
+        s = nl_state_update(bundle["d"], ue, state[3][:3], bundle["dt"])
+        fused_mesh._nl_subset_pass(mt, state[0], list(spare[0]), ue,
+                                   s, 200)
+
+    runs = {}
+    for k in ("nonlinear", "elastic", "elastic", "nonlinear"):
+        runs.setdefault(k, []).append((timed(calls[k], 30, 5),
+                                       lone(calls[k], 30)))
+    for k in ("nonlinear", "elastic"):
+        back = min(b for b, _ in runs[k])
+        alone = min(a for _, a in runs[k])
+        try:
+            dev_ms = graph_ms(calls[k], n=5)
+        except RuntimeError as e:   # a step that cannot be captured
+            dev_ms, timing_res[f"{k}_graph_error"] = None, str(e)[:200]
+        timing_res[k] = {
+            "step_ms_runs": [b for b, _ in runs[k]],
+            "step_lone_ms_runs": [a for _, a in runs[k]],
+            "step_ms": back, "step_lone_ms": alone,
+            "step_device_ms": dev_ms,
+            "host_share": None if dev_ms is None else 1 - dev_ms / alone}
+    timing_res["subset_pass_ms"] = timed(subset_pass, 30, 5)
+    timing_res["subset_pass_device_ms"] = graph_ms(subset_pass, n=5)
+    d_nl = timing_res["nonlinear"]["step_device_ms"]
+    timing_res["subset_pass_share_of_step_device"] = (
+        None if d_nl is None
+        else timing_res["subset_pass_device_ms"] / d_nl)
+    timing_res["subset_pass_share_of_step_back_to_back"] = (
+        timing_res["subset_pass_ms"]
+        / timing_res["nonlinear"]["step_ms"])
+    # where the pass's device time goes: the profiler's kernels,
+    # device ms per pass (a measurement: a profiler that does not
+    # run here is reported as such)
+    try:
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                subset_pass()
+            torch.cuda.synchronize()
+
+        def dev_us(e):
+            return getattr(e, "device_time_total",
+                           getattr(e, "cuda_time_total", 0.0))
+
+        top = sorted(prof.key_averages(), key=dev_us, reverse=True)
+        timing_res["subset_pass_kernels_ms"] = [
+            (e.key[:80], dev_us(e) / 3e3, e.count // 3)
+            for e in top[:12]]
+    except Exception as e:        # reported, not hidden
+        timing_res["subset_pass_kernels_ms"] = f"not measured: {e}"
+    del spare, spare_el, mt_el
+    emit({"phase": "nonlinear", "card": roofline.card(),
+          "edge_m": 3.90625, "steps": 400, "dtype": str(f32),
+          "runs": full, "timing": timing_res,
+          "seconds": time.perf_counter() - t_phase})
+    del state, mt, bundle, sim
+
+    # ---- nonlinear_accuracy: cuda_mesh against unstructured ----------
+    t_phase = time.perf_counter()
+    acc = {}
+    for edge, steps, geo in ((62.5, 40, False), (62.5, 40, True),
+                             (7.8125, 80, False), (7.8125, 80, True)):
+        label = f"{edge} {'geostatic' if geo else 'plain'}"
+        cv, ph, nu = nl_case(f"nl_acc_{label.replace(' ', '_')}", edge,
+                             steps, geo)
+        sim = Simulation.setup(ph, nu, cvmdb=cv)
+        plan = build_plan(sim.mesh)
+        res = {}
+        for solver, dt_ in (("auto", f64), ("unstructured", f64),
+                            ("auto", f32)):
+            (state, smp), ran = counted(
+                lambda: sim.run(device=dev, dtype=dt_, solver=solver))
+            require(sim.solver_path_name == {"auto": "cuda_mesh"}.get(
+                solver, solver), f"nonlinear accuracy {label}: route "
+                f"{sim.solver_path_name}")
+            k1 = (want_k1(ran, steps, len(plan.bricks),
+                          f"nonlinear accuracy {label}")
+                  if solver == "auto" else 0)
+            require(solver == "auto" or not ran,
+                    f"unstructured launched {ran}")
+            u = (fused_mesh.mesh_u_global(plan, state[0], sim.mesh.nnum)
+                 if solver == "auto" else state[0].cpu().numpy())
+            res[solver, str(dt_)] = (u, nonlinear_state(state), smp)
+            out[f"nonlinear accuracy {label} {solver} {dt_}"] = k1
+        (um, pm, sm), (uu, pu, su) = (res["auto", str(f64)],
+                                      res["unstructured", str(f64)])
+        acc[label] = {
+            "elements": sim.mesh.lenum, "nonlinear_elements": sim.nl_tables.n,
+            "bricks": len(plan.bricks), "steps": steps,
+            "f64_cuda_mesh_vs_unstructured_u": rel(um, uu),
+            "f64_cuda_mesh_vs_unstructured_plastic": [
+                rel(a, b) for a, b in zip(pm, pu)
+                if np.abs(b).max() > 0],
+            "plastic_quadrature_points_share": float((pu[2] > 0).mean()),
+            "f32_vs_f64_stations": rel(res["auto", str(f32)][2], sm)}
+        require(acc[label]["f64_cuda_mesh_vs_unstructured_u"] <= 5e-12
+                and max(acc[label]["f64_cuda_mesh_vs_unstructured_plastic"])
+                <= 5e-12 and acc[label]["f32_vs_f64_stations"] <= 1e-2
+                and pu[2].max() > 0 and len(pu) == (4 if geo else 3),
+                f"nonlinear accuracy {label}: {acc[label]}")
+    emit({"phase": "nonlinear_accuracy", "cases": acc,
+          "bounds": {"f64_cuda_mesh_vs_unstructured": 5e-12,
+                     "f32_vs_f64_stations": 1e-2},
+          "seconds": time.perf_counter() - t_phase})
+
+    # ---- nonlinear_restart: a checkpoint at 200 of 400, resumed -------
+    t_phase = time.perf_counter()
+    cv, ph, nu = nl_case("nl_restart", 62.5, 400, True)
+    add_output_keys(ph, nu, checkpointing_rate=200)
+    rundir = os.path.dirname(os.path.dirname(ph))
+    sim = Simulation.setup(ph, nu, cvmdb=cv)
+    nb = len(build_plan(sim.mesh).bricks)
+    (s1, smp1), ran1 = counted(lambda: sim.run(
+        device=dev, dtype=f32, rundir=rundir,
+        outputs=SimOutputs(sim.mesh, sim.params, rundir)))
+    ck = os.path.join(rundir, "checkpoints")
+    picked = [f for f in os.listdir(ck)
+              if int(np.load(os.path.join(ck, f))["step"]) == 200]
+    require(len(picked) == 1, f"checkpoints {os.listdir(ck)}")
+    shutil.copy(os.path.join(ck, picked[0]),
+                os.path.join(ck, "checkpoint.in"))
+    (s2, smp2), ran2 = counted(lambda: sim.run(device=dev, dtype=f32,
+                                               rundir=rundir))
+    out["nonlinear restart"] = (want_k1(ran1, 400, nb, "restart run A")
+                                + want_k1(ran2, 200, nb, "restart run B"))
+    same = (np.array_equal(smp2, smp1[200:])
+            and all(np.array_equal(a, b) for a, b in zip(
+                nonlinear_state(s1), nonlinear_state(s2)))
+            and all(torch.equal(a, b) for a, b in zip(s1[0], s2[0])))
+    pl = nonlinear_state(s1)
+    require(same and sim.start_step == 200 and np.abs(pl[3]).max() > 0
+            and pl[2].max() > 0,
+            "nonlinear restart: not bit for bit")
+    emit({"phase": "nonlinear_restart", "route": sim.solver_path_name,
+          "elements": sim.mesh.lenum, "steps": 400, "checkpoint": 200,
+          "dtype": str(f32), "bit_for_bit": same,
+          "launches": {"A": ran1, "B": ran2},
+          "seconds": time.perf_counter() - t_phase})
+
+    # ---- drm: part 1 recorded, part 2 replayed ------------------------
+    t_phase = time.perf_counter()
+    T = 200
+
+    def drm_case(part):
+        cv, ph, nu = write_box_case(
+            os.path.join(work, f"drm_{part}"), 7.8125, T, 2,
+            damping="none", layers=GRADED_Q_LAYERS,
+            freq=four_q_freq(7.8125), hypocenter=DRM_HYPOCENTER)
+        add_drm_keys(nu, os.path.join(work, "drm_files"), part,
+                     box_dt(7.8125), box=DRM_SHALLOW_BOX)
+        return Simulation.setup(ph, nu, cvmdb=cv)
+
+    s1, s2 = drm_case("part1"), drm_case("part2")
+    s2.src_forces = np.zeros_like(s2.src_forces)
+    plan = build_plan(s1.mesh)
+    nb = len(plan.bricks)
+    m, ts = s2.mesh, s2.mesh.ticksize
+    x, y, z = (getattr(m, f"node_{c}").astype(np.float64) * ts
+               for c in "xyz")
+    x0, y0, x1, y1, depth = DRM_SHALLOW_BOX
+    inside = (x >= x0) & (x <= x1) & (y >= y0) & (y <= y1) & (z <= depth)
+    on = np.zeros(m.nnum, bool)
+    on[s2.drm_plan.node_ids] = True
+    interior, exterior = inside & ~on, ~inside & ~on
+    drm_res = {"elements": m.lenum, "bricks": nb,
+               "drm_nodes": len(s2.drm_plan.node_ids),
+               "drm_elements": len(s2.drm_plan.elem_idx),
+               "interior_nodes": int(interior.sum()), "steps": T}
+    for dt_ in (f32, f64):
+        name = str(dt_).split(".")[1]
+        for s in (s1, s2):
+            s.drm_dir = os.path.join(work, f"drm_files_{name}")
+        t0 = time.perf_counter()
+        (st1, _), ran = counted(lambda: s1.run(device=dev, dtype=dt_))
+        require(s1.solver_path_name == "cuda_mesh", "drm part1 route")
+        out[f"drm part1 {name}"] = want_k1(ran, T, nb, "drm part 1")
+        u1 = fused_mesh.mesh_u_global(plan, st1[0], m.nnum)
+        scale = np.abs(u1).max()
+        res = {"part1_s": time.perf_counter() - t0,
+               "interior_share_of_max": float(np.abs(u1[interior]).max()
+                                              / scale)}
+        us = {}
+        for solver in (("auto", "unstructured") if dt_ == f64
+                       else ("auto",)):
+            t0 = time.perf_counter()
+            (st2, _), ran = counted(lambda: s2.run(device=dev, dtype=dt_,
+                                                   solver=solver))
+            want = "cuda_mesh" if solver == "auto" else solver
+            require(s2.solver_path_name == want
+                    and not s2.solver_path_reason, "drm part2 route")
+            if solver == "auto":
+                out[f"drm part2 {name}"] = want_k1(ran, T, nb, "drm part 2")
+                u2 = fused_mesh.mesh_u_global(plan, st2[0], m.nnum)
+            else:
+                require(not ran, f"unstructured launched {ran}")
+                u2 = st2[0].cpu().numpy()
+            us[solver] = u2
+            res[solver] = {
+                "seconds": time.perf_counter() - t0,
+                "interior": float(np.abs(u2[interior] - u1[interior]).max()
+                                  / scale),
+                "exterior": float(np.abs(u2[exterior]).max() / scale)}
+        if dt_ == f64:
+            res["cuda_mesh_vs_unstructured"] = rel(us["auto"],
+                                                   us["unstructured"])
+        drm_res[name] = res
+    bound32 = 1e-3
+    r64, r32 = drm_res["float64"], drm_res["float32"]
+    require(all(r64[s]["interior"] <= 1e-9 and r64[s]["exterior"] <= 1e-9
+                for s in ("auto", "unstructured"))
+            and r64["cuda_mesh_vs_unstructured"] <= 5e-12
+            and r64["interior_share_of_max"] > 1e-3
+            and r32["auto"]["interior"] <= bound32
+            and r32["auto"]["exterior"] <= bound32, f"drm: {drm_res}")
+    emit({"phase": "drm", **drm_res,
+          "bounds": {"float64": 1e-9, "cuda_mesh_vs_unstructured": 5e-12,
+                     "float32": bound32},
+          "seconds": time.perf_counter() - t_phase})
+
+    # ---- buildings: carved, and fixed-base ---------------------------
+    t_phase = time.perf_counter()
+    bld = {}
+    for fb in (False, True):
+        label = "fixed_base" if fb else "carved"
+        root = os.path.join(work, f"bldg_{label}")
+        cv, ph, nu = write_box_case(root, 62.5, 40, 5, dt=BUILDING_DT)
+        add_building_keys(root, nu, fixed_base=fb)
+        sim = Simulation.setup(ph, nu, cvmdb=cv)
+        runs = {}
+        for d_ in (dev, torch.device("cpu")):
+            (state, smp), ran = counted(lambda: sim.run(
+                device=d_, dtype=f64, rundir=root))
+            runs[d_.type] = (state, smp, ran, sim.solver_path_name,
+                             sim.solver_path_reason)
+        state, smp, ran, route, reason = runs[dev.type]
+        plan = build_plan(sim.mesh)
+        if fb:
+            require(route == "unstructured" and "fixed-base" in reason
+                    and not ran, f"buildings {label}: {route} {ran}")
+            ids, which = sim.mesh.buildings.base_nodes(sim.mesh)
+            p = sim.params
+            series = sim.mesh.buildings.base_disp_series(
+                p.end_time - p.start_time, p.delta_t, p.total_steps,
+                rundir=root)
+            u = state[0].cpu().numpy()
+            require(np.array_equal(u[ids], series[-1, which])
+                    and np.abs(series[-1]).max() > 0,
+                    f"buildings {label}: base nodes")
+        else:
+            require(route == "cuda_mesh" and not reason,
+                    f"buildings {label}: route {route}")
+            out["buildings carved"] = want_k1(ran, 40, len(plan.bricks),
+                                              "buildings carved")
+        bld[label] = {
+            "elements": sim.mesh.lenum, "bricks": len(plan.bricks),
+            "loose": len(plan.loose_eidx), "route": route,
+            "reason": reason, "launches": ran,
+            "f64_card_vs_cpu_samples": rel(smp, runs["cpu"][1])}
+        require(bld[label]["f64_card_vs_cpu_samples"] <= 1e-12
+                and np.isfinite(smp).all(), f"buildings {label}: "
+                f"{bld[label]}")
+    emit({"phase": "buildings", "cases": bld, "bound": 1e-12,
+          "seconds": time.perf_counter() - t_phase})
+    return out
 
 
 def main():
@@ -749,6 +1215,10 @@ def main():
               "dangling": len(sim_loh.mesh.dn_ids), "gof_bound": 8.0,
               "runs": loh_runs, "cross_route": loh_cross,
               "seconds": time.perf_counter() - t_phase})
+
+        # ---- nonlinear soil, DRM and buildings (Queue 1, item 7) -----
+        item7_launches = item7_phases(dev, work, counters, timed, lone,
+                                      graph_ms)
 
         # ---- 2. K1 against its plain version ------------------------
         cases = []
@@ -1491,13 +1961,7 @@ def main():
         tap_timers = ("Solver", "Solver time loop", "Solver output taps")
 
         def counted(fn):
-            """fn() with every launch counter set to 0 just before and
-            read just after: (its result, {kernel: launches})."""
-            for c in counters:
-                c.launches = 0
-            res = fn()
-            return res, {c.__name__: c.launches for c in counters
-                         if c.launches}
+            return count_launches(counters, fn)
 
         def cli_run(label, paths, dname):
             """The CLI on a case: ({kernel: launches}, the timers'
@@ -2124,8 +2588,10 @@ def main():
         total_launches = {k: sum(launches[k].values())
                           + sum(mesh_launches[k].values())
                           for k in launches}
-        # and K1's on the LOH.1 gate's cuda_mesh run (phase loh1)
-        total_launches["brick_step"] += loh1_launches
+        # and K1's on the LOH.1 gate's cuda_mesh run (phase loh1) and on
+        # the item-7 phases' mesh-route runs
+        total_launches["brick_step"] += loh1_launches + sum(
+            item7_launches.values())
         # K4's launches on each box of its main path (the forced box:
         # none)
         box_launches = {(f"bkt_corner_step{lb}", d): k4_by_type[b][d]

@@ -23,7 +23,11 @@ kernel; torch_plain for either on --device=cpu; bricks (the plain
 brick solver) for a plan the kernels do not run (a damping name other
 than rayleigh, mass, none or bkt, which runs undamped, or
 stiffness_calculation_method = conventional); unstructured for a mesh
-that does not decompose into bricks.
+that does not decompose into bricks, fixed-base buildings, or nonlinear
+soil or DRM part 2 on a plan the mesh route's rules refuse; a
+"solver path reason:" line then says why.  Stations in nonlinear
+elements carry 17 more columns (strain, stress, plastic multiplier,
+yield value, hardened strength).
 
 The JAX CLI's outputs and restart: output_displacement /
 output_velocity (4-D volume files), number_output_planes (plane
@@ -226,6 +230,8 @@ def main(argv=None):
     done_steps = max(p.total_steps - sim.start_step, 1)
     mon.print(f"solver path: {sim.solver_path_name}  "
               f"({done_steps / max(el, 1e-9):.1f} steps/s)\n")
+    if sim.solver_path_reason:
+        mon.print(f"solver path reason: {sim.solver_path_reason}\n")
     mon.print(f"solver_run done: {el:.1f} s\n")
 
     if sim.stations is not None:
@@ -237,7 +243,8 @@ def main(argv=None):
                             velocities=bool(p.print_station_velocities),
                             accelerations=bool(
                                 p.print_station_accelerations),
-                            start_step=sim.start_step)
+                            start_step=sim.start_step,
+                            nl_extras=sim.nl_station_extras or None)
         mon.print(f"station files written: {outdir}\n")
 
     GLOBAL_TIMERS.stop("Total Wall Clock")

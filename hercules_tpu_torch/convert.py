@@ -6,7 +6,11 @@ multi-brick plan); they differ only in the zero padding after the nb
 node columns (the JAX package pads to whole kernel tiles, the port to
 ``pallas_geometry(nb)``).  So the tests can feed the same tables and
 states to both.  The unstructured solvers' states are global ([N, 3]
-fields, [E, 8, 3] memory variables) in both packages.
+fields, [E, 8, 3] memory variables) in both packages.  The plastic state
+of nonlinear soil (stresses and plastic strains [Enl, 8, 6], ep [Enl,
+8][, bottom reactions [Eb, 4]], rows in nonlinear.NLTables.eidx order)
+is laid out alike by both packages and both routes: the last entry of
+an unstructured or a mesh state (``nonlinear_state``).
 """
 
 from __future__ import annotations
@@ -84,14 +88,19 @@ def state_to_global(S, plan, N):
                            N)
 
 
-def mesh_state_from_jax(carry, plan):
+def mesh_state_from_jax(carry, plan, plastic=None):
     """The port's mesh state (Ss, (), ()) -- S [8, LEN_b] for every brick
     and [8, NL] for the loose section, numpy, memory variables left at
     zero (fused_mesh.fit_mesh_state) -- from the JAX package's mesh
     carry: packed ((S_0, ..., S_loose), ...) with S [8, *], legacy (us,
     ups, conv) with [3, *] entries, or a pair (u, up) of global [N, 3]
-    displacement fields."""
+    displacement fields.  ``plastic``: the plastic state of a nonlinear
+    carry of either JAX route (laid out alike), then the fourth entry
+    (Ss, (), (), plastic state)."""
     from .solver.fused_mesh import mesh_spans, mesh_states_of_fields
+    if plastic is not None:
+        return mesh_state_from_jax(carry, plan)[:3] + (
+            tuple(np.asarray(a) for a in plastic),)
     if not isinstance(carry[0], (tuple, list)):          # global pair
         return (mesh_states_of_fields(plan, *carry), (), ())
     if np.shape(carry[0][0])[0] == 8:                    # packed
@@ -120,26 +129,37 @@ def mesh_state_to_global(Ss, plan, N):
 
 
 def _numpy_state(state, host):
-    """(u, u-, conv) with ``host`` applied to each array; conv None or a
-    tuple."""
-    if len(state) != 3:
-        raise ValueError(f"expected an unstructured state (u, u-, conv), "
-                         f"got {len(state)} entries (the nonlinear carry "
-                         f"is Queue 1, item 7)")
-    u, up, conv = state
-    return (host(u), host(up),
-            None if conv is None else tuple(host(c) for c in conv))
+    """(u, u-, conv[, plastic state]) with ``host`` applied to each
+    array; conv None or a tuple."""
+    if len(state) not in (3, 4):
+        raise ValueError(f"expected an unstructured state (u, u-, conv[, "
+                         f"plastic state]), got {len(state)} entries")
+    u, up, conv = state[:3]
+    out = (host(u), host(up),
+           None if conv is None else tuple(host(c) for c in conv))
+    return out + tuple(tuple(host(a) for a in s) for s in state[3:])
 
 
 def unstructured_state_from_jax(carry):
     """The port's unstructured state (step.run_solver's ``state``), numpy,
-    from the JAX package's run_solver carry: global u and u- [N, 3], and
-    conv None or, with BKT, four [E, 8, 3] memory-variable arrays.  Both
-    packages lay it out alike, so the arrays pass as they are."""
+    from the JAX package's run_solver carry: global u and u- [N, 3],
+    conv None or, with BKT, four [E, 8, 3] memory-variable arrays, and
+    with nonlinear soil the plastic state.  Both packages lay it out
+    alike, so the arrays pass as they are."""
     return _numpy_state(carry, np.asarray)
 
 
 def unstructured_state_to_global(state):
-    """The global (u [N, 3], u- [N, 3], conv) numpy arrays of the port's
-    unstructured state (tensors on any device)."""
+    """The global (u [N, 3], u- [N, 3], conv[, plastic state]) numpy
+    arrays of the port's unstructured state (tensors on any device)."""
     return _numpy_state(state, lambda x: torch.as_tensor(x).cpu().numpy())
+
+
+def nonlinear_state(state):
+    """The plastic state of a port state with nonlinear soil, on the
+    unstructured route (u, u-, conv, plastic state) or the mesh route
+    (Ss, convs, lconv, plastic state), as numpy arrays in the layout of
+    the JAX package's carries (their last entry, on either route)."""
+    if len(state) != 4:
+        raise ValueError("the state has no nonlinear part")
+    return tuple(torch.as_tensor(a).cpu().numpy() for a in state[3])

@@ -58,6 +58,16 @@ directory (``examples/terashake/run/``; 600 x 300 x 84.4 km, a
 25,600 elements, 1 brick and 9,216 loose elements, 9,408 dangling
 nodes, the index epilogue.
 
+The keys of nonlinear soil, DRM and buildings are appended to a
+case's numerical.in by ``add_nonlinear_keys``, ``add_drm_keys`` and
+``add_building_keys`` (the JAX package's own test blocks:
+tests/test_drm.py:19-29, tests/test_buildings.py:15-24).
+``NL_LAYERS`` at ``NL_FREQ`` is the box with a soft 250 m layer (Vs
+1500 m/s, two bricks), the JAX package's mixed nonlinear mesh.
+``hypocenter`` moves the point source (the DRM cases put it outside
+the DRM box) and ``dt`` sets the time step (the carved building box
+needs ``BUILDING_DT``).
+
 Layout written under ``root``::
 
     box.e              CVM etree (62.5 m octants)
@@ -137,14 +147,16 @@ def _corners_text():
 
 def write_box_case(root, edge_m=62.5, steps=200, n_stations=2,
                    damping="rayleigh", layers=None, freq=None,
-                   use_infinite_qk=False):
+                   use_infinite_qk=False, hypocenter=None, dt=None):
     """Write the box case into ``root``; returns the paths
     (cvmdb, physics_in, numerical_in).  ``damping`` is the
     type_of_damping written; ``layers`` the CVM layer table (default
     ``LAYERS``); ``freq`` the maximum frequency (default
     ``box_freq(edge_m)``); ``use_infinite_qk`` writes that key (the
-    bulk attenuation off) into numerical.in.  The time step stays
-    ``box_dt(edge_m)``."""
+    bulk attenuation off) into numerical.in; ``hypocenter`` the source's
+    (x north, y east, depth) m (default the box centre); ``dt`` the time
+    step (default ``box_dt(edge_m)``)."""
+    hx, hy, hz = hypocenter or (NORTH_M / 2, EAST_M / 2, DEPTH_M / 2)
     if not 0 <= n_stations <= len(STATIONS):
         raise ValueError(f"n_stations must be in [0, {len(STATIONS)}]")
     src_dir = os.path.join(root, "in", "src")
@@ -154,7 +166,7 @@ def write_box_case(root, edge_m=62.5, steps=200, n_stations=2,
     tops = [r[0] for r in table] + [DEPTH_M]
     res = min([CVM_RES_M] + [b - a for a, b in zip(tops, tops[1:])])
     build_layered_cvm(cvmdb, EAST_M, NORTH_M, DEPTH_M, res, table)
-    dt = box_dt(edge_m)
+    dt = box_dt(edge_m) if dt is None else dt
     physics = os.path.join(root, "in", "physics.in")
     with open(physics, "w") as f:
         f.write(f"region_origin_latitude_deg  = 0\n"
@@ -195,9 +207,9 @@ def write_box_case(root, edge_m=62.5, steps=200, n_stations=2,
                 f"source_function_type = ramp\n"
                 f"average_risetime_sec = 0.1\n"
                 f"lonlat_or_cartesian  = 1\n"
-                f"hypocenter_x         = {NORTH_M / 2:g}\n"
-                f"hypocenter_y         = {EAST_M / 2:g}\n"
-                f"hypocenter_depth_m   = {DEPTH_M / 2:g}\n"
+                f"hypocenter_x         = {hx:g}\n"
+                f"hypocenter_y         = {hy:g}\n"
+                f"hypocenter_depth_m   = {hz:g}\n"
                 f"moment_magnitude     = 4.0\n"
                 f"source_strike_deg    = 30\n"
                 f"source_dip_deg       = 60\n"
@@ -239,6 +251,109 @@ def add_output_keys(physics_in, numerical_in, output_rate=None,
             f.write(f"use_checkpoint = 1\n"
                     f"checkpointing_rate = {checkpointing_rate}\n"
                     f"checkpoint_path = checkpoints\n")
+
+
+# fixture (a) with a soft layer over the stiff halfspace (Vs 1500 m/s
+# to 250 m, the box's material below), at NL_FREQ: the vs-rule meshes
+# the layer at 62.5 m and the halfspace at 125 m (2 bricks), and a
+# nonlinear Vs cut of 2000 m/s selects the layer's elements
+NL_LAYERS = ((0.0, 3000.0, 1500.0, 2300.0), (250.0, VP, VS, RHO))
+NL_FREQ = 2.0
+# one row of material_properties_list: Vs limit, alpha (or cohesion),
+# k (or friction angle), strain rate, sensitivity, hardening
+NL_PROPERTIES = ((0.0, 0.0, 1e3, 1e-3, 1.0, 0.0),
+                 (1e10, 0.0, 1e3, 1e-3, 1.0, 0.0))
+
+
+def add_nonlinear_keys(numerical_in, vs_cut, model="vonMises",
+                       plasticity="rate_independant",
+                       properties_type="alphakay",
+                       properties=NL_PROPERTIES, geostatic_s=0.0,
+                       cushion_s=0.0):
+    """Turn on nonlinear soil (include_nonlinear_analysis) in a case's
+    numerical.in: elements with Vs at most ``vs_cut`` m/s, the material
+    model and plasticity type, the property table (rows of
+    NL_PROPERTIES' columns) and, where ``geostatic_s`` > 0, geostatic
+    loading over that many seconds plus ``cushion_s``."""
+    rows = "".join(" " + " ".join(f"{v!r}" for v in r) + "\n"
+                   for r in properties)
+    with open(numerical_in, "a") as f:
+        f.write(f"include_nonlinear_analysis = yes\n"
+                f"nonlinear_shear_velocity_cut = {vs_cut!r}\n"
+                f"material_model = {model}\n"
+                f"material_properties_type = {properties_type}\n"
+                f"material_plasticity_type = {plasticity}\n"
+                f"material_properties_count = {len(properties)}\n"
+                f"material_properties_list =\n{rows}"
+                f"geostatic_loading_time_sec = {geostatic_s!r}\n"
+                f"geostatic_cushion_time_sec = {cushion_s!r}\n")
+
+
+# the DRM box of the JAX package's DRM tests: (xmin, ymin, xmax, ymax,
+# depth) m, inside the 1000 x 1000 x 500 m box; and a shallow one whose
+# DRM elements lie in the top 125 m of the graded layer sets, where the
+# mesh is uniform at 7.8125 m (a DRM element on a coarsening interface,
+# with dangling corners, breaks the method's exactness), with a source
+# 50 m from its x face
+DRM_BOX = (250.0, 250.0, 750.0, 750.0, 250.0)
+DRM_SHALLOW_BOX = (250.0, 250.0, 750.0, 750.0, 62.5)
+DRM_HYPOCENTER = (200.0, 500.0, 30.0)
+
+
+def add_drm_keys(numerical_in, directory, part, part1_dt, box=DRM_BOX,
+                 edgesize=62.5, print_rate=1, offset=(0.0, 0.0)):
+    """Turn on the domain reduction method (implement_drm) in a case's
+    numerical.in: ``part`` "part0", "part1" or "part2", its files in
+    ``directory``, the DRM box, part 1's time step ``part1_dt`` and
+    record rate ``print_rate``."""
+    with open(numerical_in, "a") as f:
+        f.write(f"implement_drm = yes\n"
+                f"drm_directory = {directory}\n"
+                f"which_drm_part = {part}\n"
+                f"drm_edgesize = {edgesize!r}\n"
+                f"drm_offset_x = {offset[0]!r}\n"
+                f"drm_offset_y = {offset[1]!r}\n"
+                f"drm_print_rate = {print_rate}\n"
+                f"part1_delta_t = {part1_dt!r}\n"
+                f"drm_boundary =\n {' '.join(f'{v!r}' for v in box)}\n")
+
+
+# the building of the JAX package's building tests: xmin xmax ymin ymax
+# depth height m, then the building's and the foundation's Vp, Vs, rho
+BUILDING = (437.5, 562.5, 437.5, 562.5, 62.5, 62.5,
+            1000.0, 500.0, 2000.0, 2000.0, 1000.0, 2200.0)
+# the fixed-base signal: 60 samples 10 ms apart of (sin t, 0, 0) m
+BASE_SIGNAL_DT = 0.01
+# a time step under the carved box's stability bound (1.38 ms: the
+# building's 7.8125 m elements)
+BUILDING_DT = 0.001
+
+
+def add_building_keys(root, numerical_in, fixed_base=False):
+    """Turn on buildings (include_buildings) in a case's numerical.in:
+    BUILDING above a free surface shifted down 62.5 m, carved from the
+    mesh; with ``fixed_base``, its base nodes driven by the signal
+    written to ``root``/fb/base.0."""
+    import numpy as np
+    with open(numerical_in, "a") as f:
+        f.write(f"include_buildings = yes\n"
+                f"number_of_buildings = 1\n"
+                f"buildings_n_factor = 2\n"
+                f"min_octant_size_m = 62.5\n"
+                f"surface_shift_m = 62.5\n"
+                f"consider_fixed_base = {'yes' if fixed_base else 'no'}\n"
+                f"building_properties =\n"
+                f" {' '.join(f'{v!r}' for v in BUILDING)}\n")
+        if fixed_base:
+            f.write(f"fixedbase_input_dt = {BASE_SIGNAL_DT!r}\n"
+                    f"fixedbase_input_dir = fb\n"
+                    f"fixedbase_input_startindex = 0\n"
+                    f"fixedbase_input_sufix = base\n")
+    if fixed_base:
+        os.makedirs(os.path.join(root, "fb"), exist_ok=True)
+        t = np.arange(60) * BASE_SIGNAL_DT
+        np.savetxt(os.path.join(root, "fb", "base.0"),
+                   np.stack([np.sin(t), 0 * t, 0 * t], 1))
 
 
 def box_simulation(root, edge_m=62.5, steps=200, n_stations=2, **case):

@@ -17,12 +17,24 @@ variables): the single-brick routes and the multi-brick mesh route
 (``solver/brickstep.py``, "bricks") runs a plan the kernels do not take
 (another damping name, ``stiffness_calculation_method = conventional``)
 and the unstructured solver (``solver/step.py``, "unstructured") a mesh
-that does not decompose into bricks.  The features ``_unsupported``
-lists raise NotImplementedError naming their ROADMAP.md queue item.
+that does not decompose into bricks.
+
+Nonlinear soil (``nonlinear.py``), the domain reduction method
+(``drm.py``: part 0 writes the interface's coordinates at set-up, part 1
+records its displacements, part 2 replays the effective forces) and
+buildings (``buildings.py``: carved from the mesh, optionally with
+prescribed base displacements) run as in the JAX package.  Nonlinear
+soil and DRM part 2 take the mesh route (K1 per brick and the subset
+pass, ``fused_mesh.attach_nonlinear_mesh`` / ``attach_drm_mesh``) where
+its rules take the case, the unstructured solver otherwise; fixed-base
+buildings always take the unstructured solver.  ``Simulation.run``
+records why a run left the kernel routes (``solver_path_reason``; the
+CLI writes it to monitor.txt).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import os
 import sys
@@ -32,7 +44,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .config import Params, load_params
+from .config import ConfigFile, Params, load_params
 from .cvm import CVM, open_material_db
 from .mesh.locate import local_coords, locate_points
 from .meshgen import generate_mesh
@@ -61,6 +73,8 @@ def setup_stations(mesh, params: Params) -> Optional[StationSet]:
     lat = params.stations[:, 0]
     lon = params.stations[:, 1]
     depth = params.stations[:, 2].copy()
+    if mesh.buildings is not None:
+        depth = depth + mesh.buildings.surface_shift
     x, y = compute_domain_coords_linearinterp(
         lon, lat, params.domain_surface_corners[:, 0],
         params.domain_surface_corners[:, 1],
@@ -83,7 +97,8 @@ def setup_stations(mesh, params: Params) -> Optional[StationSet]:
 
 def write_station_files(outdir, stations: StationSet, samples, dt,
                         print_rate=1, velocities=False,
-                        accelerations=False, start_step=0):
+                        accelerations=False, start_step=0,
+                        nl_extras=None):
     """Reference station text format (psolve.c:6636-6795): header line
     then time + displacement per step, with optional velocity and
     acceleration columns.
@@ -94,7 +109,10 @@ def write_station_files(outdir, stations: StationSet, samples, dt,
 
     start_step > 0 (checkpoint restart): samples[0] is the field at
     `start_step`; rows are appended to the existing files on the
-    absolute print_rate grid."""
+    absolute print_rate grid.
+
+    nl_extras: {station id: [T, 17]} nonlinear strain/stress columns
+    (print_nonlinear_stations, nonlinear.c:2078-2228)."""
     os.makedirs(outdir, exist_ok=True)
     T = samples.shape[0]
     if accelerations:
@@ -102,6 +120,7 @@ def write_station_files(outdir, stations: StationSet, samples, dt,
     a0 = ((start_step + print_rate - 1) // print_rate) * print_rate
     for k, sid in enumerate(stations.ids):
         path = os.path.join(outdir, f"station.{int(sid)}")
+        extra = None if nl_extras is None else nl_extras.get(int(sid))
         with open(path, "a" if start_step else "w") as f:
             if not start_step:
                 f.write("#  Time(s)         X|(m)         Y-(m)"
@@ -110,6 +129,9 @@ def write_station_files(outdir, stations: StationSet, samples, dt,
                     f.write("       X|(m/s)       Y-(m/s)       Z.(m/s)")
                 if accelerations:
                     f.write("      X|(m/s2)      Y-(m/s2)      Z.(m/s2)")
+                if extra is not None:
+                    from .nonlinear import NL_STATION_HEADER
+                    f.write(NL_STATION_HEADER)
             u = samples[:, k, :]
 
             def at(s):
@@ -126,6 +148,8 @@ def write_station_files(outdir, stations: StationSet, samples, dt,
                 if accelerations:
                     a = (u[s] - 2 * at(s - 1) + at(s - 2)) / (dt * dt)
                     f.write(" % 8e % 8e % 8e" % (a[0], a[1], a[2]))
+                if extra is not None:
+                    f.write("".join(" % 8e" % v for v in extra[s]))
             f.write("\n")
 
 
@@ -396,21 +420,6 @@ def read_restart(params, rundir="."):
     return start_step, Checkpoint(u_now, u_prev, tuple(conv))
 
 
-def _unsupported(params):
-    """The first feature of ``params`` this slice does not run, with
-    the ROADMAP.md queue item that ports it, or None."""
-    p = params
-    checks = (
-        (p.include_nonlinear, "nonlinear soil (Queue 1, item 7)"),
-        (p.implement_drm, "DRM (Queue 1, item 7)"),
-        (p.include_buildings, "buildings (Queue 1, item 7)"),
-    )
-    for bad, what in checks:
-        if bad:
-            return what
-    return None
-
-
 @dataclass
 class Simulation:
     params: Params
@@ -435,17 +444,25 @@ class Simulation:
     solver_path_name: str = ""
     # the step the last .run() started from (a checkpoint's, else 0)
     start_step: int = 0
+    # nonlinear soil (nonlinear.NLTables), the DRM classification
+    # (drm.DRMPlan) and its directory, when the run has them
+    nl_tables: object = None
+    drm_plan: object = None
+    drm_dir: str = ""
+    # why the last .run() took the unstructured solver where the kernel
+    # routes were asked for or would be the default ("" otherwise)
+    solver_path_reason: str = ""
+    # {station id: [T, 17]}: the nonlinear columns of the stations in
+    # nonlinear elements, from the last .run()
+    nl_station_extras: dict = dataclasses.field(default_factory=dict)
 
     @classmethod
     def setup(cls, physics_in, numerical_in=None, cvmdb=None,
               verbose=False):
-        """hercules_tpu.sim.Simulation.setup without the nonlinear, DRM
-        and building stages (which raise)."""
+        """hercules_tpu.sim.Simulation.setup: the buildings parsed
+        before meshing, the nonlinear tables, the DRM classification and
+        its part-0 files."""
         params = load_params(physics_in, numerical_in)
-        what = _unsupported(params)
-        if what is not None:
-            raise NotImplementedError(
-                f"hercules_tpu_torch does not run {what} yet")
         rundir = os.path.dirname(os.path.dirname(
             os.path.abspath(physics_in))) or "."
         if cvmdb is None:
@@ -453,7 +470,12 @@ class Simulation:
             if cvmdb and not os.path.isabs(cvmdb):
                 cvmdb = os.path.join(rundir, cvmdb)
         cvm = open_material_db(cvmdb, params)
-        mesh = generate_mesh(params, cvm, verbose=verbose)
+        buildings = None
+        if params.include_buildings:
+            from .buildings import Buildings
+            buildings = Buildings.parse(ConfigFile(params.numerical_path))
+        mesh = generate_mesh(params, cvm, buildings=buildings,
+                             verbose=verbose)
         tcrit = critical_dt(mesh.props, mesh.edge_m)
         _, dt_x, dt_z = critical_dt_factors(mesh.props, mesh.edge_m,
                                             params)
@@ -477,12 +499,32 @@ class Simulation:
                   f"explicit integration will be unstable",
                   file=sys.stderr)
         tables = assemble(mesh, params)
-        source = SourceModel.parse(params)
+        shift = buildings.surface_shift if buildings is not None else 0.0
+        source = SourceModel.parse(params, surface_shift=shift)
         src_ids, src_forces = source.compute_forces(mesh, params)
         stations = setup_stations(mesh, params)
-        return cls(params=params, cvm=cvm, mesh=mesh, tables=tables,
-                   source=source, src_ids=src_ids, src_forces=src_forces,
-                   stations=stations)
+        sim = cls(params=params, cvm=cvm, mesh=mesh, tables=tables,
+                  source=source, src_ids=src_ids, src_forces=src_forces,
+                  stations=stations)
+        if params.include_nonlinear:
+            from .nonlinear import NonlinearConfig, build_nonlinear_tables
+            cfg = NonlinearConfig.parse(ConfigFile(params.numerical_path))
+            sim.nl_tables = build_nonlinear_tables(mesh, params, cfg)
+        if params.implement_drm:
+            from .drm import DRMConfig, classify, write_coords, write_info
+            dcfg = DRMConfig.parse(ConfigFile(params.numerical_path))
+            sim.drm_plan = classify(mesh, dcfg, surface_shift=shift)
+            ddir = dcfg.directory
+            if not os.path.isabs(ddir):
+                ddir = os.path.join(rundir, ddir)
+            sim.drm_dir = ddir
+            if dcfg.part == "part0":
+                write_coords(ddir, sim.drm_plan)
+                write_info(ddir, sim.drm_plan)
+                if verbose:
+                    print(f"DRM part0: {len(sim.drm_plan.node_ids)} "
+                          f"interface nodes written to {ddir}")
+        return sim
 
     def run(self, device="cuda", dtype=None, chunk=None, total_steps=None,
             on_chunk=None, outputs=None, rundir=".", restart=None,
@@ -497,20 +539,32 @@ class Simulation:
           (fused_brick.run_pallas_solver; BKT on the first tier that
           holds the brick), which return ((u, up[, conv[, conv_mix]])
           tensors, samples [T, ns, 3] numpy); every other plan (several
-          bricks, or one brick with loose elements) the mesh route
-          (fused_mesh.run_mesh_solver: (Ss, convs, lconv), samples).
-          Raises if the mesh does not decompose into bricks or the
-          damping is none the kernels run;
+          bricks, or one brick with loose elements), and every plan
+          with nonlinear soil or DRM part 2, the mesh route
+          (fused_mesh.run_mesh_solver: (Ss, convs, lconv[, nl_state]),
+          samples).  Raises where the kernel routes do not take the
+          case (route_reason);
         - "bricks": the plain brick solver (brickstep.run_brick_solver:
           (u, up, conv) over the plan's concatenated columns); raises
           if the mesh does not decompose into bricks;
-        - "unstructured": step.run_solver ((u, up, conv), global);
-        - "auto": the kernel routes where they take the plan, the plain
-          brick solver where they do not (a damping name they do not
-          run, which the JAX package runs undamped, or
-          stiffness_calculation_method = conventional, the merged-K
-          evaluation the JAX package pins to its XLA paths), the
-          unstructured solver where ``build_plan`` raises.
+        - "unstructured": step.run_solver ((u, up, conv[, nl_state]),
+          global);
+        - "auto": the kernel routes where they take the case, else the
+          route that route_reason names with its reason (a damping name
+          the kernels do not run, which the JAX package runs undamped,
+          or stiffness_calculation_method = conventional, the merged-K
+          evaluation the JAX package pins to its XLA paths: the plain
+          brick solver; a mesh that does not decompose into bricks,
+          fixed-base buildings, or nonlinear soil or DRM part 2 on a
+          plan the mesh route's rules refuse: the unstructured solver).
+          ``self.solver_path_reason`` keeps the reason.
+
+        Nonlinear soil adds one-hot rows for the corners of the stations
+        in nonlinear elements, whose plastic recursion is replayed on
+        the host after the run (``self.nl_station_extras``); DRM part 1
+        samples the interface nodes in the loop and streams them to
+        the part-1 files; part 2 adds the replayed effective forces;
+        fixed-base buildings prescribe their base nodes' displacements.
 
         ``outputs``: a SimOutputs whose taps (4-D volume, planes,
         checkpoints) fire at chunks of the gcd of their rates; it is
@@ -521,11 +575,12 @@ class Simulation:
         [start_step, total_steps).  ``restart``: read_restart's result
         when the caller read it already (the CLI does, before it opens
         the output files, so that a refused checkpoint touches none)."""
-        from .solver.bricks import build_plan
         from .solver.brickstep import run_brick_solver
         from .solver.fused_brick import plan_applies, run_pallas_solver
-        from .solver.fused_mesh import mesh_plan_applies, run_mesh_solver
-        from .solver.step import run_solver
+        from .solver.fused_mesh import (attach_drm_mesh,
+                                        attach_nonlinear_mesh,
+                                        run_mesh_solver)
+        from .solver.step import attach_nonlinear, run_solver
 
         if solver not in SOLVERS:
             raise ValueError(f"solver={solver!r}; expected one of "
@@ -535,80 +590,245 @@ class Simulation:
             dtype = torch.float32 if device.type == "cuda" else \
                 torch.float64
         p = self.params
-        damping = self.tables.damping
         steps = total_steps if total_steps is not None else p.total_steps
         st = self.stations
+        st_nodes = None if st is None else st.nodes
+        st_phi = None if st is None else st.phi
+
+        # stations inside nonlinear elements get one-hot corner rows,
+        # so that the plastic state can be replayed on the host after
+        # the run (nonlinear_stations_init, nonlinear.c:1947-2045)
+        n_st = 0 if st is None else len(st.ids)
+        nl_st_rows = []
+        if self.nl_tables is not None and st is not None:
+            nlset = set(self.nl_tables.eidx.tolist())
+            nl_st_rows = [j for j in range(n_st)
+                          if int(st.eidx[j]) in nlset]
+            if nl_st_rows:
+                st_nodes = np.concatenate(
+                    [st.nodes, np.repeat(st.nodes[nl_st_rows], 8, axis=0)])
+                st_phi = np.concatenate(
+                    [st.phi, np.tile(np.eye(8), (len(nl_st_rows), 1))])
+
+        drm = drm_rec = on_samples = None
+        if self.drm_plan is not None:
+            dcfg = self.drm_plan.cfg
+            if dcfg.part == "part2":
+                from .drm import attach_drm
+                drm = attach_drm(self.drm_plan, self.tables, p,
+                                 self.drm_dir)
+            elif dcfg.part == "part1":
+                from .drm import DRMRecorder
+                drm_rec = DRMRecorder(self.drm_dir, self.drm_plan)
+                # step-0 record of the zero initial field (the
+                # reference records at loop top, steps 0..T-1)
+                drm_rec.record(0, np.zeros((self.mesh.nnum, 3)))
+                # the interface nodes sampled in the loop, one-hot (all
+                # 8 slots the same node), streamed to the part-1 files
+                # chunk by chunk through on_samples
+                ids = np.asarray(self.drm_plan.node_ids)
+                dn_ = np.repeat(ids[:, None], 8, axis=1).astype(np.int32)
+                dphi_ = np.zeros((len(ids), 8))
+                dphi_[:, 0] = 1.0
+                r0 = 0 if st_nodes is None else len(st_nodes)
+                st_nodes = (dn_ if st_nodes is None
+                            else np.concatenate([st_nodes, dn_]))
+                st_phi = (dphi_ if st_phi is None
+                          else np.concatenate([st_phi, dphi_]))
+                rate = max(int(dcfg.print_rate), 1)
+
+                def on_samples(s0, ys):
+                    for i in range(ys.shape[0]):
+                        ab = s0 + i
+                        if ab and ab % rate == 0:
+                            drm_rec.record_rows(ab, ys[i, r0:])
+                    return ys[:, :r0]
+
+        # fixed-base buildings: the prescribed base displacement series
+        # (bldgs_load_fixedbase_disps, buildings.c:975-1146)
+        fb_ids = fb_series = None
+        bld = getattr(self.mesh, "buildings", None)
+        if bld is not None and bld.fixed_base:
+            fb_ids, which = bld.base_nodes(self.mesh)
+            fb_series = bld.base_disp_series(
+                p.end_time - p.start_time, p.delta_t, steps,
+                rundir=rundir)[:, which, :]
 
         def on_route(name):
             self.solver_path_name = name
 
         try:
-            plan = None
-            if solver != "unstructured":
-                try:
-                    with measure("Solver plan"):
-                        plan = build_plan(self.mesh)
-                except RuntimeError:
-                    if solver != "auto":
-                        raise
-            conventional = (solver == "auto"
-                            and p.stiffness_method == "conventional")
-            kernels = (plan is not None and solver in ("auto", "pallas")
-                       and not conventional
-                       and mesh_plan_applies(plan, damping))
-            if solver == "pallas" and not kernels:
-                raise RuntimeError(f"no CUDA kernel route runs "
-                                   f"damping={damping}")
+            route, plan, reason = self.route(solver, drm=drm,
+                                             fixed_base=fb_ids is not None)
+            self.solver_path_reason = reason
             self.start_step, ck = (read_restart(p, rundir)
                                    if restart is None else restart)
             hook = on_chunk
             if outputs is not None and outputs.active:
                 chunk = outputs.chunk_for(chunk or 1000)
-                hook = outputs.make_hook(plan, on_chunk,
-                                         start_step=self.start_step,
-                                         concat=not kernels)
-            kw = dict(st_nodes=None if st is None else st.nodes,
-                      st_phi=None if st is None else st.phi, dtype=dtype,
+                hook = outputs.make_hook(
+                    None if route == "unstructured" else plan, on_chunk,
+                    start_step=self.start_step, concat=route == "bricks")
+            kw = dict(st_nodes=st_nodes, st_phi=st_phi, dtype=dtype,
                       device=device, chunk=chunk, on_chunk=hook,
-                      start_step=self.start_step)
+                      start_step=self.start_step, on_samples=on_samples)
             args = (self.tables, self.src_ids, self.src_forces, steps,
                     p.delta_t)
-            if kernels:
-                run = (run_pallas_solver if plan_applies(plan, damping)
-                       else run_mesh_solver)
-                return run(plan, *args, on_route=on_route, state=ck, **kw)
-            if plan is not None:
+            if route == "pallas":
+                state, samples = run_pallas_solver(
+                    plan, *args, on_route=on_route, state=ck, **kw)
+            elif route == "mesh":
+                with measure("Solver tables", device):
+                    mesh_nl = (None if self.nl_tables is None else
+                               attach_nonlinear_mesh(
+                                   self.mesh, p, self.tables,
+                                   self.nl_tables, plan, dtype, device))
+                    mesh_drm = (None if drm is None else attach_drm_mesh(
+                        drm, plan, self.tables, dtype, device))
+                state, samples = run_mesh_solver(
+                    plan, *args, on_route=on_route, state=ck, nl=mesh_nl,
+                    drm=mesh_drm, **kw)
+            elif route == "bricks":
                 state = (None if ck is None else
-                         _brick_restart_state(plan, damping, ck, dtype,
-                                              device))
+                         _brick_restart_state(plan, self.tables.damping,
+                                              ck, dtype, device))
                 on_route("bricks")
-                return run_brick_solver(plan, *args, state=state, **kw)
-            state = (None if ck is None else
-                     _global_restart_state(self.tables, ck))
-            on_route("unstructured")
-            return run_solver(*args, state=state, **kw)
+                state, samples = run_brick_solver(plan, *args, state=state,
+                                                  **kw)
+            else:
+                nl = None
+                if self.nl_tables is not None:
+                    with measure("Solver tables", device):
+                        nl = attach_nonlinear(self.mesh, p, self.tables,
+                                              self.nl_tables, dtype, device)
+                state = (None if ck is None else
+                         _global_restart_state(self.tables, ck, nl))
+                on_route("unstructured")
+                state, samples = run_solver(
+                    *args, state=state, nl=nl, drm=drm, fb_ids=fb_ids,
+                    fb_series=fb_series, **kw)
         finally:
+            if drm_rec is not None:
+                drm_rec.close()
             if outputs is not None:
                 outputs.close()
+        return state, self._replay_nl_stations(samples, nl_st_rows, n_st)
+
+    def _replay_nl_stations(self, samples, nl_st_rows, n_st):
+        """Replay the plastic recursion of each station in a nonlinear
+        element from its sampled one-hot corner displacements
+        (print_nonlinear_stations, nonlinear.c:1947-2228) into
+        ``self.nl_station_extras``; returns the samples without those
+        rows."""
+        p = self.params
+        self.nl_station_extras = {}
+        if not nl_st_rows:
+            return samples
+        from .nonlinear import nonlinear_station_series, station_constants
+        st, cfg = self.stations, self.nl_tables.cfg
+        for i, j in enumerate(nl_st_rows):
+            u8 = np.asarray(samples[:, n_st + 8 * i:n_st + 8 * (i + 1), :])
+            con = station_constants(self.nl_tables, int(st.eidx[j]))
+            self.nl_station_extras[int(st.ids[j])] = \
+                nonlinear_station_series(
+                    u8, con["h"], con, p.delta_t, cfg.material_model,
+                    cfg.plasticity_type.startswith("rate_dep"))
+        return samples[:, :n_st]
+
+    def route(self, solver="auto", drm=None, fixed_base=False):
+        """(route, plan, reason): the route ``run`` takes for ``solver``
+        -- "pallas" (the single-brick kernel routes), "mesh" (the
+        multi-brick route), "bricks" or "unstructured" -- the brick plan
+        (None on "unstructured" where none was made), and the reason
+        the kernel routes were left where "auto" would take them or
+        another solver was asked for ("" otherwise).  Each condition is
+        the rule of the JAX package's run (hercules_tpu/sim.py:226-271,
+        334-363); ``drm`` is DRM part 2's bundle, ``fixed_base`` whether
+        fixed-base buildings prescribe displacements.  solver="pallas"
+        raises where the kernel routes do not take the case."""
+        from .solver.bricks import build_plan
+        from .solver.fused_brick import plan_applies
+        from .solver.fused_mesh import (drm_mesh_refusal,
+                                        mesh_plan_applies,
+                                        nl_mesh_refusal)
+
+        p = self.params
+        damping = self.tables.damping
+        extras = self.nl_tables is not None or drm is not None
+
+        def refuse(plan, reason):
+            if solver == "pallas":
+                raise RuntimeError(f"solver='pallas': no CUDA kernel route "
+                                   f"takes this case: {reason}")
+            return "unstructured", plan, reason
+
+        if solver == "unstructured":
+            return "unstructured", None, ""
+        if fixed_base:
+            return refuse(None, "fixed-base buildings run on the "
+                                "unstructured solver")
+        try:
+            with measure("Solver plan"):
+                plan = build_plan(self.mesh)
+        except RuntimeError as e:
+            if solver != "auto":
+                raise
+            return "unstructured", None, f"no brick plan: {e}"
+        if solver == "bricks":
+            if extras:
+                return "unstructured", plan, (
+                    "the plain brick solver has no nonlinear or DRM pass")
+            return "bricks", plan, ""
+        if not mesh_plan_applies(plan, damping):
+            if solver == "pallas":
+                raise RuntimeError(f"no CUDA kernel route runs "
+                                   f"damping={damping}")
+            if extras:
+                return "unstructured", plan, (
+                    f"no kernel route runs damping={damping}, and the "
+                    f"plain brick solver has no nonlinear or DRM pass")
+            return "bricks", plan, f"no kernel route runs damping={damping}"
+        if solver == "auto" and p.stiffness_method == "conventional":
+            if extras:
+                return "unstructured", plan, (
+                    "stiffness_calculation_method = conventional, and the "
+                    "plain brick solver has no nonlinear or DRM pass")
+            return "bricks", plan, "stiffness_calculation_method = " \
+                                   "conventional"
+        if self.nl_tables is not None:
+            reason = nl_mesh_refusal(plan, self.tables, self.nl_tables)
+            if reason is not None:
+                return refuse(plan, f"nonlinear soil: {reason}")
+        if drm is not None:
+            reason = drm_mesh_refusal(plan, drm)
+            if reason is not None:
+                return refuse(plan, f"DRM part 2: {reason}")
+        if extras or not plan_applies(plan, damping):
+            return "mesh", plan, ""
+        return "pallas", plan, ""
 
 
 # Simulation.run's routes, by the JAX package's names
 SOLVERS = ("auto", "pallas", "bricks", "unstructured")
 
 
-def _global_restart_state(tables, ck):
-    """The unstructured solver's state (u, u-, conv), numpy, from a
-    checkpoint:
-    global [N, 3] fields and, with BKT, the four [E, 8, 3] memory
-    variable arrays (hercules_tpu/sim.py:886-900).  Any other layout
-    raises."""
+def _global_restart_state(tables, ck, nl=None):
+    """The unstructured solver's state (u, u-, conv[, nl_state]), numpy,
+    from a checkpoint: global [N, 3] fields, with BKT the four [E, 8,
+    3] memory variable arrays, then with nonlinear soil (the
+    attach_nonlinear bundle ``nl``) the plastic state's arrays
+    (hercules_tpu/sim.py:886-909).  Any other layout raises."""
     nconv = 4 if tables.damping == "bkt" else 0
+    conv, tail = tuple(ck.conv[:nconv]), tuple(ck.conv[nconv:])
+    want = [] if nl is None else nl["parts"]
     if (any(np.shape(x) != (tables.N, 3) for x in (ck.u_now, ck.u_prev))
-            or len(ck.conv) != nconv
-            or any(np.shape(c) != (tables.E, 8, 3) for c in ck.conv)):
+            or len(conv) != nconv
+            or any(np.shape(c) != (tables.E, 8, 3) for c in conv)
+            or [np.shape(a) for a in tail] != want):
         raise RuntimeError("checkpoint layout does not match the "
                            "unstructured solver")
-    return (ck.u_now, ck.u_prev, tuple(ck.conv) or None)
+    state = (ck.u_now, ck.u_prev, conv or None)
+    return state if nl is None else state + (tail,)
 
 
 def _brick_restart_state(plan, damping, ck, dtype, device):

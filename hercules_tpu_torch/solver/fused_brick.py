@@ -94,13 +94,18 @@ def operators(dtype, device):
     return torch.tensor(_operator_np(), dtype=dtype, device=device)
 
 
-def pack_constants(plan, tables, LEN):
-    """K [8, LEN] in float64 (see the module docstring)."""
+def pack_constants(plan, tables, LEN, masked=None):
+    """K [8, LEN] in float64 (see the module docstring).  ``masked``:
+    optional bool [nb], columns whose element K1 must leave out (the
+    nonlinear elements, whose force the mesh route's subset pass adds):
+    their c1, c2 and beta are 0, as the JAX package's linear-element map
+    zeroes them (pallas_mesh.py:279-286)."""
     g = plan.gnid_cat
+    keep = plan.evalid_cat if masked is None else \
+        plan.evalid_cat & ~np.asarray(masked, bool)
 
     def etab(k):
-        return np.where(plan.evalid_cat,
-                        getattr(tables, k)[plan.eidx_cat], 0.0)
+        return np.where(keep, getattr(tables, k)[plan.eidx_cat], 0.0)
 
     c1, c2, c3 = etab("c1"), etab("c2"), etab("c3")
     # c3 = beta*c1 and c4 = beta*c2 with one beta = b*dt per element

@@ -34,7 +34,20 @@ launches does the rest:
   reconciliation; one on a single-copy node is added after it
   (``src_direct``);
 - the stations, sampled from the first copy of each node before the
-  step.
+  step;
+- nonlinear soil and DRM part 2 (``attach_nonlinear_mesh``,
+  ``attach_drm_mesh``, as the JAX package's packed mesh step places
+  them): K1 runs every brick with the nonlinear elements' c1, c2 and
+  beta zeroed in its K table, and a subset pass in torch ops, after the
+  launches and the loose section and before the reconciliation, updates
+  the plastic state and adds the nonlinear elements' stress-integral
+  and damping forces, the geostatic gravity rows and bottom reactions
+  and the lerped DRM effective forces into the next-step arrays as F *
+  inv_mass; the reconciler recovers them by linearity like any kernel
+  force.  After the direct sources, the geostatic bottom pin.  The
+  cases the route does not take go to the unstructured solver by the
+  JAX package's rules (``nl_mesh_refusal``, ``drm_mesh_refusal``: each
+  returns its reason).
 
 State layout (one layout, where the JAX package keeps two): every brick
 and the loose node section hold S [8, LEN] = (u, u-, 0, 0), the columns
@@ -46,13 +59,14 @@ counterpart), and the loose elements theirs, (s0, s1, k0, k1) [El, 8,
 3].  The mesh state is (Ss, convs, lconv): Ss the NB + 1 S tensors
 (bricks, then the loose section), convs the NB tuples of memory
 variables (empty for elastic bricks), lconv the loose elements' tuple
-(empty without BKT or loose elements).
+(empty without BKT or loose elements); with nonlinear soil a fourth
+entry, the plastic state (stresses [Enl, 8, 6], plastic strains [Enl,
+8, 6], ep [Enl, 8][, bottom reactions [Eb, 4] with geostatic loading]),
+the JAX mesh carry's tail.
 
-Not ported: the nonlinear and DRM branches of the JAX step (ROADMAP
-Queue 1, item 7), and the TPU's
-layout switches (``HT_MESH_PACKED``, ``HT_MESH_ABLATE``,
-``HT_BKT_UNIFORM``, ``HT_PALLAS_TILE``, the elastic ``_tier_kco``
-tiers).
+Not ported: the TPU's layout switches (``HT_MESH_PACKED``,
+``HT_MESH_ABLATE``, ``HT_BKT_UNIFORM``, ``HT_PALLAS_TILE``, the elastic
+``_tier_kco`` tiers).
 """
 
 from __future__ import annotations
@@ -62,6 +76,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..nonlinear import (nl_device_tables, nl_force, nl_state_shapes,
+                         nl_state_update, smooth_rise_factor)
 from ..utils.timers import measure
 from .brickstep import SegmentSum, loose_bkt_force, loose_elastic_force
 from .chunking import run_chunked
@@ -69,6 +85,7 @@ from .fused_brick import (BrickStep, pack_constants, pallas_geometry,
                           solver_device)
 from .fused_bktq import bkt_step_module
 from .planerec import PlaneReconciler
+from .step import drm_lerp
 from .restart import Checkpoint, fit_conv
 
 RECONCILERS = ("plane", "index")
@@ -100,22 +117,26 @@ def brick_columns(plan, b) -> BrickColumns:
                         plan.eidx_cat[cut])
 
 
-def brick_step_module(plan, b, tables, dtype, device, tier=None):
+def brick_step_module(plan, b, tables, dtype, device, tier=None,
+                      masked=None):
     """(step module, LEN) of brick ``b`` of the plan: BrickStep for
-    Rayleigh, mass or no damping; for BKT the module of the first tier
-    that holds the brick (fused_bktq.bkt_step_module), or of ``tier``
-    where given."""
+    Rayleigh, mass or no damping (``masked``: its columns whose element
+    K1 leaves out, fused_brick.pack_constants); for BKT the module of
+    the first tier that holds the brick (fused_bktq.bkt_step_module), or
+    of ``tier`` where given."""
     brick = plan.bricks[b]
     cols = brick_columns(plan, brick)
     offs = tuple(brick.corner_offsets())
     LEN = pallas_geometry(brick.nb)
     if tables.damping == "bkt":
+        if masked is not None:
+            raise ValueError("a column mask on a BKT brick")
         return bkt_step_module(cols, tables, LEN, offs, dtype, device,
                                tier=tier)[0], LEN
     if tier is not None:
         raise ValueError(f"tier={tier!r} on a {tables.damping} brick")
-    K = torch.as_tensor(pack_constants(cols, tables, LEN), dtype=dtype,
-                        device=device)
+    K = torch.as_tensor(pack_constants(cols, tables, LEN, masked=masked),
+                        dtype=dtype, device=device)
     return BrickStep(K, offs), LEN
 
 
@@ -210,6 +231,202 @@ def first_concat_copy(plan, node_ids, what="node"):
     return pos
 
 
+def plane_refusal(plan):
+    """Why the nonlinear and DRM subset passes cannot ride this plan's
+    reconciliation, or None: they need the plane reconciler wherever
+    the plan has shared copies (the JAX package's packed mode,
+    pallas_mesh.py:180-181, 252-255)."""
+    if len(plan.ex_pos) and PlaneReconciler.analyse(plan) is None:
+        return ("the plan's shared copies are not full z-plane interfaces "
+                "(the plane reconciler does not hold them)")
+    return None
+
+
+def _nl_columns(plan, tables, nl_tables):
+    """Concat element column of each nonlinear element (-1 where the
+    plan has none)."""
+    valid = np.flatnonzero(plan.evalid_cat)
+    col_of = -np.ones(tables.E, np.int64)
+    col_of[plan.eidx_cat[valid]] = valid
+    return col_of, col_of[nl_tables.eidx]
+
+
+def nl_mesh_refusal(plan, tables, nl_tables):
+    """Why the mesh route does not take nonlinear soil on this plan (the
+    JAX package's rules, attach_nonlinear_mesh and MeshPallasTables), or
+    None: the unstructured solver then runs the case."""
+    if tables.damping == "bkt":
+        return "nonlinear soil with BKT damping"
+    if nl_tables.cfg.geostatic_loading_t > 0 and len(plan.loose_eidx):
+        return "geostatic loading with loose elements"
+    if np.isin(nl_tables.eidx, plan.loose_eidx).any():
+        return "a nonlinear element in the loose section"
+    if (_nl_columns(plan, tables, nl_tables)[1] < 0).any():
+        return "a nonlinear element missing from the plan"
+    return plane_refusal(plan)
+
+
+def drm_mesh_refusal(plan, drm):
+    """Why the mesh route does not take DRM part 2 (the bundle of
+    drm.attach_drm) on this plan, or None."""
+    if not np.isin(np.asarray(drm["ids"]), plan.gnid_cat).all():
+        return "a DRM node missing from the plan"
+    return plane_refusal(plan)
+
+
+def attach_nonlinear_mesh(mesh, params, tables, nl_tables, plan,
+                          dtype=torch.float32, device="cuda"):
+    """Nonlinear bundle for the mesh route (pallas_mesh.py:518-662), on
+    ``device`` (the CUDA device unless the caller asks for the CPU).
+
+    K1 leaves the nonlinear elements out (their c1, c2 and beta zeroed
+    in MeshPallasTables: stiffness.c:46-105's linear-element map
+    excludes them); a subset pass per step updates their plastic state
+    (compute_nonlinear_state, nonlinear.c:1671) from their corners'
+    (u, u-), gathered brick by brick, and adds their stress-integral
+    force (compute_addforce_nl, nonlinear.c:1544) plus their Rayleigh
+    damping force into the next-step arrays before the reconciliation,
+    as F * inv_mass (inv_mass folded per target column).  Geostatic
+    loading: a constant gravity row per brick (rise-scaled each step),
+    the bottom elements' reaction capture and replay, and the bottom
+    pin at every copy of the bottom nodes.  Raises ValueError where
+    nl_mesh_refusal gives a reason."""
+    reason = nl_mesh_refusal(plan, tables, nl_tables)
+    if reason is not None:
+        raise ValueError(f"the mesh route does not take this case: "
+                         f"{reason}")
+    device = solver_device(device)
+    t = nl_tables
+    geostatic = t.cfg.geostatic_loading_t > 0
+    g = plan.gnid_cat
+    col_of, cols = _nl_columns(plan, tables, t)
+    f = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+    i64 = lambda x: torch.as_tensor(np.asarray(x, np.int64), device=device)
+
+    def corner_positions(eidx, ecols):
+        """Within-brick node positions of each element's 8 corners (in
+        elem_lnid's corner order, verified) and its brick."""
+        pos = np.zeros((len(eidx), 8), np.int64)
+        brick_of = np.zeros(len(eidx), np.int64)
+        for bi, b in enumerate(plan.bricks):
+            m = (ecols >= b.off) & (ecols < b.off + b.nb)
+            if not m.any():
+                continue
+            brick_of[m] = bi
+            offs = np.asarray(b.corner_offsets())
+            pos[m] = (ecols[m] - b.off)[:, None] + offs[None, :]
+            if not (g[b.off + pos[m]] == mesh.elem_lnid[eidx[m]]).all():
+                raise RuntimeError(f"brick {bi}: corner order does not "
+                                   f"match elem_lnid")
+        return pos, brick_of
+
+    def subset_plans(pos, brick_of, corner0=0):
+        """(gather, scatter) per-brick plans over the flat (element,
+        corner) entries: gather (brick, columns, entries); scatter
+        (brick, entries or None for all of them in order, their
+        fixed-order sum by column, inv_mass [columns, 1]) over corners
+        [corner0:8]."""
+        nc = 8 - corner0
+        flat_pos = pos[:, corner0:].ravel()
+        flat_brick = np.repeat(brick_of, nc)
+        gth, sct = [], []
+        for bi, b in enumerate(plan.bricks):
+            m = flat_brick == bi
+            if not m.any():
+                continue
+            loc = flat_pos[m]
+            dst = np.flatnonzero(m)
+            every = m.all()
+            gth.append((bi, i64(loc), None if every else i64(dst)))
+            invm = tables.inv_mass[g[b.off + np.unique(loc)]]
+            sct.append((bi, None if every else i64(dst),
+                        SegmentSum(loc, device), f(invm)[:, None]))
+        return gth, sct
+
+    pos, brick_of = corner_positions(t.eidx, cols)
+    gth, sct = subset_plans(pos, brick_of)
+    bundle = {
+        "d": nl_device_tables(t, dtype, device), "n": t.n,
+        "dt": params.delta_t, "dt2": params.delta_t ** 2,
+        "cols": cols,
+        "c3": f(tables.c3[t.eidx]), "c4": f(tables.c4[t.eidx]),
+        "mcat": f(tables.m48.T),
+        "gather": gth, "scatter": sct,
+        "geostatic": geostatic, "parts": nl_state_shapes(t),
+    }
+    if geostatic:
+        dt2 = params.delta_t ** 2
+        final = t.cfg.geostatic_final_step(params.delta_t)
+        ngeo = int(t.cfg.geostatic_loading_t / params.delta_t)
+        bundle["final_step"] = final
+        bundle["rise"] = f(smooth_rise_factor(np.arange(final + 2), ngeo))
+        # gravity: a constant per-node z-force row per brick, inv_mass
+        # folded, zero on the padding (the reference re-scatters E * 8
+        # corner weights every step, compute_addforce_gravity
+        # nonlinear.c:1365)
+        all_cols = col_of[np.arange(tables.E)]
+        apos, abrick = corner_positions(np.arange(tables.E), all_cols)
+        gw = np.repeat(t.grav_W * dt2, 8)
+        rows = []
+        for bi, b in enumerate(plan.bricks):
+            row = np.zeros(pallas_geometry(b.nb))
+            m = abrick == bi
+            np.add.at(row, apos[m].ravel(), gw[np.repeat(m, 8)])
+            row[:b.nb] *= tables.inv_mass[g[b.off:b.off + b.nb]]
+            rows.append(f(row))
+        bundle["grav_nb"] = rows
+        # bottom elements: reaction capture at the geostatic final step
+        # and replay after it (nonlinear.c:1436-1504)
+        be = t.bot_eidx
+        bundle["bot"] = None
+        if len(be):
+            bpos, bbrick = corner_positions(be, col_of[be])
+            bundle["bot"] = {
+                "n": len(be),
+                "gather": subset_plans(bpos, bbrick)[0],
+                "scatter": subset_plans(bpos, bbrick, corner0=4)[1],
+                "bc1": f(tables.c1[be]), "bc2": f(tables.c2[be]),
+                "botW": f(t.grav_W[be] * dt2),
+            }
+        # bottom-node displacement pin during loading, at every concat
+        # copy of the bottom nodes (geostatic_displacements_fix)
+        botn = (np.unique(mesh.elem_lnid[be][:, 4:]) if len(be)
+                else np.zeros(0, np.int64))
+        arr, loc = locate_concat(plan, np.flatnonzero(np.isin(g, botn)))
+        bundle["pin"] = [(int(a), i64(loc[arr == a]))
+                         for a in np.unique(arr)]
+    return bundle
+
+
+def attach_drm_mesh(drm, plan, tables, dtype=torch.float32, device="cuda"):
+    """Mesh-route DRM part-2 bundle (pallas_mesh.py:665-692; the
+    effective forces of solver_compute_effective_drm_force,
+    drm.c:2316-2437), on ``device`` (the CUDA device unless the caller
+    asks for the CPU): each DRM node's first concat copy, where the
+    lerped force is added as F * inv_mass before the reconciliation
+    (interface copies reconcile after, so each node's force counts
+    once).  Raises ValueError where drm_mesh_refusal gives a reason."""
+    reason = drm_mesh_refusal(plan, drm)
+    if reason is not None:
+        raise ValueError(f"the mesh route does not take this case: "
+                         f"{reason}")
+    device = solver_device(device)
+    ids = np.asarray(drm["ids"])
+    arr, loc = locate_concat(plan, first_concat_copy(plan, ids,
+                                                     what="DRM node"))
+    f = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+    i64 = lambda x: torch.as_tensor(np.asarray(x, np.int64), device=device)
+    out = {"Fdev": torch.as_tensor(drm["F"], dtype=dtype, device=device),
+           "aux": int(drm["aux"]), "adds": []}
+    rows = np.arange(len(ids))
+    for a in range(len(plan.bricks) + 1):
+        m = arr == a
+        if m.any():
+            out["adds"].append((a, i64(loc[m]), i64(rows[m]),
+                                f(tables.inv_mass[ids[m]])[:, None]))
+    return out
+
+
 def interface_epilogue_consts(plan, tables, src_ids, dtype, device):
     """Device constants of the index-based interface reconciliation
     (compute_adjust semantics, psolve.c:5936-6039): per-copy gather
@@ -295,20 +512,28 @@ class MeshPallasTables:
     "index" (the index epilogue), or None for the plane reconciler
     whenever it holds the plan, else the index epilogue.
     ``self.reconciler`` names the one taken (None when the plan has no
-    shared copies)."""
+    shared copies).  ``nl``, ``drm``: the attach_nonlinear_mesh and
+    attach_drm_mesh bundles, on the same device; they need the plane
+    reconciler where the plan has shared copies (plane_refusal), and
+    reconciler="index" with either raises."""
 
     def __init__(self, plan, tables, src_ids=None, st_nodes=None,
                  st_phi=None, dtype=torch.float32, device="cuda",
-                 reconciler=None):
+                 reconciler=None, nl=None, drm=None):
         if not mesh_plan_applies(plan, tables.damping):
             raise ValueError(f"damping={tables.damping}: no mesh route")
         if reconciler not in (None, *RECONCILERS):
             raise ValueError(f"reconciler must be one of {RECONCILERS} or "
                              f"None, got {reconciler!r}")
+        if (nl is not None or drm is not None) and reconciler == "index":
+            raise ValueError("the nonlinear and DRM subset passes ride the "
+                             "plane reconciler; reconciler='index' does "
+                             "not take them")
         self.dtype, self.device = dtype, solver_device(device)
         dev = self.device
         self.plan = plan
         self.damping = tables.damping
+        self.nl, self.drm = nl, drm
         bkt = self.damping == "bkt"
         f = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype,
                                       device=dev)
@@ -322,7 +547,17 @@ class MeshPallasTables:
         # ---- per-brick step modules ------------------------------------
         self.steps, self.LENs = [], []
         for b in range(NB):
-            mod, LEN = brick_step_module(plan, b, tables, dtype, dev)
+            masked = None
+            if nl is not None:
+                # the linear-element map: K1 leaves the nonlinear
+                # elements out, the subset pass adds their force
+                brick = plan.bricks[b]
+                masked = np.zeros(brick.nb, bool)
+                c = nl["cols"]
+                masked[c[(c >= brick.off) & (c < brick.off + brick.nb)]
+                       - brick.off] = True
+            mod, LEN = brick_step_module(plan, b, tables, dtype, dev,
+                                         masked=masked)
             self.steps.append(mod)
             self.LENs.append(LEN)
         self.tiers = [getattr(m, "tier", "elastic") for m in self.steps]
@@ -362,6 +597,11 @@ class MeshPallasTables:
                     raise ValueError("reconciler='plane': the plan's "
                                      "interfaces are not full z-planes")
             self.reconciler = "index" if self.plane_rec is None else "plane"
+            if (nl is not None or drm is not None) \
+                    and self.reconciler != "plane":
+                raise ValueError("the nonlinear and DRM subset passes need "
+                                 "the plane reconciler: " + str(
+                                     plane_refusal(plan)))
         if self.reconciler == "index":
             self.ex_gather = _Gather(ep["ex_arr"], ep["ex_loc"], NB + 1,
                                      self.K, dev)
@@ -405,7 +645,7 @@ class MeshPallasTables:
 
 
 def init_mesh_state(mt: MeshPallasTables):
-    """Zero mesh state (Ss, convs, lconv)."""
+    """Zero mesh state (Ss, convs, lconv[, nl_state])."""
     z = lambda shape, dt=mt.dtype: torch.zeros(shape, dtype=dt,
                                                device=mt.device)
     Ss = tuple(z((8, L)) for L in mt.LENs) + (z((8, mt.NL)),)
@@ -413,14 +653,18 @@ def init_mesh_state(mt: MeshPallasTables):
                   for b in range(mt.NB))
     lconv = (tuple(z((mt.El, 8, 3)) for _ in range(4))
              if mt.damping == "bkt" and mt.El else ())
-    return (Ss, convs, lconv)
+    if mt.nl is None:
+        return (Ss, convs, lconv)
+    return (Ss, convs, lconv, tuple(z(s) for s in mt.nl["parts"]))
 
 
 def fit_mesh_state(mt: MeshPallasTables, state):
-    """A copy of ``state`` = (Ss, convs, lconv) in the solver's layout,
-    type and device; empty convs or lconv start at zero (as
+    """A copy of ``state`` = (Ss, convs, lconv[, nl_state]) in the
+    solver's layout, type and device; empty convs, lconv or nl_state
+    (or a state without the last) start at zero (as
     ``mesh_state_from_jax`` gives them)."""
     want = init_mesh_state(mt)
+    state = tuple(state) + ((),) * (len(want) - len(state))
 
     def fit(got, zero):
         if isinstance(zero, tuple):
@@ -443,22 +687,34 @@ def fit_mesh_state(mt: MeshPallasTables, state):
 
 
 def mesh_conv_flat(state):
-    """The memory variables of a mesh state (Ss, convs, lconv) in the
-    order of the JAX package's mesh checkpoints: each BKT brick's conv
-    in brick order, the loose elements' four arrays, then the conv_mix
-    of each node-tier brick with mixed elements, in brick order."""
-    _, convs, lconv = state
+    """The memory variables of a mesh state (Ss, convs, lconv[,
+    nl_state]) in the order of the JAX package's mesh checkpoints: each
+    BKT brick's conv in brick order, the loose elements' four arrays,
+    then the conv_mix of each node-tier brick with mixed elements, in
+    brick order; then the plastic state's arrays (the JAX mesh carry's
+    tail, pallas_mesh.py:1117-1125)."""
+    _, convs, lconv = state[:3]
+    nl = tuple(state[3]) if len(state) > 3 else ()
     return (tuple(c[0] for c in convs if c) + tuple(lconv)
-            + tuple(c[1] for c in convs if len(c) > 1))
+            + tuple(c[1] for c in convs if len(c) > 1) + nl)
 
 
 def _fit_mesh_conv(mt: MeshPallasTables, conv_flat):
-    """(convs, lconv), float64 numpy, of a checkpoint's flat memory
-    variables (mesh_conv_flat's order).  Each brick's array, in the node
-    or the corner basis, is fitted to its own tier (restart.fit_conv:
-    the other basis converted); the conv_mix arrays are optional, as in
-    the JAX package's mesh checkpoints of the corner basis."""
+    """(convs, lconv[, nl_state]), float64 numpy, of a checkpoint's flat
+    memory variables (mesh_conv_flat's order).  Each brick's array, in
+    the node or the corner basis, is fitted to its own tier
+    (restart.fit_conv: the other basis converted); the conv_mix arrays
+    are optional, as in the JAX package's mesh checkpoints of the corner
+    basis.  With nonlinear soil the arrays are the plastic state, in
+    the shapes of nonlinear.nl_state_shapes (pallas_mesh.py:1198-1215)."""
     arrays = list(conv_flat)
+    if mt.nl is not None:
+        want = mt.nl["parts"]
+        got = [tuple(np.shape(a)) for a in arrays]
+        if got != want:
+            raise RuntimeError(f"checkpoint nonlinear state {got} does not "
+                               f"match this mesh's layout {want}")
+        return (), (), tuple(np.asarray(a, np.float64) for a in arrays)
     NB = mt.NB
     n_loose = 4 if mt.El and mt.damping == "bkt" else 0
     mix_bricks = [b for b in range(NB)
@@ -520,24 +776,92 @@ def mesh_states_of_fields(plan, u, up):
 
 
 def restore_mesh_state(mt: MeshPallasTables, ck: Checkpoint):
-    """The mesh state (Ss, convs, lconv) of a checkpoint
+    """The mesh state (Ss, convs, lconv[, nl_state]) of a checkpoint
     (restart.Checkpoint): canonical global [N, 3] fields split into
     every brick's and the loose section's S (mesh_states_of_fields),
-    the memory variables by _fit_mesh_conv, in the solver's types and
-    device."""
+    the memory variables or the plastic state by _fit_mesh_conv, in the
+    solver's types and device."""
     Ss = mesh_states_of_fields(mt.plan, ck.u_now, ck.u_prev)
-    convs, lconv = _fit_mesh_conv(mt, ck.conv)
-    return fit_mesh_state(mt, (Ss, convs, lconv))
+    return fit_mesh_state(mt, (Ss, *_fit_mesh_conv(mt, ck.conv)))
+
+
+def _gather_corners(Ss, plan, n, row):
+    """[n * 8, 3]: rows row:row+3 of the arrays at the subset's
+    (element, corner) entries, by its per-brick gather plan."""
+    if len(plan) == 1 and plan[0][2] is None:
+        bi, loc, _ = plan[0]
+        return Ss[bi][row:row + 3, loc].T
+    out = Ss[0].new_empty((n * 8, 3))
+    for bi, loc, dst in plan:
+        out[dst] = Ss[bi][row:row + 3, loc].T
+    return out
+
+
+def _scatter_corners(Sns, plan, F, rows):
+    """Add the subset's (element, corner) forces F [entries, len(rows)]
+    into rows ``rows`` of the next-step arrays, summed per column in a
+    fixed order and times inv_mass (the per-brick scatter plan)."""
+    for bi, dst, s, invm in plan:
+        sums = s(F if dst is None else F[dst]) * invm
+        Sns[bi][rows].index_add_(1, s.ids, sums.T)
+
+
+def _nl_subset_pass(mt, Ss, Sns, ue, nlstate, step_idx):
+    """The nonlinear subset forces, added into the next-step arrays
+    before the reconciliation (pallas_mesh.py:786-836); returns the
+    new plastic state.  ue [Enl, 24]: the corners' u before the step,
+    nlstate: the plastic state after this step's update; u- is read
+    from Ss."""
+    nl = mt.nl
+    n = nl["n"]
+    upe = _gather_corners(Ss, nl["gather"], n, 3).reshape(n, 24)
+    fnl = nl_force(nl["d"], nlstate[:3], nl["dt2"])     # [Enl, 24]
+    # their Rayleigh damping force -[c3 du, c4 du] @ [M1; M2], the
+    # operand written in place of a concatenation
+    du = ue - upe
+    ab = du.new_empty((n, 48))
+    torch.mul(nl["c3"][:, None], du, out=ab[:, :24])
+    torch.mul(nl["c4"][:, None], du, out=ab[:, 24:])
+    f_lin = -(ab @ nl["mcat"].T)
+    _scatter_corners(Sns, nl["scatter"], (fnl + f_lin).reshape(-1, 3),
+                     slice(0, 3))
+    if not nl["geostatic"]:
+        return nlstate
+    # gravity as one rise-scaled constant row per brick
+    # (compute_addforce_gravity, nonlinear.c:1365)
+    rise = nl["rise"][min(step_idx, nl["rise"].shape[0] - 1)]
+    for b in range(mt.NB):
+        Sns[b][2].add_(rise * nl["grav_nb"][b])
+    bt = nl["bot"]
+    if bt is None:
+        return nlstate
+    # bottom reactions captured at the final geostatic step, replayed
+    # after it (nonlinear.c:1436); the JAX package's jnp.where on the
+    # step index, a branch on the host here
+    reactions = nlstate[3]
+    if step_idx == nl["final_step"]:
+        Eb = bt["n"]
+        ub = _gather_corners(Ss, bt["gather"], Eb, 0).reshape(Eb, 24)
+        kf = (torch.cat([bt["bc1"][:, None] * ub, bt["bc2"][:, None] * ub],
+                        1) @ nl["mcat"].T).reshape(Eb, 8, 3)
+        reactions = kf[:, 4:, 2] - bt["botW"][:, None]
+    if step_idx > nl["final_step"]:
+        _scatter_corners(Sns, bt["scatter"], reactions.reshape(-1, 1),
+                         slice(2, 3))
+    return nlstate[:3] + (reactions,)
 
 
 def make_mesh_step(mt: MeshPallasTables):
-    """step(state, spare, srcf) -> (new state, sample [ns, 3]): one step
-    from ``state`` into the buffers of ``spare`` (same structure; the
-    caller swaps them), with the step's source forces srcf [L, 3]
-    (already times dt^2, or None without sources)."""
+    """step(state, spare, srcf, step_idx=0) -> (new state, sample [ns,
+    3]): one step from ``state`` into the buffers of ``spare`` (same
+    structure; the caller swaps them), with the step's source forces
+    srcf [L, 3] (already times dt^2, or None without sources); the step
+    index (a Python int) times the geostatic loading and the DRM
+    records."""
     NB = mt.NB
     bkt = mt.damping == "bkt"
     names = ("out", "conv_out", "conv_mix_out")
+    nl, drm = mt.nl, mt.drm
 
     def sample_of(Ss):
         if mt.st is None:
@@ -546,10 +870,17 @@ def make_mesh_step(mt: MeshPallasTables):
         u_st = gat(Ss).reshape(shape + (3,))
         return torch.einsum("sn,snc->sc", phi, u_st)
 
-    def step(state, spare, srcf):
-        Ss, convs, lconv = state
-        nSs, nconvs, _ = spare
+    def step(state, spare, srcf, step_idx=0):
+        Ss, convs, lconv = state[:3]
+        nSs, nconvs = spare[:2]
         sample = sample_of(Ss)
+
+        # ---- nonlinear state update (solver_nonlinear_state) ------------
+        if nl is not None:
+            ue = _gather_corners(Ss, nl["gather"], nl["n"], 0
+                                 ).reshape(nl["n"], 24)
+            nlstate = nl_state_update(nl["d"], ue, state[3][:3],
+                                      nl["dt"]) + tuple(state[3][3:])
 
         # ---- per-brick kernels ------------------------------------------
         Sns, new_convs = [], []
@@ -562,6 +893,10 @@ def make_mesh_step(mt: MeshPallasTables):
             Sn, *cv = mt.steps[b](Ss[b], *convs[b], **outs)
             Sns.append(Sn)
             new_convs.append(tuple(cv))
+
+        # ---- nonlinear subset forces (before the reconciliation) --------
+        if nl is not None:
+            nlstate = _nl_subset_pass(mt, Ss, Sns, ue, nlstate, step_idx)
 
         # ---- loose elements (gather/scatter) ----------------------------
         S_l, Sn_l = Ss[NB], nSs[NB]
@@ -585,6 +920,12 @@ def make_mesh_step(mt: MeshPallasTables):
             Sn_l[3:6] = u_l
             Sn_l[6:8] = 0
         Sns.append(Sn_l)
+
+        # ---- DRM part-2 effective forces (before the reconciliation) ----
+        if drm is not None:
+            fd = drm_lerp(drm["Fdev"], drm["aux"], step_idx)
+            for a, cols, rows, invm in drm["adds"]:
+                Sns[a][0:3].index_add_(1, cols, (fd[rows] * invm).T)
 
         # ---- interface reconciliation -----------------------------------
         if mt.reconciler == "plane":
@@ -619,7 +960,15 @@ def make_mesh_step(mt: MeshPallasTables):
         for a, pp, rows, iv in mt.src_direct:
             Sns[a][0:3].index_add_(1, pp, (srcf[rows] * iv).T)
 
-        return (tuple(Sns), tuple(new_convs), new_lconv), sample
+        new = (tuple(Sns), tuple(new_convs), new_lconv)
+        if nl is None:
+            return new, sample
+        if nl["geostatic"] and step_idx <= nl["final_step"]:
+            # geostatic_displacements_fix: bottom z pinned during
+            # loading, at every copy
+            for a, cols_p in nl["pin"]:
+                Sns[a][2].index_fill_(0, cols_p, 0.0)
+        return new + (nlstate,), sample
 
     return step
 
@@ -634,21 +983,22 @@ def run_mesh_solver(plan, tables, src_ids, src_forces, total_steps, dt,
                     st_nodes=None, st_phi=None, dtype=torch.float32,
                     device="cuda", chunk=None, state=None, on_chunk=None,
                     start_step=0, on_samples=None, reconciler=None,
-                    on_route=None):
+                    on_route=None, nl=None, drm=None):
     """Chunked time loop on a multi-brick plan; the contract of the JAX
     package's run_mesh_solver.  ``state``: an initial mesh state (see
     fit_mesh_state), zero when None; a restart.Checkpoint resumes it
     (restore_mesh_state) at ``start_step``.  ``reconciler``: see
     MeshPallasTables.  ``on_route``, if given, is called with the
-    route's name before the loop.  Returns ((Ss, convs, lconv), samples
-    [T, ns, 3] numpy).  Runs on the CUDA device unless ``device`` is the
-    CPU."""
+    route's name before the loop.  ``nl``, ``drm``: the
+    attach_nonlinear_mesh and attach_drm_mesh bundles.  Returns ((Ss,
+    convs, lconv[, nl_state]), samples [T, ns, 3] numpy).  Runs on the
+    CUDA device unless ``device`` is the CPU."""
     device = solver_device(device)
     with measure("Solver tables", device):
         mt = MeshPallasTables(plan, tables, src_ids=src_ids,
                               st_nodes=st_nodes, st_phi=st_phi,
                               dtype=dtype, device=device,
-                              reconciler=reconciler)
+                              reconciler=reconciler, nl=nl, drm=drm)
     return run_mesh(mt, src_forces, total_steps, dt, chunk=chunk,
                     state=state, on_chunk=on_chunk, start_step=start_step,
                     on_samples=on_samples, on_route=on_route)
@@ -678,7 +1028,7 @@ def run_mesh(mt: MeshPallasTables, src_forces, total_steps, dt, chunk=None,
         samples = []
         for i in range(k):
             new, sample = step(state, spare[0],
-                               None if srcf is None else srcf[i])
+                               None if srcf is None else srcf[i], s + i)
             samples.append(sample)
             spare[0], state = state, new
         return state, torch.stack(samples).cpu().numpy()

@@ -137,8 +137,10 @@ class PlaneReconciler:
     # -- construction -----------------------------------------------------
 
     @staticmethod
-    def build(plan, tables, src_ids=None, dtype=torch.float32,
-              device="cpu"):
+    def analyse(plan):
+        """(hanging planes, same-level planes) of a plan whose shared
+        copies are all full z-plane interfaces, else None: the geometry
+        of build() without its tables (the routing rules read it)."""
         mesh = plan.mesh
         bricks = plan.bricks
         NB = len(bricks)
@@ -292,6 +294,24 @@ class PlaneReconciler:
         if explained_pairs + int(explained_dn.sum()) \
                 != len(plan.grp_node):
             return None
+        return hang, same
+
+    @staticmethod
+    def build(plan, tables, src_ids=None, dtype=torch.float32,
+              device="cpu"):
+        found = PlaneReconciler.analyse(plan)
+        if found is None:
+            return None
+        hang, same = found
+        bricks = plan.bricks
+        g = plan.gnid_cat
+        node2grp = -np.ones(plan.mesh.nnum, np.int64)
+        node2grp[plan.grp_node] = np.arange(len(plan.grp_node))
+
+        def plane_gnid(b, z):
+            zpos = b.axes.index(2)
+            grid = g[b.off: b.off + b.nb].reshape(b.node_shape)
+            return np.take(grid, z, axis=zpos)
 
         # ---- device tables ------------------------------------------
         f = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype,

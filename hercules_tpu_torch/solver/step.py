@@ -16,16 +16,21 @@ and the DRM forces at their nodes) runs in a fixed order
 
 Per step (solver_run, psolve.c:4241-4324): the station sample of the
 current displacement (row s of the samples is the field before step
-s), the source forces, the DRM effective forces, the element forces
-scattered to the nodes, the dangling distribution, the node update,
-the fixed-base displacements, the dangling assignment.
+s), the plastic state update of the nonlinear elements, the source
+forces, the DRM effective forces, the element forces scattered to the
+nodes (the nonlinear elements' linear stiffness zeroed: their elastic
+force is the stress integral), the nonlinear elements' force and, with
+geostatic loading, the gravity and bottom-reaction forces
+(``_geostatic_forces``), the dangling distribution, the node update,
+the geostatic bottom pin, the fixed-base displacements, the dangling
+assignment.
 
 The state is global: (u [N, 3], u- [N, 3], conv), conv None or, with
-BKT damping, four [E, 8, 3] memory-variable arrays (s0, s1, k0, k1).
-
-The nonlinear branch (``nl=``, ``_geostatic_forces``,
-``attach_nonlinear``) needs the nonlinear tables of ROADMAP Queue 1,
-item 7: passing ``nl`` raises NotImplementedError.
+BKT damping, four [E, 8, 3] memory-variable arrays (s0, s1, k0, k1);
+with nonlinear soil (``nl=``, the bundle of ``attach_nonlinear``) a
+fourth entry, the plastic state (stresses [Enl, 8, 6], plastic strains
+[Enl, 8, 6], ep [Enl, 8][, bottom reactions [Eb, 4] with geostatic
+loading]), as the JAX carry holds it.
 """
 
 from __future__ import annotations
@@ -33,12 +38,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..nonlinear import (G, nl_device_tables, nl_force, nl_state_shapes,
+                         nl_state_update, smooth_rise_factor)
 from ..utils.timers import measure
 from .brickstep import SegmentSum
 from .chunking import run_chunked
-
-NL_REFUSAL = ("the unstructured solver's nonlinear branch needs the "
-              "nonlinear soil tables (Queue 1, item 7)")
 
 
 def _dev(tables, dtype, device):
@@ -155,8 +159,15 @@ def dangling_assign(d, v):
     return v
 
 
-def _np_dtype(dtype):
-    return {torch.float32: np.float32, torch.float64: np.float64}[dtype]
+def drm_lerp(Fdev, aux, step_idx):
+    """The DRM effective force of step ``step_idx``: the records Fdev
+    [R, M, 3] interpolated linearly, ``aux`` steps per record; k and
+    frac from the step index on the host, frac in Fdev's type as the
+    JAX package casts it."""
+    fdt = {torch.float32: np.float32, torch.float64: np.float64}[Fdev.dtype]
+    k = min(step_idx // aux, Fdev.shape[0] - 2)
+    frac = fdt(step_idx % aux) / fdt(aux)
+    return float(fdt(1.0) - frac) * Fdev[k] + float(frac) * Fdev[k + 1]
 
 
 def make_step(tables, src_ids, st_nodes=None, st_phi=None,
@@ -164,21 +175,29 @@ def make_step(tables, src_ids, st_nodes=None, st_phi=None,
     """Build the step function; returns (step, d).
 
     step(carry, x) -> (carry, sample):
-    carry = (u_now, u_prev, conv)   [conv None unless BKT]
+    carry = (u_now, u_prev, conv[, nl_state])   [conv None unless BKT]
     x     = (per-step source force [L, 3] (dt^2-scaled), step index
             (a Python int)[, fixed-base displacements [B, 3]])
     sample = station displacements [S, 3] of u_now (empty if no
             stations)
 
-    drm: optional PART2 bundle {"ids" [M], "Fdev" [R, M, 3] tensor,
-    "aux" steps per record}: the effective forces, interpolated
-    linearly between records (drm.c:2316-2437).  d["fb_ids"], set by
-    the caller, names the fixed-base nodes that x's third entry
-    prescribes (buildings.c:1146)."""
-    if nl is not None:
-        raise NotImplementedError(NL_REFUSAL)
+    nl: optional nonlinear bundle from attach_nonlinear(), on the same
+    device: the nonlinear elements' elastic force flows through the
+    plastic stress integral instead of the linear stiffness operator
+    (stiffness.c:46-105 excludes them), with optional geostatic
+    gravity loading.  drm: optional PART2 bundle {"ids" [M], "Fdev"
+    [R, M, 3] tensor, "aux" steps per record}: the effective forces,
+    interpolated linearly between records (drm.c:2316-2437).
+    d["fb_ids"], set by the caller, names the fixed-base nodes that x's
+    third entry prescribes (buildings.c:1146)."""
     device = torch.device(device)
     d = _dev(tables, dtype, device)
+    if nl is not None:
+        # zero the linear stiffness coefficients of nonlinear elements
+        # (linear_elements_mapping); damping c3/c4 stay active for all.
+        # Out of place: on the CPU d's tensors share the tables' memory
+        for k in ("c1", "c2"):
+            d[k] = d[k].index_fill(0, nl["rows"], 0.0)
     N = tables.N
     damping = tables.damping
     src = SegmentSum(np.asarray(src_ids, np.int64), device)
@@ -190,20 +209,26 @@ def make_step(tables, src_ids, st_nodes=None, st_phi=None,
                                  device=device)
     if drm is not None:
         drm_sum = SegmentSum(np.asarray(drm["ids"], np.int64), device)
-        n_rec = drm["Fdev"].shape[0]
         aux = int(drm["aux"])
-        fdt = _np_dtype(dtype)
 
     def step(carry, x):
         srcf, step_idx = x[0], int(x[1])
         fb_disp = x[2] if len(x) == 3 else None
-        u_now, u_prev, conv = carry
+        u_now, u_prev, conv = carry[:3]
 
         # station sample of the current displacement (output row s)
         if st_nodes is not None:
             sample = torch.einsum("sn,snc->sc", st_phi, u_now[st_nodes])
         else:
             sample = u_now.new_zeros((0, 3))
+
+        # nonlinear state update first (solver_nonlinear_state,
+        # psolve.c:4287)
+        if nl is not None:
+            nlstate = carry[3]
+            ue = u_now[nl["lnid"]].reshape(nl["n"], 24)
+            nlstate = nl_state_update(nl["d"], ue, nlstate[:3], nl["dt"]) \
+                + tuple(nlstate[3:])
 
         # source force (compute_addforce_s, psolve.c:5912-5928): each
         # source node once, its forces summed in their order
@@ -213,17 +238,21 @@ def make_step(tables, src_ids, st_nodes=None, st_phi=None,
 
         if drm is not None:
             # DRM effective force: lerp between force records
-            # (solver_compute_effective_drm_force, drm.c:2316-2437); k
-            # and frac from the step index on the host, frac in the
-            # run's type as the JAX package casts it
-            k = min(step_idx // aux, n_rec - 2)
-            frac = fdt(step_idx % aux) / fdt(aux)
-            Fdev = drm["Fdev"]
-            fd = float(fdt(1.0) - frac) * Fdev[k] + float(frac) * Fdev[k + 1]
+            # (solver_compute_effective_drm_force, drm.c:2316-2437)
+            fd = drm_lerp(drm["Fdev"], aux, step_idx)
             force = force.index_add(0, drm_sum.ids, drm_sum(fd))
 
         f_elem, conv = element_forces(d, damping, u_now, u_prev, conv)
         force = force + scatter_to_nodes(d, N, f_elem)
+
+        if nl is not None:
+            fnl = nl_force(nl["d"], nlstate[:3], nl["dt2"])  # [Enl, 24]
+            s = nl["scat_sum"]
+            force = force.index_add(0, s.ids, s(fnl.reshape(-1, 3)))
+            if nl["geostatic"]:
+                force, nlstate = _geostatic_forces(d, nl, force, u_now,
+                                                   step_idx, nlstate)
+
         force = dangling_distribute(d, N, force)
 
         # node update (solver_compute_displacement, psolve.c:4072-4114)
@@ -231,27 +260,113 @@ def make_step(tables, src_ids, st_nodes=None, st_phi=None,
         u_next = u_now + (force + d["mass_minusaM"]
                           * (u_now - u_prev)) * d["inv_mass"][:, None]
 
+        if nl is not None and nl["geostatic"] \
+                and step_idx <= nl["final_step"]:
+            # geostatic_displacements_fix: bottom z pinned during loading
+            u_next[nl["bot_nodes"], 2] = 0.0
+
         if fb_disp is not None and "fb_ids" in d:
             # fixed-base buildings: prescribed base displacements
             # (bldgs_load_fixedbase_disps, buildings.c:1146)
             u_next[d["fb_ids"]] = fb_disp
 
         u_next = dangling_assign(d, u_next)
-        return (u_next, u_now, conv), sample
+        if nl is None:
+            return (u_next, u_now, conv), sample
+        return (u_next, u_now, conv, nlstate), sample
 
     return step, d
 
 
+def _geostatic_forces(d, nl, force, u_now, step_idx, nlstate):
+    """compute_addforce_gravity + bottom reactions
+    (nonlinear.c:1302-1504): the rise-scaled gravity weights of every
+    element corner; the bottom elements' reactions captured at the
+    final geostatic step and added after it (the JAX package's
+    jnp.where on the step index, here a branch on the host)."""
+    sig, pstr, ep, reactions = nlstate
+    rise = nl["rise"][min(step_idx, nl["rise"].shape[0] - 1)]
+    g = nl["grav_sum"]
+    force = force.clone()
+    force[g.ids, 2] += g(nl["grav_W"][:, None] * rise)[:, 0]
+    Eb = nl["bot_lnid"].shape[0]
+    if Eb:
+        if step_idx == nl["final_step"]:
+            ub = u_now[nl["bot_lnid"]].reshape(Eb, 24)
+            a = nl["bc1"][:, None] * ub
+            b = nl["bc2"][:, None] * ub
+            kf = (torch.cat([a, b], 1) @ d["m48"]).reshape(Eb, 8, 3)
+            reactions = kf[:, 4:, 2] - nl["bot_W"][:, None]   # [Eb, 4]
+        if step_idx > nl["final_step"]:
+            s = nl["bot_sum"]
+            force[s.ids, 2] += s(reactions.reshape(-1, 1))[:, 0]
+    return force, (sig, pstr, ep, reactions)
+
+
+def attach_nonlinear(mesh, params, tables, nl_tables, dtype=torch.float64,
+                     device="cuda"):
+    """Build the nonlinear bundle consumed by make_step, on ``device``
+    (the CUDA device unless the caller asks for the CPU): the plastic
+    constants (nonlinear.nl_device_tables), the elements' corner nodes
+    and the fixed-order sum of their forces into the nodes; with
+    geostatic loading, the gravity weights per corner (dt^2 folded),
+    the smooth rise factor table, the bottom elements' stiffness
+    coefficients, weights and reaction sum, and the pinned bottom
+    nodes."""
+    from .fused_brick import solver_device
+
+    device = solver_device(device)
+    t = nl_tables
+    f = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+    i = lambda x: torch.as_tensor(np.asarray(x, np.int64), device=device)
+    lnid = mesh.elem_lnid[t.eidx].astype(np.int64)
+    nl = {
+        "d": nl_device_tables(t, dtype, device),
+        "rows": i(t.eidx),
+        "lnid": i(lnid),
+        "scat_sum": SegmentSum(lnid.ravel(), device),
+        "dt": params.delta_t,
+        "dt2": params.delta_t ** 2,
+        "geostatic": t.cfg.geostatic_loading_t > 0,
+        "n": t.n,
+        "parts": nl_state_shapes(t),
+    }
+    if nl["geostatic"]:
+        dt2 = params.delta_t ** 2
+        final = t.cfg.geostatic_final_step(params.delta_t)
+        nl["final_step"] = final
+        # per-corner gravity weights (dt^2 folded), summed into nodes
+        nl["grav_W"] = f(np.repeat(t.grav_W * dt2, 8))
+        nl["grav_sum"] = SegmentSum(mesh.elem_lnid.ravel(), device)
+        # smooth rise factor lookup for the geostatic window
+        ngeo = int(t.cfg.geostatic_loading_t / params.delta_t)
+        nl["rise"] = f(smooth_rise_factor(np.arange(final + 2), ngeo))
+        # bottom elements: reaction capture + replay
+        be = t.bot_eidx
+        bl = mesh.elem_lnid[be].astype(np.int64)
+        nl["bot_lnid"] = i(bl)
+        nl["bc1"] = f(tables.c1[be])
+        nl["bc2"] = f(tables.c2[be])
+        nl["bot_W"] = f(mesh.props["rho"][be] * mesh.edge_m[be] ** 3 * G
+                        * 0.125 * dt2)
+        nl["bot_sum"] = SegmentSum(bl[:, 4:].ravel(), device)
+        # bottom nodes for the displacement fix
+        nl["bot_nodes"] = i(np.unique(bl[:, 4:]))
+    return nl
+
+
+
+
 def init_state(tables, dtype=torch.float64, nl=None, device="cuda"):
-    """The zero state (u, u-, conv) on ``device``."""
-    if nl is not None:
-        raise NotImplementedError(NL_REFUSAL)
-    u = torch.zeros((tables.N, 3), dtype=dtype, device=device)
+    """The zero state (u, u-, conv[, nl_state]) on ``device``."""
+    z = lambda shape: torch.zeros(shape, dtype=dtype, device=device)
+    u = z((tables.N, 3))
     conv = None
     if tables.damping == "bkt":
-        conv = tuple(torch.zeros((tables.E, 8, 3), dtype=dtype,
-                                 device=device) for _ in range(4))
-    return (u, u, conv)
+        conv = tuple(z((tables.E, 8, 3)) for _ in range(4))
+    if nl is None:
+        return (u, u, conv)
+    return (u, u, conv, tuple(z(s) for s in nl["parts"]))
 
 
 def run_solver(tables, src_ids, src_forces, total_steps, dt,
@@ -265,14 +380,13 @@ def run_solver(tables, src_ids, src_forces, total_steps, dt,
     src_forces: [T, L, 3] host array (unscaled; dt^2 applied here, in
     float64 before the cast).  fb_ids/fb_series: optional fixed-base
     node ids [B] and prescribed displacements [T, B, 3].  drm: optional
-    PART2 bundle {"ids", "F" [R, M, 3] host array, "aux"}.  state: (u,
-    u-, conv), tensors or arrays (cast to ``dtype`` on ``device``), zero
-    when None.  Runs on the CUDA device unless ``device`` is the CPU.
-    Returns (final_state, station_samples [T, S, 3] numpy)."""
+    PART2 bundle {"ids", "F" [R, M, 3] host array, "aux"}.  nl: optional
+    attach_nonlinear bundle (on ``device``).  state: (u, u-, conv[,
+    nl_state]), tensors or arrays (cast to ``dtype`` on ``device``),
+    zero when None.  Runs on the CUDA device unless ``device`` is the
+    CPU.  Returns (final_state, station_samples [T, S, 3] numpy)."""
     from .fused_brick import solver_device
 
-    if nl is not None:
-        raise NotImplementedError(NL_REFUSAL)
     device = solver_device(device)
     with measure("Solver tables", device):
         if drm is not None:
@@ -280,17 +394,26 @@ def run_solver(tables, src_ids, src_forces, total_steps, dt,
             drm["Fdev"] = torch.as_tensor(np.asarray(drm.pop("F")),
                                           dtype=dtype, device=device)
         step, d = make_step(tables, src_ids, st_nodes, st_phi, dtype,
-                            drm=drm, device=device)
+                            nl=nl, drm=drm, device=device)
         if fb_ids is not None:
             d["fb_ids"] = torch.as_tensor(np.asarray(fb_ids, np.int64),
                                           device=device)
     if state is None:
-        state = init_state(tables, dtype, device=device)
+        state = init_state(tables, dtype, nl=nl, device=device)
     else:
         on = lambda x: torch.as_tensor(x, dtype=dtype, device=device)
-        u, up, conv = state
-        state = (on(u), on(up),
-                 None if conv is None else tuple(on(c) for c in conv))
+        u, up, conv = state[:3]
+        fitted = (on(u), on(up),
+                  None if conv is None else tuple(on(c) for c in conv))
+        if nl is not None:
+            want = nl["parts"]
+            got = [tuple(np.shape(a)) for a in state[3]] \
+                if len(state) > 3 else []
+            if got != want:
+                raise RuntimeError(f"nonlinear state {got} does not match "
+                                   f"this mesh's layout {want}")
+            fitted += (tuple(on(a) for a in state[3]),)
+        state = fitted
     if chunk is None:
         chunk = min(total_steps, 1000)
     dt2 = dt * dt

@@ -232,3 +232,84 @@ def test_gof_copy_is_byte_equal():
     ref = rng.standard_normal((200, 3))
     sim = ref + 0.1 * rng.standard_normal((200, 3))
     assert np.array_equal(gof.gof_score(ref, sim), jgof.gof_score(ref, sim))
+
+
+def test_buildings_copy_is_byte_equal():
+    """The port's buildings.py (numpy only) is the JAX package's file
+    byte for byte."""
+    import inspect
+
+    from hercules_tpu import buildings as jbuildings
+    from hercules_tpu_torch import buildings
+    with open(inspect.getfile(buildings), "rb") as f, \
+            open(inspect.getfile(jbuildings), "rb") as g:
+        assert f.read() == g.read()
+
+
+# the numpy parts of nonlinear.py and drm.py, copied with their names
+COPIES = {
+    "nonlinear": ("_dxi_unit", "_grad_table", "strain_operator",
+                  "force_operator", "NonlinearConfig", "NLTables",
+                  "build_nonlinear_tables", "smooth_rise_factor",
+                  "nonlinear_station_series", "station_constants"),
+    "drm": ("DRMConfig", "DRMPlan", "classify", "write_coords",
+            "read_coords", "write_info", "sanity_check", "DRMRecorder",
+            "read_displacements", "effective_force_records"),
+}
+
+
+@pytest.mark.parametrize("module", sorted(COPIES))
+def test_numpy_parts_are_copies(module):
+    """Each numpy function and class of nonlinear.py and drm.py is the
+    JAX package's source text, and so are their constants (drm.py's
+    attach_drm differs only in returning numpy node ids)."""
+    import importlib
+    import inspect
+    mine = importlib.import_module(f"hercules_tpu_torch.{module}")
+    ref = importlib.import_module(f"hercules_tpu.{module}")
+    for name in COPIES[module]:
+        assert inspect.getsource(getattr(mine, name)) == \
+            inspect.getsource(getattr(ref, name)), name
+    for name, v in vars(ref).items():
+        if isinstance(v, (int, float, str, np.ndarray)) \
+                and not name.startswith("__"):
+            assert_same(getattr(mine, name), v, name)
+
+
+def test_nonlinear_host_parts_equal(twin, tmp_path):
+    """On the same box: the parsed configuration, the nonlinear tables
+    (geostatic loading on), the operators, the smooth rise factor, and a
+    station's replayed plastic series, array for array."""
+    from hercules_tpu import nonlinear as jnl
+    from hercules_tpu_torch import nonlinear as nl
+    from hercules_tpu_torch.fixtures import add_nonlinear_keys
+    path = str(tmp_path / "numerical.in")
+    add_nonlinear_keys(path, 4000.0, model="druckerprager",
+                       properties_type="cohefriction",
+                       properties=((0.0, 3e4, 30.0, 1e-3, 1.0, 1e5),
+                                   (5000.0, 5e4, 35.0, 1e-3, 1.0, 2e5)),
+                       geostatic_s=0.05)
+    cfg = nl.NonlinearConfig.parse(config.ConfigFile(path))
+    jcfg = jnl.NonlinearConfig.parse(jconfig.ConfigFile(path))
+    assert_same(vars(cfg), vars(jcfg), "NonlinearConfig")
+    t = nl.build_nonlinear_tables(twin.mesh, twin.params, cfg)
+    jt = jnl.build_nonlinear_tables(twin.jmesh, twin.jparams, jcfg)
+    assert t.n == 2048 and len(t.bot_eidx) == 256
+    for f in dataclasses.fields(jt):
+        if f.name != "cfg":
+            assert_same(getattr(t, f.name), getattr(jt, f.name), f.name)
+    for fn in ("strain_operator", "force_operator"):
+        assert_same(getattr(nl, fn)(), getattr(jnl, fn)(), fn)
+    steps = np.arange(200)
+    assert_same(nl.smooth_rise_factor(steps, 120),
+                jnl.smooth_rise_factor(steps, 120), "smooth_rise_factor")
+    con = nl.station_constants(t, 7)
+    assert_same(con, jnl.station_constants(jt, 7), "station_constants")
+    u8 = 1e-3 * np.random.default_rng(5).standard_normal((30, 8, 3))
+    for rate_dep in (False, True):
+        assert_same(
+            nl.nonlinear_station_series(u8, con["h"], con, 1e-3,
+                                        cfg.material_model, rate_dep),
+            jnl.nonlinear_station_series(u8, con["h"], con, 1e-3,
+                                         jcfg.material_model, rate_dep),
+            "nonlinear_station_series")

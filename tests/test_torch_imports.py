@@ -7,6 +7,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -23,7 +24,8 @@ from hercules_tpu_torch.kernels.stream_add import stream_add
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = ("hercules_tpu_torch", "hercules_tpu_torch.cli",
            "hercules_tpu_torch.sim", "hercules_tpu_torch.convert",
-           "hercules_tpu_torch.fixtures",
+           "hercules_tpu_torch.fixtures", "hercules_tpu_torch.nonlinear",
+           "hercules_tpu_torch.drm", "hercules_tpu_torch.buildings",
            "hercules_tpu_torch.config", "hercules_tpu_torch.cvm",
            "hercules_tpu_torch.material", "hercules_tpu_torch.meshgen",
            "hercules_tpu_torch.native",
@@ -167,7 +169,8 @@ def small_box(tmp_path_factory):
 
 @pytest.mark.parametrize("entry", ["PallasBrickTables", "run_pallas_solver",
                                    "tables_from_jax", "MeshPallasTables",
-                                   "run_mesh_solver", "run_brick_solver"])
+                                   "run_mesh_solver", "run_brick_solver",
+                                   "attach_nonlinear_mesh"])
 def test_entry_points_default_to_cuda(entry, small_box, monkeypatch):
     """The solver's entry points take the CUDA device unless the caller
     asks for the CPU; with no CUDA device they raise instead of running
@@ -176,13 +179,27 @@ def test_entry_points_default_to_cuda(entry, small_box, monkeypatch):
     from hercules_tpu_torch.solver import brickstep, fused_brick, fused_mesh
     module = {"tables_from_jax": convert, "MeshPallasTables": fused_mesh,
               "run_mesh_solver": fused_mesh,
+              "attach_nonlinear_mesh": fused_mesh,
               "run_brick_solver": brickstep}.get(entry, fused_brick)
     fn = getattr(module, entry)
     assert inspect.signature(fn).parameters["device"].default == "cuda"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     sim, plan = small_box
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        if entry.startswith("run_"):
+        if entry == "attach_nonlinear_mesh":
+            from hercules_tpu_torch.fixtures import NL_PROPERTIES
+            from hercules_tpu_torch.nonlinear import (NonlinearConfig,
+                                                      build_nonlinear_tables)
+            table = np.array(NL_PROPERTIES)
+            cfg = NonlinearConfig(vs_cut=1e9, vs_limits=table[:, 0],
+                                  alpha_cohes=table[:, 1],
+                                  kay_phis=table[:, 2],
+                                  strain_rates=table[:, 3],
+                                  sensitivities=table[:, 4],
+                                  hardening=table[:, 5])
+            fn(sim.mesh, sim.params, sim.tables,
+               build_nonlinear_tables(sim.mesh, sim.params, cfg), plan)
+        elif entry.startswith("run_"):
             fn(plan, sim.tables, sim.src_ids, sim.src_forces, 4,
                sim.params.delta_t)
         elif entry.endswith("Tables"):

@@ -162,15 +162,35 @@ def test_cli_without_cuda_exits_nonzero(tmp_path, monkeypatch, capsys):
     assert not (tmp_path / "stations").exists()
 
 
-@pytest.mark.parametrize("key,value", [
-    ("include_nonlinear_analysis", "yes"),
-    ("implement_drm", "yes"),
-])
-def test_unsupported_features_raise(tmp_path, key, value):
-    """Routes outside this slice raise NotImplementedError naming the
-    ROADMAP queue item."""
+@pytest.mark.parametrize("feature", ["nonlinear", "drm"])
+def test_item7_features_set_up(tmp_path, feature):
+    """Simulation.setup builds the nonlinear tables (elements with Vs
+    under the cut, here every element of fixture (a)), or the DRM
+    classification and part 0's coordinate and information files,
+    equal to the JAX package's."""
+    from hercules_tpu import drm as jax_drm
+    from hercules_tpu_torch import drm
+    from hercules_tpu_torch.fixtures import add_drm_keys, add_nonlinear_keys
     cvmdb, physics, numerical = write_box_case(str(tmp_path), steps=2)
-    with open(numerical, "a") as f:
-        f.write(f"\n{key} = {value}\n")
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        Simulation.setup(physics, numerical, cvmdb=cvmdb)
+    ddir = str(tmp_path / "drm")
+    if feature == "nonlinear":
+        add_nonlinear_keys(numerical, 4000.0)
+    else:
+        add_drm_keys(numerical, ddir, "part0", 0.001)
+    sim = Simulation.setup(physics, numerical, cvmdb=cvmdb)
+    jsim = JaxSimulation.setup(physics, numerical, cvmdb=cvmdb)
+    if feature == "nonlinear":
+        assert sim.nl_tables.n == sim.mesh.lenum == 2048
+        for k in ("eidx", "mu", "lam", "alpha", "k", "hard", "h"):
+            np.testing.assert_array_equal(getattr(sim.nl_tables, k),
+                                          getattr(jsim.nl_tables, k))
+        return
+    plan = sim.drm_plan
+    assert plan.cfg.part == "part0" and len(plan.elem_idx) > 0
+    for k in ("elem_idx", "mask_b", "node_ids", "node_coords"):
+        np.testing.assert_array_equal(getattr(plan, k),
+                                      getattr(jsim.drm_plan, k))
+    np.testing.assert_array_equal(drm.read_coords(ddir),
+                                  jax_drm.read_coords(ddir))
+    with open(os.path.join(ddir, "drm_information")) as f:
+        assert f"drm_numberofelements = {len(plan.elem_idx)}" in f.read()

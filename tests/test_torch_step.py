@@ -15,9 +15,10 @@ from hercules_tpu.sim import Simulation as JaxSimulation
 from hercules_tpu.solver import step as jstep
 from hercules_tpu_torch.convert import (unstructured_state_from_jax,
                                         unstructured_state_to_global)
-from hercules_tpu_torch.fixtures import (GRADED_LAYERS, SOFT_FREQ,
-                                         SOFT_LAYERS, four_q_freq,
-                                         one_torch_thread, write_box_case)
+from hercules_tpu_torch.fixtures import (GRADED_LAYERS, NL_PROPERTIES,
+                                         SOFT_FREQ, SOFT_LAYERS,
+                                         four_q_freq, one_torch_thread,
+                                         write_box_case)
 from hercules_tpu_torch.sim import Simulation
 from hercules_tpu_torch.solver import step
 
@@ -189,11 +190,56 @@ def test_fixed_base_matches_jax(sims):
     _assert_states_close(mine, ref, samp, jsamp)
 
 
-def test_nonlinear_branch_names_its_item(sims):
+def test_nonlinear_branch_runs(sims):
+    """The nonlinear branch on fixture (a), every element nonlinear with
+    the linear material model: the stress integral (2x2x2 Gauss, exact
+    for trilinear hexahedra) takes the place of the linear stiffness,
+    so the run matches the linear one's (the JAX package's
+    test_linear_model_matches_stiffness), with the plastic state in the
+    carry and in the JAX package's layout."""
+    from hercules_tpu.nonlinear import (NonlinearConfig as JaxConfig,
+                                        build_nonlinear_tables as jax_build)
+    from hercules_tpu_torch.nonlinear import (NonlinearConfig,
+                                              build_nonlinear_tables)
     sim, _ = sims("box")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        step.run_solver(sim.tables, sim.src_ids, sim.src_forces, 2,
-                        sim.params.delta_t, nl={}, device="cpu")
+    table = np.array(NL_PROPERTIES)
+
+    def config(cls):
+        return cls(vs_cut=1e9, vs_limits=table[:, 0],
+                   alpha_cohes=table[:, 1], kay_phis=table[:, 2],
+                   strain_rates=table[:, 3], sensitivities=table[:, 4],
+                   hardening=table[:, 5])
+
+    nlt = build_nonlinear_tables(sim.mesh, sim.params,
+                                 config(NonlinearConfig))
+    assert nlt.n == sim.mesh.lenum
+    nl = step.attach_nonlinear(sim.mesh, sim.params, sim.tables, nlt,
+                               device="cpu")
+    st = sim.stations
+    args = (sim.tables, sim.src_ids, sim.src_forces, STEPS,
+            sim.params.delta_t)
+    state, samp = step.run_solver(*args, st_nodes=st.nodes, st_phi=st.phi,
+                                  nl=nl, device="cpu")
+    lin, lsamp = step.run_solver(*args, st_nodes=st.nodes, st_phi=st.phi,
+                                 device="cpu")
+    assert len(state) == 4 and [tuple(a.shape) for a in state[3]] == [
+        (nlt.n, 8, 6), (nlt.n, 8, 6), (nlt.n, 8)]
+    # the two operators round differently: JAX's bound for this check
+    # (tests/test_nonlinear.py:78-82), 1e-9 of max|u|
+    scale = np.abs(lin[0].numpy()).max()
+    np.testing.assert_allclose(state[0].numpy(), lin[0].numpy(), rtol=0,
+                               atol=1e-9 * scale)
+    np.testing.assert_allclose(samp, lsamp, rtol=0,
+                               atol=1e-9 * np.abs(lsamp).max())
+    jnlt = jax_build(sim.mesh, sim.params, config(JaxConfig))
+    jstate, _ = jstep.run_solver(
+        *args, dtype=jnp.float64,
+        nl=jstep.attach_nonlinear(sim.mesh, sim.params, sim.tables, jnlt))
+    sig, pstr, ep = unstructured_state_to_global(state)[3]
+    _close(sig, np.asarray(jstate[3][0]), "stresses")
+    # the linear model leaves the plastic strains and ep at zero
+    for a, b in ((pstr, jstate[3][1]), (ep, jstate[3][2])):
+        assert not a.any() and not np.asarray(b).any()
 
 
 def test_repeat_runs_are_bit_identical(sims):

@@ -79,6 +79,36 @@ JSON line {"phase": ...}:
               reason recorded), 40 float64 steps: card against CPU
               within 1e-12, the base nodes equal to the prescribed
               series at the last step.
+   multigpu -- the multi-chip paths (hercules_tpu_torch/parallel/,
+              ROADMAP Queue 1, item 8a) through Simulation.run(devices=
+              [cuda:0] * P), every rank on the one card: fixture (a) at
+              7.8125 m (2^20 elements), 400 steps, slab_pallas (a step
+              kernel per z-slab fragment) with Rayleigh damping at P = 2,
+              3, 4 (K1), BKT with one Q set at P = 4 (K2) and the
+              thin-layer box at P = 4 (K4), float32 and float64, each
+              kernel launched P x 400 times and nothing else; float64
+              stations within 1e-9 of the single-device route's, float32
+              within 1e-2 of float64 (and of the single-device float32
+              route's); the plain slab step (mc_path "slab", torch ops)
+              on the card against the kernels' path in float64 (2e-13);
+              the 62.5 m boxes on 8 ranks (one-layer fragments: the tile
+              marches' smallest brick) with K1, K2 and K4, 40 steps, the
+              same bounds; the fragments' step kernels against their
+              plain versions from random states (rank 0 and the last
+              rank, 5 steps: 2e-13 in float64, 1e-4 in float32, 5e-3 on
+              bfloat16 memory variables); "sharded" on the 2^20 box (400
+              steps) and on GRADED_LAYERS at 3.90625 m (2,424,832
+              elements, 200 steps) at P = 4 against the unstructured
+              route in float64 (1e-9), float32 within 1e-2; both copies
+              of every shared plane and node bit-identical after every
+              run; a step-200 checkpoint of 400 steps (BKT, float32)
+              resumed bit for bit on slab_pallas and on sharded, P = 4;
+              the slab step at 2^20 in float32 at P = 1, 2, 4 on the one
+              card (back to back, alone, by CUDA graph, the kernels'
+              device time and bound, the host's share), and the
+              communication model's predictions for 2, 4 and 8 cards
+              from the one-card K1 rate (comm_model.predict, labelled a
+              prediction).
 2. k1      -- brick_step (K1) against brick_step_plain on the card: the
               2048-element box and the four-layer Rayleigh box at
               62.5 m (one brick, 2048 elements with four different c1,
@@ -777,6 +807,317 @@ def item7_phases(dev, work, counters, timed, lone, graph_ms):
     return out
 
 
+def multigpu_phase(dev, work, counters, timed, lone, graph_ms):
+    """Phase multigpu (ROADMAP Queue 1, item 8a): the multi-chip paths
+    of ``hercules_tpu_torch/parallel/`` through
+    ``Simulation.run(devices=[dev] * P)``, every rank on the one card
+    (see the module docstring).  Prints one JSON line and returns
+    {kernel: launches} of its multi-chip runs."""
+    import numpy as np
+    import torch
+
+    from hercules_tpu_torch.fixtures import (FOUR_Q_LAYERS, GRADED_LAYERS,
+                                             THIN_Q_LAYERS, add_output_keys,
+                                             four_q_freq, write_box_case)
+    from hercules_tpu_torch.io.checkpoint import checkpoint_read
+    from hercules_tpu_torch.kernels.bkt_corner_step import \
+        bkt_corner_step_plain
+    from hercules_tpu_torch.kernels.bkt_step import bkt_step_plain
+    from hercules_tpu_torch.kernels.brick_step import brick_step_plain
+    from hercules_tpu_torch.parallel import comm_model, driver
+    from hercules_tpu_torch.parallel.ranks import RankGroup
+    from hercules_tpu_torch.parallel.slab import build_slab_tables
+    from hercules_tpu_torch.sim import SimOutputs, Simulation
+    from hercules_tpu_torch.utils import roofline
+
+    f32, f64 = torch.float32, torch.float64
+    t_phase = time.perf_counter()
+    launches = {}
+    res = {"card": roofline.card(), "runs": {}, "kernels_vs_plain": {},
+           "replicas_bit_identical": True}
+    kind = {"elastic": "brick_step", "uniform": "bkt_step",
+            "corner": "bkt_corner_step"}
+
+    def setup(name, edge, steps, **case):
+        cv, ph, nu = write_box_case(os.path.join(work, f"mc_{name}"), edge,
+                                    steps, 5, **case)
+        return Simulation.setup(ph, nu, cv), (cv, ph, nu)
+
+    def rel(a, b):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        scale = np.abs(b).max()
+        require(scale > 0 and np.isfinite(a).all(), "zero or bad reference")
+        return float(np.abs(a - b).max() / scale)
+
+    def replicas(path, state):
+        """Both copies of every shared plane (slab) and every local copy
+        of a node (sharded) hold the same bits of u and u-."""
+        if path.name == "sharded":
+            for k, glob in ((0, path.u_global(state)),
+                            (1, path.up_global(state))):
+                for s, g in zip(state, path.st.local_globals):
+                    ok = np.array_equal(s[k][:len(g)].cpu().numpy(), glob[g])
+                    require(ok, f"sharded replicas differ ({k})")
+            return
+        pl = path.st.nyp * path.st.nxp
+        for r in range(path.n_dev - 1):
+            zb = int(path.st.ez_of[r]) * pl
+            for a, b in zip(path.step.fields(state[r]),
+                            path.step.fields(state[r + 1])):
+                require(torch.equal(a[:, zb:zb + pl], b[:, :pl]),
+                        f"{path.name}: plane copies of ranks {r}, {r + 1}")
+
+    def name_of(dtype):
+        return str(dtype).removeprefix("torch.")
+
+    def mc(sim, label, P, dtype, mc_path="slab_pallas", steps=None, **kw):
+        """A multi-chip run, its launches counted: (state, samples,
+        path)."""
+        t0 = time.perf_counter()
+        (state, samp), ran = count_launches(counters, lambda: sim.run(
+            devices=[dev] * P, dtype=dtype, mc_path=mc_path,
+            total_steps=steps, **kw))
+        secs = time.perf_counter() - t0
+        path = sim.mc_path
+        T = (steps or sim.params.total_steps) - sim.start_step
+        want = ({} if mc_path in ("sharded", "slab")
+                else {kind[path.step.tier]: T * P})
+        require(ran == want, f"{label}: launches {ran}, want {want}")
+        require(sim.solver_path_name == f"mc:{mc_path}",
+                f"{label}: route {sim.solver_path_name}")
+        require(np.isfinite(samp).all() and np.abs(samp).max() > 0,
+                f"{label}: stations")
+        for k, v in ran.items():
+            launches[k] = launches.get(k, 0) + v
+        replicas(path, state)
+        res["runs"][label] = {"path": path.name, "ranks": P,
+                              "dtype": name_of(dtype), "steps": T,
+                              "launches": ran, "seconds": secs}
+        return state, samp, path
+
+    def single(sim, dtype, solver="auto", steps=None):
+        _, samp = sim.run(device=dev, dtype=dtype, solver=solver,
+                          total_steps=steps)
+        return samp
+
+    def vs_plain(path, label, steps=5):
+        """Rank 0's and the last rank's step kernel against its plain
+        version on the card, from a random state on the fragment's
+        columns, ``steps`` steps in the path's type."""
+        g = np.random.default_rng(13)
+        errs = {}
+        for r in (0, path.n_dev - 1):
+            mod, LEN = path.step.mods[r], path.step.LEN
+            n = len(path.st.gnid_local[r])
+            S = np.zeros((8, LEN))
+            S[0:3, :n] = 1e-3 * g.standard_normal((3, n))
+            S[3:6, :n] = S[0:3, :n] - 1e-4 * g.standard_normal((3, n))
+            S = torch.as_tensor(S, dtype=path.dtype, device=dev)
+            parts = [(S, S.clone())]
+            if path.step.tier != "elastic":
+                (shape, cdt), = mod.state_parts(LEN)
+                cv = np.zeros(shape)
+                cv[:, :n] = 1e-3 * g.standard_normal((shape[0], n))
+                cv = torch.as_tensor(cv, dtype=path.dtype, device=dev).to(cdt)
+                parts.append((cv, cv.clone()))
+            a, b = [p[0] for p in parts], [p[1] for p in parts]
+            for _ in range(steps):
+                if len(a) == 1:
+                    a = [mod(a[0])]
+                    b = [brick_step_plain(b[0], mod.K, mod.offs, mod.ops)]
+                else:
+                    a = list(mod(a[0], a[1]))
+                    if path.step.tier == "uniform":
+                        b = list(bkt_step_plain(b[0], b[1], mod.K, mod.offs,
+                                                mod.scales, mod.rec))
+                    else:
+                        b = list(bkt_corner_step_plain(b[0], b[1], mod.K,
+                                                       mod.offs, mod.tab))
+            e = {"S": rel(a[0][0:6].cpu(), b[0][0:6].cpu())}
+            if len(a) > 1:
+                e["conv"] = rel(a[1].double().cpu(), b[1].double().cpu())
+            f64_ = path.dtype == f64
+            bound = {"S": 2e-13 if f64_ else 1e-4,
+                     "conv": 2e-13 if f64_ else 5e-3}
+            require(all(v <= bound[k] for k, v in e.items()),
+                    f"{label} rank {r}: kernel against plain {e}")
+            errs[f"rank {r}"] = e
+        res["kernels_vs_plain"][label] = errs
+
+    # ---- the 2^20 boxes: K1 at P = 2, 3, 4; K2 and K4 at P = 4 -------
+    sim_b, _ = setup("box", 7.8125, 400)
+    require(sim_b.mesh.lenum == 1 << 20, "2^20 box")
+    ref = {d: single(sim_b, d) for d in (f32, f64)}
+    acc = {}
+    paths = {}
+    for P in (2, 3, 4):
+        got = {}
+        for d in (f32, f64):
+            _, got[d], paths[(P, d)] = mc(
+                sim_b, f"box P={P} {name_of(d)}", P, d)
+        acc[f"box P={P}"] = {
+            "f64_vs_single_f64": rel(got[f64], ref[f64]),
+            "f32_vs_f64": rel(got[f32], got[f64]),
+            "f32_vs_single_f32": rel(got[f32], ref[f32])}
+    # the plain slab step on the card (torch ops: the JAX package's
+    # XLA slab algebra) against the kernels' path, float64
+    st_p, samp_p, path_p = mc(sim_b, "box P=4 float64 plain slab", 4, f64,
+                              mc_path="slab")
+    acc["box P=4 kernels_vs_plain_slab_f64"] = rel(got[f64], samp_p)
+    for P in (3, 4):
+        vs_plain(paths[(P, f64)], f"K1 2^20 P={P} float64")
+        vs_plain(paths[(P, f32)], f"K1 2^20 P={P} float32")
+    for name, case in (("bkt", dict(damping="bkt")),
+                       ("thin", dict(damping="bkt", layers=THIN_Q_LAYERS,
+                                     freq=four_q_freq(7.8125)))):
+        sim, _ = setup(name, 7.8125, 400, **case)
+        require(sim.mesh.lenum == 1 << 20, f"2^20 {name} box")
+        r64 = single(sim, f64)
+        got = {}
+        for d in (f32, f64):
+            _, got[d], p = mc(sim, f"{name} P=4 {name_of(d)}", 4, d)
+            require(p.step.tier == ("uniform" if name == "bkt"
+                                    else "corner"), f"{name}: tier")
+            vs_plain(p, f"{kind[p.step.tier]} 2^20 P=4 {name_of(d)}")
+        acc[f"{name} P=4"] = {"f64_vs_single_f64": rel(got[f64], r64),
+                              "f32_vs_f64": rel(got[f32], got[f64])}
+    for k, v in acc.items():
+        if isinstance(v, dict):
+            require(v["f64_vs_single_f64"] <= 1e-9 and v["f32_vs_f64"] <= 1e-2,
+                    f"{k}: {v}")
+            require(v.get("f32_vs_single_f32", 0) <= 1e-2, f"{k}: {v}")
+        else:
+            require(v <= 2e-13, f"{k}: {v}")
+
+    # ---- the 62.5 m box on 8 ranks: one-layer fragments --------------
+    for name, case in (("small", {}), ("small_bkt", dict(damping="bkt")),
+                       ("small_four_q", dict(damping="bkt",
+                                             layers=FOUR_Q_LAYERS,
+                                             freq=four_q_freq(62.5)))):
+        sim, _ = setup(name, 62.5, 40, **case)
+        got = {}
+        for d in (f32, f64):
+            _, got[d], p = mc(sim, f"{name} P=8 {name_of(d)}", 8, d)
+            require(set(p.st.ez_of) == {1}, "one layer per rank")
+            vs_plain(p, f"{kind[p.step.tier]} 62.5 P=8 {name_of(d)}")
+        _, plain, _ = mc(sim, f"{name} P=8 float64 plain slab", 8, f64,
+                         mc_path="slab")
+        acc[f"{name} P=8"] = {"kernels_vs_plain_slab_f64": rel(got[f64],
+                                                              plain),
+                              "f32_vs_f64": rel(got[f32], got[f64])}
+        require(acc[f"{name} P=8"]["kernels_vs_plain_slab_f64"] <= 2e-13
+                and acc[f"{name} P=8"]["f32_vs_f64"] <= 1e-2,
+                f"{name} P=8: {acc[f'{name} P=8']}")
+
+    # ---- sharded: the 2^20 box and the 2.4 M graded box --------------
+    for name, sim, steps in (("box", sim_b, 400), ("graded", None, 200)):
+        if sim is None:
+            sim, _ = setup("graded", 3.90625, 200, layers=GRADED_LAYERS,
+                           freq=four_q_freq(3.90625))
+            require(sim.mesh.lenum == 2424832, "2.4 M graded box")
+        r64 = single(sim, f64, solver="unstructured", steps=steps)
+        got = {}
+        for d in (f32, f64):
+            _, got[d], _ = mc(sim, f"{name} sharded P=4 {name_of(d)}", 4, d,
+                              mc_path="sharded", steps=steps)
+        acc[f"{name} sharded P=4"] = {
+            "f64_vs_unstructured_f64": rel(got[f64], r64),
+            "f32_vs_f64": rel(got[f32], got[f64])}
+        require(acc[f"{name} sharded P=4"]["f64_vs_unstructured_f64"] <= 1e-9
+                and acc[f"{name} sharded P=4"]["f32_vs_f64"] <= 1e-2,
+                f"{name} sharded: {acc[f'{name} sharded P=4']}")
+    res["accuracy"] = acc
+
+    # ---- restart: a step-200 checkpoint resumed bit for bit ----------
+    restart = {}
+    for mc_path in ("slab_pallas", "sharded"):
+        runs = []
+        for tag in ("a", "b"):
+            cv, ph, nu = write_box_case(
+                os.path.join(work, f"mc_restart_{mc_path}_{tag}"), 7.8125,
+                400, 5, damping="bkt")
+            add_output_keys(ph, nu, checkpointing_rate=200)
+            root = os.path.dirname(os.path.dirname(ph))
+            if tag == "b":
+                ck = os.path.join(runs[0][3], "checkpoints")
+                for f in ("checkpoint.out0", "checkpoint.out1"):
+                    if checkpoint_read(os.path.join(ck, f))[0] == 200:
+                        os.makedirs(os.path.join(root, "checkpoints"),
+                                    exist_ok=True)
+                        shutil.copy(os.path.join(ck, f), os.path.join(
+                            root, "checkpoints", "checkpoint.in"))
+            sim = Simulation.setup(ph, nu, cv)
+            state, samp, path = mc(
+                sim, f"restart {mc_path} {tag}", 4, f32, mc_path=mc_path,
+                rundir=root,
+                outputs=lambda s=sim, d=root: SimOutputs(s.mesh, s.params,
+                                                         rundir=d))
+            runs.append((state, samp, sim.start_step, root))
+        (sa, pa, s0a, _), (sb, pb, s0b, _) = runs
+        flat = lambda st: [x for s in st for x in driver._flat(s)]
+        la, lb = flat(sa), flat(sb)
+        same = (s0a, s0b) == (0, 200) and len(la) == len(lb) and all(
+            x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
+        require(same and np.array_equal(pb, pa[200:]),
+                f"restart {mc_path}: not bit for bit")
+        restart[mc_path] = {"resumed_at": s0b, "arrays": len(la),
+                            "bit_for_bit": True}
+    res["restart"] = restart
+
+    # ---- timing: the slab step at P = 1, 2, 4 on one card ------------
+    timing = {}
+    src = sim_b.src_forces
+    for P in (1, 2, 4):
+        if P == 1:
+            st = build_slab_tables(sim_b.mesh, sim_b.tables, 1,
+                                   src_ids=sim_b.src_ids)
+            path = driver.SlabPallasPath(st, RankGroup([dev]), f32,
+                                         sim_b.mesh.nnum)
+        else:
+            path = paths[(P, f32)]
+        cols = path.src_cols()
+        f = np.asarray(src[0]) * sim_b.params.delta_t ** 2
+        srcf = [None if not len(c) else torch.as_tensor(
+            f[c], dtype=f32, device=dev) for c in cols]
+        box_ = [path.init_state()]
+
+        def one_step():
+            box_[0] = path.step.step(box_[0], srcf)
+
+        spare = [torch.empty_like(s[0]) for s in box_[0]]
+
+        def kernels_only():
+            for r, s in enumerate(box_[0]):
+                path.step.mods[r](s[0], out=spare[r])
+
+        b2b = timed(one_step, 50, 5)
+        alone = lone(one_step, reps=40)
+        device = graph_ms(one_step)
+        kdev = graph_ms(kernels_only)
+        bound = sum(roofline.step_cost(m, path.step.LEN,
+                                       int(path.st.ez_of[r]) * 128 * 128,
+                                       f32).bound_ms
+                    for r, m in enumerate(path.step.mods))
+        timing[f"P={P}"] = {
+            "step_ms_back_to_back": b2b, "step_ms_alone": alone,
+            "step_device_ms": device, "kernels_device_ms": kdev,
+            "kernels_bound_ms": bound,
+            "host_share": 1.0 - device / alone,
+            "element_updates_per_s": sim_b.mesh.lenum / (b2b * 1e-3)}
+    eups1 = sim_b.mesh.lenum / (timing["P=1"]["kernels_device_ms"] * 1e-3)
+    res["timing_float32_2^20"] = timing
+    res["prediction"] = {
+        "what": "comm_model.predict: a prediction for P cards from the "
+                "one-card K1 device rate, not a measurement",
+        **{f"P={P}": comm_model.predict(
+            comm_model.slab_comm_dims(129, 129, P), sim_b.mesh.lenum,
+            eups1) for P in (2, 4, 8)}}
+    res["launches"] = launches
+    res["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "multigpu", **res})
+    return launches
+
+
 def main():
     import numpy as np
     import torch
@@ -1219,6 +1560,10 @@ def main():
         # ---- nonlinear soil, DRM and buildings (Queue 1, item 7) -----
         item7_launches = item7_phases(dev, work, counters, timed, lone,
                                       graph_ms)
+
+        # ---- multigpu: the slab and sharded paths on ranks of one card
+        mc_launches = multigpu_phase(dev, work, counters, timed, lone,
+                                     graph_ms)
 
         # ---- 2. K1 against its plain version ------------------------
         cases = []
@@ -2592,6 +2937,9 @@ def main():
         # the item-7 phases' mesh-route runs
         total_launches["brick_step"] += loh1_launches + sum(
             item7_launches.values())
+        # and K1's, K2's and K4's on the slab fragments (phase multigpu)
+        for k, n in mc_launches.items():
+            total_launches[k] += n
         # K4's launches on each box of its main path (the forced box:
         # none)
         box_launches = {(f"bkt_corner_step{lb}", d): k4_by_type[b][d]

@@ -13,6 +13,18 @@ Options:
   --dtype=float32|float64
                   working precision (default float32 on CUDA, float64
                   on the CPU)
+  --ndev=N|auto|1 ranks of the multi-chip pipeline (default auto: every
+                  visible CUDA device, one rank on --device=cpu; N > 1
+                  on --device=cpu runs N ranks on the CPU; 1 forces the
+                  single-device routes)
+  --mc-path=NAME  force a multi-chip path (slab, slab_pallas, sharded;
+                  gslab and gmesh are not ported yet)
+
+With more than one rank the monitor says "multi-chip pipeline: N
+devices" and names the path, "solver path: mc:slab_pallas" (a step
+kernel per z-slab of a one-brick mesh; mc:slab on the CPU) or
+"mc:sharded" (any other mesh, and nonlinear soil, DRM part 2 and
+fixed-base buildings, with a reason line).
 
 monitor.txt names the route that ran ("solver path: ..."): cuda_chunk
 or cuda_step (elastic), cuda_bkt_chunk or cuda_bkt_step (BKT, one Q
@@ -71,17 +83,24 @@ def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
     device = "cuda"
     dtype_name = None
+    ndev_opt = "auto"
+    mc_path = None
     rest = []
     for a in argv:
         if a.startswith("--device="):
             device = a.split("=", 1)[1]
         elif a.startswith("--dtype="):
             dtype_name = a.split("=", 1)[1]
+        elif a.startswith("--ndev="):
+            ndev_opt = a.split("=", 1)[1]
+        elif a.startswith("--mc-path="):
+            mc_path = a.split("=", 1)[1]
         else:
             rest.append(a)
     argv = rest
     if (not argv or device not in ("cuda", "cpu")
-            or dtype_name not in (None, "float32", "float64")):
+            or dtype_name not in (None, "float32", "float64")
+            or not (ndev_opt == "auto" or ndev_opt.isdigit())):
         print(__doc__)
         return 2
 
@@ -215,15 +234,26 @@ def main(argv=None):
         mon.print(f"step {done:8d}/{p.total_steps}  "
                   f"wall {el:8.1f}s  ETA {eta:8.1f}s\n")
 
+    # multi-chip by default on every visible CUDA device, as the JAX
+    # CLI takes every device (hercules_tpu/cli.py:204-213)
+    if ndev_opt == "auto":
+        ndev = torch.cuda.device_count() if device == "cuda" else 1
+    else:
+        ndev = int(ndev_opt)
+    if ndev > 1:
+        mon.print(f"multi-chip pipeline: {ndev} devices\n")
+
     # a checkpoint.in in the checkpoint directory resumes the run: read
-    # (and checked) before the output files are opened; then the 4-D
-    # volume, plane and checkpoint taps (closed by sim.run)
+    # (and checked) before the output files are opened, which sim.run
+    # does once the route is chosen; then the 4-D volume, plane and
+    # checkpoint taps (closed by sim.run)
     restart = read_restart(p, rundir)
-    outputs = SimOutputs(sim.mesh, p, rundir=rundir)
     with measure("Solver", device):
         state, samples = sim.run(
-            device=device, on_chunk=on_chunk, outputs=outputs,
-            rundir=rundir, restart=restart,
+            device=device, on_chunk=on_chunk,
+            outputs=lambda: SimOutputs(sim.mesh, p, rundir=rundir),
+            rundir=rundir, restart=restart, ndev=ndev,
+            mc_path=mc_path if ndev > 1 else None,
             dtype=None if dtype_name is None else getattr(torch,
                                                           dtype_name))
     el = time.time() - t1

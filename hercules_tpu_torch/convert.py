@@ -163,3 +163,81 @@ def nonlinear_state(state):
     if len(state) != 4:
         raise ValueError("the state has no nonlinear part")
     return tuple(torch.as_tensor(a).cpu().numpy() for a in state[3])
+
+
+def mc_state_from_jax(path, carry):
+    """The per-rank state of a multi-chip path (parallel/driver.py) from
+    the JAX package's rank-stacked carry of the same path and rank
+    count, numpy arrays [n_dev, ...] in nests of tuples:
+
+    - "sharded": (u, u-, conv[, plastic state]), as the port lays it
+      out per rank;
+    - "slab": (u, u-[, (s0, s1, k0, k1)]), [n_dev, 3, tot_local] fields
+      and [n_dev, 24, S] memory variables, as the port's;
+    - "slab_pallas": (S[, conv]) packed, S [n_dev, 8, LEN_jax] and the
+      node-basis memory variables [n_dev, 8 | 16, LEN_jax] of its one
+      Q set, or (u, u-, conv) [n_dev, 3, LEN_jax] with corner-basis
+      ones [n_dev, 48 | 96, LEN_jax] (several Q sets), fitted to the
+      port's fragments (restart.fit_conv)."""
+    from .solver.restart import fit_conv
+    n = path.n_dev
+    on = [lambda x, dev=dev: torch.as_tensor(np.asarray(x)).to(
+        dev, path.dtype) for dev in path.group.devices]
+    if path.name != "slab_pallas":
+        def rank(tree, r):
+            if isinstance(tree, (tuple, list)):
+                return tuple(rank(t, r) for t in tree)
+            return on[r](np.asarray(tree)[r])
+        return [rank(tuple(carry), r) for r in range(n)]
+    step = path.step
+    S_j = np.asarray(carry[0])
+    if S_j.shape[1] == 3:                # the JAX corner tier: (u, u-, conv)
+        S_j = np.concatenate([S_j, np.asarray(carry[1]),
+                              np.zeros_like(S_j[:, :2])], axis=1)
+        carry = (S_j, carry[2])
+    out = []
+    for r in range(n):
+        S = np.zeros((8, step.LEN), S_j.dtype)
+        w = min(step.LEN, S_j.shape[2], path.st.tot_local)
+        S[:, :w] = S_j[r][:, :w]
+        s = (on[r](S),)
+        if len(carry) > 1:
+            mod = step.mods[r]
+            cv = fit_conv(mod, step.LEN, (np.asarray(carry[1])[r],))
+            s += tuple(torch.as_tensor(c).to(path.group.devices[r], dt)
+                       for c, (_, dt) in zip(cv, mod.state_parts(step.LEN)))
+        out.append(s)
+    return out
+
+
+def mc_state_to_jax(path, state, like):
+    """The JAX package's rank-stacked carry (numpy) of a multi-chip
+    path from the port's per-rank state, shaped as ``like`` (a JAX carry
+    of the same path and rank count, e.g. its init_state): the
+    inverse of mc_state_from_jax, padding columns zero; a node-basis
+    conv [6 | 12, LEN] fills the first rows of the JAX [8 | 16,
+    LEN_jax]."""
+    def host(x):
+        return np.asarray(torch.as_tensor(x).detach().cpu().to(
+            torch.float64 if x.dtype == torch.float64 else torch.float32))
+
+    def fill(ranks, ref):
+        ref = np.asarray(ref)
+        out = np.zeros(ref.shape, ref.dtype)
+        for r, x in enumerate(ranks):
+            a = host(x)
+            cut = tuple(slice(0, min(p, q)) for p, q in
+                        zip(a.shape, ref.shape[1:]))
+            out[(r,) + cut] = a[cut]
+        return out
+
+    def walk(parts, ref):
+        if isinstance(ref, (tuple, list)):
+            return tuple(walk([p[i] for p in parts], ref[i])
+                         for i in range(len(ref)))
+        return fill(parts, ref)
+
+    parts = list(state)
+    if path.name == "slab_pallas" and np.shape(like[0])[1] == 3:
+        parts = [(s[0][0:3], s[0][3:6]) + tuple(s[1:]) for s in parts]
+    return walk(parts, like)

@@ -236,7 +236,6 @@ class SimOutputs:
         from .solver.fused_brick import pallas_u_global
         from .solver.fused_mesh import mesh_conv_flat, mesh_u_global
         N = self.mesh.nnum
-        p = self.params
 
         def views(state):
             """(u rows, u- rows, flat memory variables) of a state."""
@@ -261,8 +260,6 @@ class SimOutputs:
             return pallas_u_global(plan, rows, N, index_on(rows.device))
 
         gather = []         # the planes' NodeGather, made once
-        # a plane record alone gathers its corners where the state lies
-        # (the kernel routes); else it reads the global field
         gathers = plan is not None and not concat
 
         def plane_values(u_rows):
@@ -270,15 +267,7 @@ class SimOutputs:
                 gather.append(NodeGather(plan, self.planes.all_nodes, N))
             return gather[0](u_rows)
 
-        # step-0 records (the reference's loop-top output of the zero
-        # initial field); skipped on checkpoint restart
-        if start_step == 0:
-            zero = np.zeros((N, 3))
-            for kind, w in self.out4d:
-                w.maybe_write(0, zero)
-            if self.planes is not None:
-                self.planes.maybe_write(
-                    0, lambda nodes, phi: np.zeros((len(nodes), 3)))
+        self._zero_records(start_step)
 
         def taps(done, state):
             u_rows, up_rows, tail = views(state)
@@ -290,36 +279,43 @@ class SimOutputs:
                     memo[which] = global_of((u_rows, up_rows)[which])
                 return memo[which]
 
-            due4d = [(kind, w) for kind, w in self.out4d
-                     if done % w.rate == 0 and done // w.rate < w.out_steps]
-            due_ck = (self.ckpt_dir is not None
-                      and done % p.checkpointing_rate == 0)
-            for kind, w in due4d:
-                if kind == "displacement":
-                    w.maybe_write(done, ug())
-                else:
-                    w.maybe_write(done, (ug() - ug(1)) / p.delta_t)
-            if (self.planes is not None and done < p.total_steps
-                    and done % p.planes_print_rate == 0):
-                # the corners from the global field where one is made
-                # at this step, else gathered alone (the same values)
-                def sampler(nodes, phi):
-                    un = (ug()[nodes] if due4d or due_ck or not gathers
-                          else plane_values(u_rows))
-                    return np.einsum("mk,mkc->mc", phi, un)
+            # a plane record alone gathers its corners where the state
+            # lies (the kernel routes); else it reads the global field
+            corners = ((lambda nodes: plane_values(u_rows)) if gathers
+                       else (lambda nodes: ug()[nodes]))
+            self._taps(done, ug, corners,
+                       lambda: tuple(_host(x) for x in tail), {})
 
-                self.planes.maybe_write(done, sampler)
-            if due_ck:
-                from .io.checkpoint import checkpoint_write_async
-                # canonical global [N, 3] fields on every route; the
-                # memory variables in the route's own layout
-                checkpoint_write_async(
-                    self.ckpt_dir, done,
-                    (ug(), ug(1), tuple(_host(x) for x in tail)),
-                    extra={"damping": np.asarray(p.type_of_damping),
-                           "has_nl": np.asarray(
-                               bool(p.include_nonlinear))})
+        return self._hook(taps, inner)
 
+    def make_mc_hook(self, path, inner=None, start_step=0):
+        """on_chunk(done, state) of a multi-chip run
+        (hercules_tpu/sim.py:SimOutputs.make_mc_hook): the taps read the
+        global fields the path assembles from its ranks (``path.u_global``
+        / ``up_global``), and a checkpoint keeps the path's carry tail
+        (``path.tail``: rank-stacked arrays) with the path's name and
+        rank count, so that a resume can check them; then ``inner``."""
+
+        def taps(done, state):
+            memo = {}
+
+            def ug(which=0):
+                if which not in memo:
+                    memo[which] = (path.u_global, path.up_global)[which](
+                        state)
+                return memo[which]
+
+            self._taps(done, ug, lambda nodes: ug()[nodes],
+                       lambda: path.tail(state),
+                       {"mc_path": np.asarray(path.name),
+                        "mc_ndev": np.asarray(path.n_dev)})
+
+        self._zero_records(start_step)
+        return self._hook(taps, inner)
+
+    @staticmethod
+    def _hook(taps, inner):
+        """on_chunk(done, state): taps(done, state), then inner."""
         def hook(done, state):
             # the taps' host time (device-to-host copies, global fields,
             # plane sampling, queueing), beside the writers' own
@@ -330,6 +326,52 @@ class SimOutputs:
                 inner(done, state)
 
         return hook
+
+    def _zero_records(self, start_step):
+        """The step-0 records (the reference's loop-top output of the
+        zero initial field); skipped on checkpoint restart."""
+        if start_step == 0:
+            zero = np.zeros((self.mesh.nnum, 3))
+            for kind, w in self.out4d:
+                w.maybe_write(0, zero)
+            if self.planes is not None:
+                self.planes.maybe_write(
+                    0, lambda nodes, phi: np.zeros((len(nodes), 3)))
+
+    def _taps(self, done, ug, corners, tail, extra):
+        """The taps due at step ``done``: ug(0) / ug(1) the global [N, 3]
+        u and u- (each made once), corners(nodes) a plane record's
+        corner values where no global field is made at this step, tail()
+        the checkpoint's memory variables, ``extra`` entries the
+        checkpoint adds to the damping and the nonlinear presence."""
+        p = self.params
+        due4d = [(kind, w) for kind, w in self.out4d
+                 if done % w.rate == 0 and done // w.rate < w.out_steps]
+        due_ck = (self.ckpt_dir is not None
+                  and done % p.checkpointing_rate == 0)
+        for kind, w in due4d:
+            if kind == "displacement":
+                w.maybe_write(done, ug())
+            else:
+                w.maybe_write(done, (ug() - ug(1)) / p.delta_t)
+        if (self.planes is not None and done < p.total_steps
+                and done % p.planes_print_rate == 0):
+            # the corners from the global field where one is made at
+            # this step, else gathered alone (the same values)
+            def sampler(nodes, phi):
+                un = ug()[nodes] if due4d or due_ck else corners(nodes)
+                return np.einsum("mk,mkc->mc", phi, un)
+
+            self.planes.maybe_write(done, sampler)
+        if due_ck:
+            from .io.checkpoint import checkpoint_write_async
+            # canonical global [N, 3] fields on every route; the memory
+            # variables in the route's own layout
+            checkpoint_write_async(
+                self.ckpt_dir, done, (ug(), ug(1), tail()),
+                extra={"damping": np.asarray(p.type_of_damping),
+                       "has_nl": np.asarray(bool(p.include_nonlinear)),
+                       **extra})
 
     def close(self):
         if self.ckpt_dir is not None:
@@ -417,7 +459,25 @@ def read_restart(params, rundir="."):
             raise RuntimeError(f"checkpoint nonlinear presence ({ck_nl}) "
                                f"does not match this run "
                                f"({bool(p.include_nonlinear)})")
-    return start_step, Checkpoint(u_now, u_prev, tuple(conv))
+    return start_step, Checkpoint(u_now, u_prev, tuple(conv), extras)
+
+
+def check_mc_tail(ck, name="", ndev=0):
+    """Raise unless a checkpoint's carry tail (memory variables, plastic
+    state) is shaped for this run: the multi-chip path ``name`` on
+    ``ndev`` ranks, or ("", 0) a single-device route.  A checkpoint
+    with no tail (displacements only) fits any path and rank count
+    (hercules_tpu/sim.py:1052-1063)."""
+    if ck is None or not ck.conv:
+        return
+    mcp = str(ck.extras.get("mc_path", ""))
+    mcn = int(ck.extras.get("mc_ndev", 0))
+    if (mcp, mcn) != (name, ndev):
+        raise RuntimeError(
+            f"checkpoint carry tail is shaped for path="
+            f"{mcp or 'single-device'}/ndev={mcn or 1}; this run uses "
+            f"{name or 'single-device'}/ndev={ndev or 1} (only "
+            f"displacement-only checkpoints are layout-elastic)")
 
 
 @dataclass
@@ -455,6 +515,9 @@ class Simulation:
     # {station id: [T, 17]}: the nonlinear columns of the stations in
     # nonlinear elements, from the last .run()
     nl_station_extras: dict = dataclasses.field(default_factory=dict)
+    # the multi-chip path (parallel/driver.py) of the last .run() with
+    # ndev > 1; solver_path_name is then "mc:<its name>"
+    mc_path: object = None
 
     @classmethod
     def setup(cls, physics_in, numerical_in=None, cvmdb=None,
@@ -528,7 +591,7 @@ class Simulation:
 
     def run(self, device="cuda", dtype=None, chunk=None, total_steps=None,
             on_chunk=None, outputs=None, rundir=".", restart=None,
-            solver="auto"):
+            solver="auto", ndev=None, mc_path=None, devices=None):
         """The time loop on ``device`` in ``dtype`` (float32 on CUDA and
         float64 on the CPU by default), on the route ``solver`` names
         (the JAX package's choice, hercules_tpu/sim.py:498-506):
@@ -566,10 +629,24 @@ class Simulation:
         the part-1 files; part 2 adds the replayed effective forces;
         fixed-base buildings prescribe their base nodes' displacements.
 
+        ``ndev`` > 1 runs the multi-chip pipeline (``_run_multichip``:
+        the slab or sharded path of ``parallel/`` on ``ndev`` ranks,
+        rank r on ``devices[r]``), never a single-device route; ndev
+        None reads HT_NDEV (unset: one device), or is len(devices) when
+        ``devices`` is given.  ``devices`` defaults to the first ndev
+        CUDA devices (RuntimeError if fewer are visible), or ndev times
+        the CPU when ``device`` is the CPU; one card can hold every rank
+        ([cuda:0] * ndev).  ``mc_path`` forces a path ("slab",
+        "slab_pallas", "sharded"; "gslab" and "gmesh" raise, ROADMAP
+        item 8b).  ``solver`` must then be "auto".
+
         ``outputs``: a SimOutputs whose taps (4-D volume, planes,
-        checkpoints) fire at chunks of the gcd of their rates; it is
-        closed when the loop ends.  With use_checkpoint = 1 and a
-        ``checkpoint.in`` in the checkpoint directory (relative to
+        checkpoints) fire at chunks of the gcd of their rates, or a
+        callable that makes one, called once the route is chosen and the
+        checkpoint is read and checked (so that a refused run opens no
+        output file); it is closed when the loop ends.  With
+        use_checkpoint = 1 and a ``checkpoint.in`` in the checkpoint
+        directory (relative to
         ``rundir``), the run resumes from it (read_restart) and
         ``self.start_step`` is its step: the samples then cover steps
         [start_step, total_steps).  ``restart``: read_restart's result
@@ -585,6 +662,22 @@ class Simulation:
         if solver not in SOLVERS:
             raise ValueError(f"solver={solver!r}; expected one of "
                              f"{', '.join(SOLVERS)}")
+        if devices is not None:
+            devices = [torch.device(d) for d in devices]
+            if ndev is None:
+                ndev = len(devices)
+            elif ndev != len(devices):
+                raise ValueError(f"ndev={ndev} with {len(devices)} devices")
+            device = devices[0]
+        if ndev is None:
+            env = os.environ.get("HT_NDEV")
+            ndev = int(env) if env else 0
+        if ndev > 1 and solver != "auto":
+            raise ValueError(f"solver={solver!r} names a single-device "
+                             f"route; ndev={ndev} runs the multi-chip "
+                             f"paths (mc_path=)")
+        if ndev <= 1 and (mc_path is not None or devices is not None):
+            raise ValueError("mc_path and devices need ndev > 1")
         device = torch.device(device)
         if dtype is None:
             dtype = torch.float32 if device.type == "cuda" else \
@@ -657,12 +750,24 @@ class Simulation:
         def on_route(name):
             self.solver_path_name = name
 
+        made = outputs
+        make_outputs = made if callable(made) else lambda: made
+        outputs = None
         try:
+            if ndev > 1:
+                state, samples = self._run_multichip(
+                    ndev, devices, device, dtype, chunk, steps, on_chunk,
+                    make_outputs, rundir, restart, st_nodes, st_phi, mc_path,
+                    drm, on_samples, fb_ids, fb_series)
+                return state, self._replay_nl_stations(samples, nl_st_rows,
+                                                       n_st)
             route, plan, reason = self.route(solver, drm=drm,
                                              fixed_base=fb_ids is not None)
             self.solver_path_reason = reason
             self.start_step, ck = (read_restart(p, rundir)
                                    if restart is None else restart)
+            check_mc_tail(ck)
+            outputs = make_outputs()
             hook = on_chunk
             if outputs is not None and outputs.active:
                 chunk = outputs.chunk_for(chunk or 1000)
@@ -713,6 +818,103 @@ class Simulation:
             if outputs is not None:
                 outputs.close()
         return state, self._replay_nl_stations(samples, nl_st_rows, n_st)
+
+    def _run_multichip(self, ndev, devices, device, dtype, chunk, steps,
+                       on_chunk, make_outputs, rundir, restart, st_nodes,
+                       st_phi, prefer, drm, on_samples, fb_ids, fb_series):
+        """The loop on ``ndev`` ranks (hercules_tpu/sim.py:951-1088):
+        the path (nonlinear soil, DRM part 2 and fixed-base buildings on
+        the sharded path, partition.shard_nonlinear / shard_drm /
+        shard_fixedbase; every other mesh by driver.choose_path), the
+        stations, the checkpoint restart (a carry tail must be this
+        path's at this rank count), the taps (SimOutputs.make_mc_hook)
+        and the chunked loop (driver.run_multichip).  Records the path
+        as solver_path_name "mc:<path>" and, where the mesh or the
+        physics sent the run to "sharded", the reason."""
+        from .parallel.driver import ShardedPath, choose_path, run_multichip
+        from .parallel.partition import (shard_drm, shard_fixedbase,
+                                         shard_nonlinear, shard_tables)
+        from .parallel.ranks import RankGroup
+
+        p = self.params
+        if devices is None:
+            if device.type == "cpu":
+                devices = [device] * ndev
+            else:
+                from .solver.fused_brick import solver_device
+                solver_device(device)
+                n = torch.cuda.device_count()
+                if n < ndev:
+                    raise RuntimeError(f"requested ndev={ndev} but only {n} "
+                                       f"CUDA devices are visible")
+                devices = [torch.device("cuda", i) for i in range(ndev)]
+        group = RankGroup(devices)
+        extras = [name for name, on in (
+            ("nonlinear soil", self.nl_tables is not None),
+            ("DRM part 2", drm is not None),
+            ("fixed-base buildings", fb_ids is not None)) if on]
+        with measure("Solver tables", devices[0]):
+            if extras:
+                # per-element plastic state, per-node DRM forces and
+                # prescribed displacements shard with the unstructured
+                # partition (nonlinear.c:1671, drm.c:2316 and
+                # buildings.c:975-1146 run on every MPI rank)
+                if prefer in ("gslab", "gmesh"):
+                    raise RuntimeError(
+                        f"mc_path={prefer!r}: the graded multi-chip paths "
+                        f"are not ported yet (ROADMAP Queue 1, item 8b)")
+                if prefer not in (None, "sharded"):
+                    raise RuntimeError(
+                        f"{', '.join(extras)}: multi-chip runs take the "
+                        f"sharded path; cannot force mc_path={prefer}")
+                ust = shard_tables(self.tables, self.mesh, ndev,
+                                   src_ids=self.src_ids)
+                nl_b = (None if self.nl_tables is None else shard_nonlinear(
+                    ust, self.tables, self.mesh, p, self.nl_tables, ndev))
+                drm_b = None if drm is None else shard_drm(ust, drm, ndev)
+                fb_b = (None if fb_ids is None
+                        else shard_fixedbase(ust, fb_ids, ndev))
+                path = ShardedPath(ust, group, dtype, self.mesh.nnum,
+                                   nl=nl_b, drm=drm_b, fb=fb_b,
+                                   fb_series=fb_series)
+                reason = (f"{', '.join(extras)}: the sharded path"
+                          + (" (the JAX package takes gmesh first for "
+                             "nonlinear soil; gmesh is ROADMAP item 8b)"
+                             if self.nl_tables is not None else "")
+                          if prefer is None else "")
+            else:
+                path, reason = choose_path(self.mesh, self.tables, group,
+                                           src_ids=self.src_ids,
+                                           dtype=dtype, prefer=prefer)
+            if st_nodes is not None and len(st_nodes):
+                path.attach_stations(st_nodes, st_phi)
+        self.solver_path_reason = reason
+        self.start_step, ck = (read_restart(p, rundir) if restart is None
+                               else restart)
+        check_mc_tail(ck, path.name, ndev)
+        state = None
+        if ck is not None:
+            fields = [np.asarray(x) for x in (ck.u_now, ck.u_prev)]
+            if any(x.shape != (self.mesh.nnum, 3) for x in fields):
+                raise RuntimeError("a multi-chip restart needs the "
+                                   "checkpoint's global [N, 3] fields")
+            state = path.state_from_global(*fields, tuple(ck.conv))
+        self.solver_path_name = f"mc:{path.name}"
+        self.mc_path = path
+        outputs = make_outputs()
+        try:
+            hook = on_chunk
+            if outputs is not None and outputs.active:
+                chunk = outputs.chunk_for(chunk or 1000)
+                hook = outputs.make_mc_hook(path, inner=on_chunk,
+                                            start_step=self.start_step)
+            return run_multichip(
+                path, self.src_forces, steps, p.delta_t, chunk=chunk,
+                state=state, start_step=self.start_step, on_chunk=hook,
+                on_samples=on_samples)
+        finally:
+            if outputs is not None:
+                outputs.close()
 
     def _replay_nl_stations(self, samples, nl_st_rows, n_st):
         """Replay the plastic recursion of each station in a nonlinear

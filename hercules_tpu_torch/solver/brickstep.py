@@ -224,6 +224,39 @@ def _scatter_back(force_b, f, meta: BrickMeta):
     return force_b
 
 
+def brick_force(d, cut, ue, upe, conv=None):
+    """(f, conv'): the [24, S] element force of one brick from its
+    element fields ue, upe [24, S] (``_elem_field``), and with BKT
+    damping (``conv`` the brick's (s0, s1, k0, k1), [24, S] each) its
+    new memory variables (None otherwise).  ``cut(v)`` gives the
+    brick's [1, S] rows of a per-column table of ``d`` (c1..c4, or the
+    "bkt" rows); d also holds "mcat", "kmu_cat" and "kkappa_cat"."""
+    if conv is None:
+        du = ue - upe
+        a = cut(d["c1"]) * ue + cut(d["c3"]) * du
+        b = cut(d["c2"]) * ue + cut(d["c4"]) * du
+        return -(d["mcat"] @ torch.cat([a, b])), None
+    # BKT: memory variables carried per element corner
+    bk = {k: cut(v) for k, v in d["bkt"].items()}
+    s0, s1, k0, k1 = conv
+
+    def upd(f0, f1, p):
+        c1, c2, c3, c4, e0, e1 = (bk[f"{p}_{k}"] for k in _BKT_PAIR)
+        return (c2 * ue + c1 * upe + e0 * f0,
+                c4 * ue + c3 * upe + e1 * f1)
+
+    s0, s1 = upd(s0, s1, "shear")
+    k0, k1 = upd(k0, k1, "kappa")
+    du = ue - upe
+    dvs = (bk["shear_coef"] * du
+           - (bk["a0_shear"] * s0 + bk["a1_shear"] * s1) + ue)
+    dvk = (bk["kappa_coef"] * du
+           - (bk["a0_kappa"] * k0 + bk["a1_kappa"] * k1) + ue)
+    f = (bk["mu_f"] * (d["kmu_cat"] @ dvs)
+         + bk["kappa_f"] * (d["kkappa_cat"] @ dvk))
+    return f, (s0, s1, k0, k1)
+
+
 def make_brick_step(t_host, meta, TOT, damping, dtype=torch.float32,
                     device="cuda"):
     """Returns (step, d): step(carry, srcf) -> (carry, sample [ns, 3])
@@ -257,41 +290,16 @@ def make_brick_step(t_host, meta, TOT, damping, dtype=torch.float32,
 
         new_conv = []
         for bi, m in enumerate(meta):
-            sl_u = u[:, m.off:m.off + m.nb]
-            sl_up = up[:, m.off:m.off + m.nb]
-            ue = _elem_field(sl_u, m)       # [24, S]
-            upe = _elem_field(sl_up, m)
-            fb = force[:, m.off:m.off + m.nb]
+            ue = _elem_field(u[:, m.off:m.off + m.nb], m)       # [24, S]
+            upe = _elem_field(up[:, m.off:m.off + m.nb], m)
 
             def cut(v):
                 return v[m.off:m.off + m.S][None]
 
-            if not bkt:
-                du = ue - upe
-                a = cut(d["c1"]) * ue + cut(d["c3"]) * du
-                b = cut(d["c2"]) * ue + cut(d["c4"]) * du
-                _scatter_back(fb, -(mcat @ torch.cat([a, b])), m)
-                continue
-            # BKT: memory variables carried per element corner
-            bk = {k: cut(v) for k, v in d["bkt"].items()}
-            s0, s1, k0, k1 = conv[bi]
-
-            def upd(f0, f1, p):
-                c1, c2, c3, c4, e0, e1 = (bk[f"{p}_{k}"] for k in _BKT_PAIR)
-                return (c2 * ue + c1 * upe + e0 * f0,
-                        c4 * ue + c3 * upe + e1 * f1)
-
-            s0, s1 = upd(s0, s1, "shear")
-            k0, k1 = upd(k0, k1, "kappa")
-            new_conv.append((s0, s1, k0, k1))
-            du = ue - upe
-            dvs = (bk["shear_coef"] * du
-                   - (bk["a0_shear"] * s0 + bk["a1_shear"] * s1) + ue)
-            dvk = (bk["kappa_coef"] * du
-                   - (bk["a0_kappa"] * k0 + bk["a1_kappa"] * k1) + ue)
-            f = (bk["mu_f"] * (d["kmu_cat"] @ dvs)
-                 + bk["kappa_f"] * (d["kkappa_cat"] @ dvk))
-            _scatter_back(fb, f, m)
+            f, cv = brick_force(d, cut, ue, upe, conv[bi] if bkt else None)
+            if bkt:
+                new_conv.append(cv)
+            _scatter_back(force[:, m.off:m.off + m.nb], f, m)
 
         # ---- loose elements: gather/scatter path --------------------
         if El:

@@ -39,12 +39,15 @@ LAYOUT_ERROR = ("checkpointed BKT conv state has an unsupported layout "
 class Checkpoint(NamedTuple):
     """A state as ``io.checkpoint.checkpoint_read`` gives it: the fields
     u and u- (canonical global [N, 3], or component-major [3, X] in
-    the brick's column order with any padding) and the flat memory
+    the brick's column order with any padding), the flat memory
     variables (see ``fused_brick.restore_packed_state`` and
-    ``fused_mesh.restore_mesh_state`` for their order)."""
+    ``fused_mesh.restore_mesh_state`` for their order), and the
+    checkpoint's extra entries (``mc_path`` and ``mc_ndev`` name the
+    multi-chip path and rank count a carry tail is shaped for)."""
     u_now: np.ndarray
     u_prev: np.ndarray
     conv: tuple = ()
+    extras: dict = {}
 
 
 def conv_corner_to_node(offs, evalid, conv_corner):

@@ -246,6 +246,35 @@ def test_buildings_copy_is_byte_equal():
         assert f.read() == g.read()
 
 
+def test_partition_is_a_copy():
+    """parallel/partition.py (numpy, and the port's own
+    nonlinear.smooth_rise_factor) is the JAX package's file byte for
+    byte."""
+    import inspect
+
+    from hercules_tpu.parallel import partition as jpartition
+    from hercules_tpu_torch.parallel import partition
+    with open(inspect.getfile(partition), "rb") as f, \
+            open(inspect.getfile(jpartition), "rb") as g:
+        assert f.read() == g.read()
+
+
+def test_partition_tables_equal(twin):
+    """On the same box, the port's shard_tables gives the JAX package's
+    tables array for array."""
+    from hercules_tpu.parallel.partition import shard_tables as jshard
+    from hercules_tpu.solver.assemble import assemble as jassemble
+    from hercules_tpu_torch.parallel.partition import shard_tables
+    from hercules_tpu_torch.solver.assemble import assemble
+    t, jt = assemble(twin.mesh, twin.params), jassemble(twin.jmesh,
+                                                        twin.jparams)
+    src = np.array([int(twin.mesh.elem_lnid[0, 7])])
+    for P in (3, 8):
+        a = shard_tables(t, twin.mesh, P, src_ids=src)
+        b = jshard(jt, twin.jmesh, P, src_ids=src)
+        assert_same(vars(a), vars(b), f"ShardedTables P={P}")
+
+
 # the numpy parts of nonlinear.py and drm.py, copied with their names
 COPIES = {
     "nonlinear": ("_dxi_unit", "_grad_table", "strain_operator",

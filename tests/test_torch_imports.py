@@ -68,7 +68,14 @@ MODULES = ("hercules_tpu_torch", "hercules_tpu_torch.cli",
            "hercules_tpu_torch.kernels.bkt_corner_step",
            "hercules_tpu_torch.kernels.stream_add",
            "hercules_tpu_torch.kernels.tiles",
-           "hercules_tpu_torch.utils.timers")
+           "hercules_tpu_torch.utils.timers",
+           "hercules_tpu_torch.parallel",
+           "hercules_tpu_torch.parallel.partition",
+           "hercules_tpu_torch.parallel.ranks",
+           "hercules_tpu_torch.parallel.slab",
+           "hercules_tpu_torch.parallel.sharded",
+           "hercules_tpu_torch.parallel.driver",
+           "hercules_tpu_torch.parallel.comm_model")
 
 
 def test_port_imports_no_jax(tmp_path):

@@ -109,6 +109,33 @@ JSON line {"phase": ...}:
               communication model's predictions for 2, 4 and 8 cards
               from the one-card K1 rate (comm_model.predict, labelled a
               prediction).
+   multigpu_graded -- the graded multi-chip paths (parallel/gslab.py,
+              parallel/gmesh.py, ROADMAP Queue 1, item 8b) through
+              Simulation.run(devices=[cuda:0] * P), 200 steps each:
+              gslab (the automatic choice) on GRADED_LAYERS at 3.90625 m
+              (2,424,832 elements, three bricks) with Rayleigh at P = 2
+              and 4 in both types (K1), with BKT at P = 4 (K2) and on
+              GRADED_Q_LAYERS (a brick of four Q sets: K4 on every
+              brick); gmesh (the automatic choice: gslab refuses the
+              vertical interface) on the basin case
+              (fixtures.write_basin_case, 2,883,584 elements) with
+              Rayleigh (K1) and BKT (K2) at P = 2 and 4 in both types;
+              each kernel launched bricks x P x 200 times and nothing
+              else; float64 stations within 1e-9 of the single-device
+              cuda_mesh route's, float32 within 1e-2 of float64; every
+              brick's fragment kernels against their plain versions
+              from random states (ranks 0 and P - 1, 5 steps:
+              2e-13 in float64, 1e-4 in float32, 5e-3 on bfloat16
+              memory variables); replicas bit-identical after every
+              run; a step-100 checkpoint resumed bit for bit on gslab
+              (BKT, P = 4) and on gmesh with nonlinear soil
+              (GRADED_Q_LAYERS at 3.90625 m, 524,288 nonlinear
+              elements, float32, P = 2, ep > 0 at the end); the gslab
+              and gmesh steps in float32 at P = 2 and 4 beside the
+              cuda_mesh step on the same box (back to back, alone, by
+              CUDA graph, the kernels' device time and bound, the host's
+              share); comm_model's predictions and plan_scaling_report
+              for 2, 4 and 8 cards (labelled predictions).
 2. k1      -- brick_step (K1) against brick_step_plain on the card: the
               2048-element box and the four-layer Rayleigh box at
               62.5 m (one brick, 2048 elements with four different c1,
@@ -571,26 +598,8 @@ def item7_phases(dev, work, counters, timed, lone, graph_ms):
     timing_res["subset_pass_share_of_step_back_to_back"] = (
         timing_res["subset_pass_ms"]
         / timing_res["nonlinear"]["step_ms"])
-    # where the pass's device time goes: the profiler's kernels,
-    # device ms per pass (a measurement: a profiler that does not
-    # run here is reported as such)
-    try:
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                subset_pass()
-            torch.cuda.synchronize()
-
-        def dev_us(e):
-            return getattr(e, "device_time_total",
-                           getattr(e, "cuda_time_total", 0.0))
-
-        top = sorted(prof.key_averages(), key=dev_us, reverse=True)
-        timing_res["subset_pass_kernels_ms"] = [
-            (e.key[:80], dev_us(e) / 3e3, e.count // 3)
-            for e in top[:12]]
-    except Exception as e:        # reported, not hidden
-        timing_res["subset_pass_kernels_ms"] = f"not measured: {e}"
+    # where the pass's device time goes
+    timing_res["subset_pass_kernels_ms"] = profile_kernels(subset_pass)
     del spare, spare_el, mt_el
     emit({"phase": "nonlinear", "card": roofline.card(),
           "edge_m": 3.90625, "steps": 400, "dtype": str(f32),
@@ -807,6 +816,161 @@ def item7_phases(dev, work, counters, timed, lone, graph_ms):
     return out
 
 
+def timed(fn, reps, warm):
+    """Median milliseconds of fn() over reps calls, after warm
+    calls (CUDA events on the current stream)."""
+    import torch
+    for _ in range(warm):
+        fn()
+    evs = [(torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+           for _ in range(reps)]
+    for a, b in evs:
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in evs)
+
+
+def lone(fn, reps=60, warm=5):
+    """Median milliseconds of one call of fn() on an idle device:
+    synchronise, then events around the call."""
+    import torch
+    for _ in range(warm):
+        fn()
+    ts = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        ts.append(a.elapsed_time(b))
+    return statistics.median(ts)
+
+
+def graph_ms(fn, n=20, reps=10):
+    """Device ms of one fn() from a CUDA graph of n calls."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(n):
+            fn()
+    return timed(g.replay, reps, 2) / n
+
+
+def profile_kernels(fn, n=3, top=12):
+    """Where fn()'s device time goes: the profiler's kernels, as (name,
+    device ms per call, launches per call), the largest first (a
+    measurement: a profiler that does not run is reported as such)."""
+    import torch
+    try:
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+
+        def dev_us(e):
+            return getattr(e, "device_time_total",
+                           getattr(e, "cuda_time_total", 0.0))
+
+        ranked = sorted(prof.key_averages(), key=dev_us, reverse=True)
+        return [(e.key[:80], dev_us(e) / (n * 1e3), e.count // n)
+                for e in ranked[:top]]
+    except Exception as e:        # reported, not hidden
+        return f"not measured: {e}"
+
+
+def kernel_vs_plain(mod, tier, LEN, n, dtype, dev, label, steps=5,
+                    seed=13):
+    """A fragment's step kernel (module ``mod`` of tier "elastic" (K1),
+    "uniform" (K2) or "corner" (K4) on [*, LEN] arrays, its first n
+    columns real) against its plain version on the card, from a random
+    state, ``steps`` steps in ``dtype``: {"S": rel. error of u and u-[,
+    "conv": of the memory variables]}; fails past 2e-13 (float64), 1e-4
+    (float32) or 5e-3 (bfloat16 memory variables)."""
+    import numpy as np
+    import torch
+
+    from hercules_tpu_torch.kernels.bkt_corner_step import \
+        bkt_corner_step_plain
+    from hercules_tpu_torch.kernels.bkt_step import bkt_step_plain
+    from hercules_tpu_torch.kernels.brick_step import brick_step_plain
+
+    def rel(a, b):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        scale = np.abs(b).max()
+        require(scale > 0 and np.isfinite(a).all(), "zero or bad reference")
+        return float(np.abs(a - b).max() / scale)
+
+    g = np.random.default_rng(seed)
+    S = np.zeros((8, LEN))
+    S[0:3, :n] = 1e-3 * g.standard_normal((3, n))
+    S[3:6, :n] = S[0:3, :n] - 1e-4 * g.standard_normal((3, n))
+    S = torch.as_tensor(S, dtype=dtype, device=dev)
+    parts = [(S, S.clone())]
+    if tier != "elastic":
+        (shape, cdt), = mod.state_parts(LEN)
+        cv = np.zeros(shape)
+        cv[:, :n] = 1e-3 * g.standard_normal((shape[0], n))
+        cv = torch.as_tensor(cv, dtype=dtype, device=dev).to(cdt)
+        parts.append((cv, cv.clone()))
+    a, b = [p[0] for p in parts], [p[1] for p in parts]
+    for _ in range(steps):
+        if len(a) == 1:
+            a = [mod(a[0])]
+            b = [brick_step_plain(b[0], mod.K, mod.offs, mod.ops)]
+        else:
+            a = list(mod(a[0], a[1]))
+            if tier == "uniform":
+                b = list(bkt_step_plain(b[0], b[1], mod.K, mod.offs,
+                                        mod.scales, mod.rec))
+            else:
+                b = list(bkt_corner_step_plain(b[0], b[1], mod.K, mod.offs,
+                                               mod.tab))
+    e = {"S": rel(a[0][0:6].cpu(), b[0][0:6].cpu())}
+    if len(a) > 1:
+        e["conv"] = rel(a[1].double().cpu(), b[1].double().cpu())
+    f64_ = dtype == torch.float64
+    bound = {"S": 2e-13 if f64_ else 1e-4, "conv": 2e-13 if f64_ else 5e-3}
+    require(all(v <= bound[k] for k, v in e.items()),
+            f"{label}: kernel against plain {e}")
+    return e
+
+
+# Simulation.setup of the phases' multi-chip cases, by their arguments:
+# the graded box at 3.90625 m serves phases multigpu and multigpu_graded
+_SIMS = {}
+
+
+def setup_case(work, name, edge, steps, write=None, prepare=None, **case):
+    """The Simulation of a case written by ``write`` (write_box_case by
+    default; 5 stations) under work/mc_<name> and, where given, changed
+    by prepare(cvmdb, physics_in, numerical_in) before it is set up;
+    set up once per arguments."""
+    from hercules_tpu_torch.fixtures import write_box_case
+    from hercules_tpu_torch.sim import Simulation
+    key = (name, edge, steps, write, prepare, tuple(sorted(case.items())))
+    if key not in _SIMS:
+        files = (write or write_box_case)(
+            os.path.join(work, f"mc_{name}"), edge, steps, 5, **case)
+        if prepare is not None:
+            prepare(*files)
+        cv, ph, nu = files
+        _SIMS[key] = (Simulation.setup(ph, nu, cv), files)
+    return _SIMS[key]
+
+
 def multigpu_phase(dev, work, counters, timed, lone, graph_ms):
     """Phase multigpu (ROADMAP Queue 1, item 8a): the multi-chip paths
     of ``hercules_tpu_torch/parallel/`` through
@@ -820,10 +984,6 @@ def multigpu_phase(dev, work, counters, timed, lone, graph_ms):
                                              THIN_Q_LAYERS, add_output_keys,
                                              four_q_freq, write_box_case)
     from hercules_tpu_torch.io.checkpoint import checkpoint_read
-    from hercules_tpu_torch.kernels.bkt_corner_step import \
-        bkt_corner_step_plain
-    from hercules_tpu_torch.kernels.bkt_step import bkt_step_plain
-    from hercules_tpu_torch.kernels.brick_step import brick_step_plain
     from hercules_tpu_torch.parallel import comm_model, driver
     from hercules_tpu_torch.parallel.ranks import RankGroup
     from hercules_tpu_torch.parallel.slab import build_slab_tables
@@ -839,9 +999,7 @@ def multigpu_phase(dev, work, counters, timed, lone, graph_ms):
             "corner": "bkt_corner_step"}
 
     def setup(name, edge, steps, **case):
-        cv, ph, nu = write_box_case(os.path.join(work, f"mc_{name}"), edge,
-                                    steps, 5, **case)
-        return Simulation.setup(ph, nu, cv), (cv, ph, nu)
+        return setup_case(work, name, edge, steps, **case)
 
     def rel(a, b):
         a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
@@ -902,47 +1060,13 @@ def multigpu_phase(dev, work, counters, timed, lone, graph_ms):
 
     def vs_plain(path, label, steps=5):
         """Rank 0's and the last rank's step kernel against its plain
-        version on the card, from a random state on the fragment's
-        columns, ``steps`` steps in the path's type."""
-        g = np.random.default_rng(13)
-        errs = {}
-        for r in (0, path.n_dev - 1):
-            mod, LEN = path.step.mods[r], path.step.LEN
-            n = len(path.st.gnid_local[r])
-            S = np.zeros((8, LEN))
-            S[0:3, :n] = 1e-3 * g.standard_normal((3, n))
-            S[3:6, :n] = S[0:3, :n] - 1e-4 * g.standard_normal((3, n))
-            S = torch.as_tensor(S, dtype=path.dtype, device=dev)
-            parts = [(S, S.clone())]
-            if path.step.tier != "elastic":
-                (shape, cdt), = mod.state_parts(LEN)
-                cv = np.zeros(shape)
-                cv[:, :n] = 1e-3 * g.standard_normal((shape[0], n))
-                cv = torch.as_tensor(cv, dtype=path.dtype, device=dev).to(cdt)
-                parts.append((cv, cv.clone()))
-            a, b = [p[0] for p in parts], [p[1] for p in parts]
-            for _ in range(steps):
-                if len(a) == 1:
-                    a = [mod(a[0])]
-                    b = [brick_step_plain(b[0], mod.K, mod.offs, mod.ops)]
-                else:
-                    a = list(mod(a[0], a[1]))
-                    if path.step.tier == "uniform":
-                        b = list(bkt_step_plain(b[0], b[1], mod.K, mod.offs,
-                                                mod.scales, mod.rec))
-                    else:
-                        b = list(bkt_corner_step_plain(b[0], b[1], mod.K,
-                                                       mod.offs, mod.tab))
-            e = {"S": rel(a[0][0:6].cpu(), b[0][0:6].cpu())}
-            if len(a) > 1:
-                e["conv"] = rel(a[1].double().cpu(), b[1].double().cpu())
-            f64_ = path.dtype == f64
-            bound = {"S": 2e-13 if f64_ else 1e-4,
-                     "conv": 2e-13 if f64_ else 5e-3}
-            require(all(v <= bound[k] for k, v in e.items()),
-                    f"{label} rank {r}: kernel against plain {e}")
-            errs[f"rank {r}"] = e
-        res["kernels_vs_plain"][label] = errs
+        version on the card (kernel_vs_plain)."""
+        res["kernels_vs_plain"][label] = {
+            f"rank {r}": kernel_vs_plain(
+                path.step.mods[r][0], path.step.tier, path.step.LEN,
+                len(path.st.gnid_local[r]), path.dtype, dev,
+                f"{label} rank {r}", steps)
+            for r in (0, path.n_dev - 1)}
 
     # ---- the 2^20 boxes: K1 at P = 2, 3, 4; K2 and K4 at P = 4 -------
     sim_b, _ = setup("box", 7.8125, 400)
@@ -1088,7 +1212,7 @@ def multigpu_phase(dev, work, counters, timed, lone, graph_ms):
 
         def kernels_only():
             for r, s in enumerate(box_[0]):
-                path.step.mods[r](s[0], out=spare[r])
+                path.step.mods[r][0](s[0], out=spare[r])
 
         b2b = timed(one_step, 50, 5)
         alone = lone(one_step, reps=40)
@@ -1097,7 +1221,7 @@ def multigpu_phase(dev, work, counters, timed, lone, graph_ms):
         bound = sum(roofline.step_cost(m, path.step.LEN,
                                        int(path.st.ez_of[r]) * 128 * 128,
                                        f32).bound_ms
-                    for r, m in enumerate(path.step.mods))
+                    for r, (m,) in enumerate(path.step.mods))
         timing[f"P={P}"] = {
             "step_ms_back_to_back": b2b, "step_ms_alone": alone,
             "step_device_ms": device, "kernels_device_ms": kdev,
@@ -1115,6 +1239,336 @@ def multigpu_phase(dev, work, counters, timed, lone, graph_ms):
     res["launches"] = launches
     res["seconds"] = time.perf_counter() - t_phase
     emit({"phase": "multigpu", **res})
+    return launches
+
+
+def multigpu_graded_phase(dev, work, counters, timed, lone, graph_ms):
+    """Phase multigpu_graded (ROADMAP Queue 1, item 8b): the graded
+    multi-chip paths of ``hercules_tpu_torch/parallel/`` through
+    ``Simulation.run(devices=[dev] * P)``, every rank on the one card
+    (see the module docstring), on cases of 3.90625 m elements over 200
+    steps.  Prints one JSON line and returns {kernel: launches} of its
+    multi-chip runs."""
+    import numpy as np
+    import torch
+
+    from hercules_tpu_torch.fixtures import (GRADED_LAYERS, GRADED_Q_LAYERS,
+                                             add_nonlinear_keys,
+                                             add_output_keys, four_q_freq,
+                                             write_basin_case)
+    from hercules_tpu_torch.io.checkpoint import checkpoint_read
+    from hercules_tpu_torch.parallel import comm_model, driver
+    from hercules_tpu_torch.parallel.gmesh import build_gmesh_tables
+    from hercules_tpu_torch.parallel.gslab import build_gslab_tables
+    from hercules_tpu_torch.sim import SimOutputs
+    from hercules_tpu_torch.solver import fused_mesh
+    from hercules_tpu_torch.utils import roofline
+
+    f32, f64 = torch.float32, torch.float64
+    edge, steps = 3.90625, 200
+    t_phase = time.perf_counter()
+    launches = {}
+    res = {"card": roofline.card(), "edge_m": edge, "steps": steps,
+           "runs": {}, "kernels_vs_plain": {}, "accuracy": {},
+           "replicas_bit_identical": True}
+    kind = {"elastic": "brick_step", "uniform": "bkt_step",
+            "corner": "bkt_corner_step"}
+    q = four_q_freq(edge)
+    half = steps // 2
+
+    def rel(a, b):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        scale = np.abs(b).max()
+        require(scale > 0 and np.isfinite(a).all(), "zero or bad reference")
+        return float(np.abs(a - b).max() / scale)
+
+    def name_of(dtype):
+        return str(dtype).removeprefix("torch.")
+
+    def replicas(path, state):
+        """Both copies of every fragment-shared plane of every brick hold
+        the same bits of u and u- (and of K2's memory variables), and
+        gmesh's loose section is the same on every rank."""
+        for b, fb in enumerate(path.st.bricks):
+            pl = fb.plane
+            for r in range(path.n_dev - 1):
+                zb = int(fb.ez_of[r]) * pl
+                lo, hi = state[r], state[r + 1]
+                pairs = [(lo[0][b][0:6], hi[0][b][0:6])]
+                if path.step.tier == "uniform":
+                    pairs.append((lo[-1][b][0], hi[-1][b][0]))
+                for x, y in pairs:
+                    require(torch.equal(x[:, zb:zb + pl], y[:, :pl]),
+                            f"{path.name}: brick {b} plane copies of ranks "
+                            f"{r}, {r + 1}")
+        if path.name == "gmesh":
+            for s in state[1:]:
+                require(torch.equal(s[1], state[0][1]),
+                        "gmesh: loose sections differ")
+
+    def rundir(label):
+        d = os.path.join(work, "mcg_runs", label.replace(" ", "_"))
+        os.makedirs(d, exist_ok=True)
+        return d
+
+    def mc(sim, label, P, dtype, want, mc_path=None, **kw):
+        """A multi-chip run, its launches counted (each brick's kernel on
+        every rank and step): (state, samples, path)."""
+        t0 = time.perf_counter()
+        kw.setdefault("rundir", rundir(label))
+        (state, samp), ran = count_launches(counters, lambda: sim.run(
+            devices=[dev] * P, dtype=dtype, mc_path=mc_path, **kw))
+        secs = time.perf_counter() - t0
+        path = sim.mc_path
+        require(sim.solver_path_name == f"mc:{want}",
+                f"{label}: route {sim.solver_path_name} "
+                f"({sim.solver_path_reason})")
+        T = kw.get("total_steps", steps) - sim.start_step
+        nb = len(path.st.bricks)
+        expect = {kind[path.step.tier]: nb * P * T}
+        require(ran == expect, f"{label}: launches {ran}, want {expect}")
+        require(np.isfinite(samp).all() and np.abs(samp).max() > 0,
+                f"{label}: stations")
+        for k, v in ran.items():
+            launches[k] = launches.get(k, 0) + v
+        replicas(path, state)
+        res["runs"][label] = {"path": path.name, "ranks": P,
+                              "dtype": name_of(dtype), "steps": T,
+                              "bricks": nb, "tier": path.step.tier,
+                              "launches": ran, "seconds": secs,
+                              "reason": sim.solver_path_reason}
+        return state, samp, path
+
+    def single(sim, dtype, label):
+        t0 = time.perf_counter()
+        _, samp = sim.run(device=dev, dtype=dtype, rundir=rundir(label))
+        require(sim.solver_path_name == "cuda_mesh",
+                f"{label}: route {sim.solver_path_name}")
+        res["runs"][label] = {"path": "cuda_mesh", "dtype": name_of(dtype),
+                              "seconds": time.perf_counter() - t0}
+        return samp
+
+    def vs_plain(path, label):
+        """Rank 0's and the last rank's kernel on every brick's fragment
+        (each fragment shape of the path: plane width, LEN, and the real
+        columns of an uneven split) against its plain version
+        (kernel_vs_plain)."""
+        res["kernels_vs_plain"][label] = {
+            f"rank {r} brick {b}": kernel_vs_plain(
+                path.step.mods[r][b], path.step.tier, fb.LEN,
+                len(fb.gnid_local[r]), path.dtype, dev,
+                f"{label} rank {r} brick {b}")
+            for b, fb in enumerate(path.st.bricks)
+            for r in sorted({0, path.n_dev - 1})}
+
+    def check(label, got, bound):
+        res["accuracy"][label] = got
+        require(got <= bound, f"{label}: {got} > {bound}")
+
+    def checkpoints(cv, ph, nu):
+        add_output_keys(ph, nu, checkpointing_rate=half)
+
+    def nonlinear(cv, ph, nu):
+        # the top 31.25 m nonlinear (Vs 600 m/s under the 700 m/s cut)
+        add_nonlinear_keys(nu, 700.0)
+        checkpoints(cv, ph, nu)
+
+    def case(name, write=None, prepare=None, **kw):
+        return setup_case(work, name, edge, steps, write=write,
+                          prepare=prepare, **kw)[0]
+
+    # ---- gslab: GRADED_LAYERS (K1 at P = 2, 4; K2 at P = 4) ----------
+    paths = {}
+    sim_g = case("graded", layers=GRADED_LAYERS, freq=q)
+    E_g = sim_g.mesh.lenum
+    ref = {d: single(sim_g, d, f"graded single {name_of(d)}")
+           for d in (f32, f64)}
+    for P in (2, 4):
+        got = {}
+        for d in (f32, f64):
+            _, got[d], paths[("gslab", P, d)] = mc(
+                sim_g, f"gslab P={P} {name_of(d)}", P, d, "gslab")
+        check(f"gslab P={P} f64 vs cuda_mesh f64", rel(got[f64], ref[f64]),
+              1e-9)
+        check(f"gslab P={P} f32 vs f64", rel(got[f32], got[f64]), 1e-2)
+    for d in (f32, f64):
+        vs_plain(paths[("gslab", 4, d)], f"K1 gslab P=4 {name_of(d)}")
+    for name, layers, tier in (("graded_bkt", GRADED_LAYERS, "uniform"),
+                               ("graded_q_bkt", GRADED_Q_LAYERS, "corner")):
+        sim = case(name, prepare=checkpoints, damping="bkt", layers=layers,
+                   freq=q)
+        if tier == "uniform":
+            sim_ck = sim
+        r64 = single(sim, f64, f"{name} single float64")
+        got = {}
+        for d in (f32, f64):
+            _, got[d], p = mc(sim, f"gslab {name} P=4 {name_of(d)}", 4, d,
+                              "gslab")
+            require(p.step.tier == tier, f"{name}: tier {p.step.tier}")
+            vs_plain(p, f"{kind[tier]} gslab P=4 {name_of(d)}")
+        check(f"gslab {name} P=4 f64 vs cuda_mesh f64", rel(got[f64], r64),
+              1e-9)
+        check(f"gslab {name} P=4 f32 vs f64", rel(got[f32], got[f64]), 1e-2)
+
+    # ---- gmesh: the basin (K1 and K2 at P = 2, 4) --------------------
+    for damping in ("rayleigh", "bkt"):
+        name = "basin" if damping == "rayleigh" else "basin_bkt"
+        sim = case(name, write=write_basin_case, damping=damping)
+        if damping == "rayleigh":
+            sim_m = sim
+        ref = {d: single(sim, d, f"{name} single {name_of(d)}")
+               for d in ((f32, f64) if damping == "rayleigh" else (f64,))}
+        for P in (2, 4):
+            got = {}
+            for d in (f32, f64):
+                _, got[d], paths[("gmesh", damping, P, d)] = mc(
+                    sim, f"gmesh {name} P={P} {name_of(d)}", P, d, "gmesh")
+            check(f"gmesh {name} P={P} f64 vs cuda_mesh f64",
+                  rel(got[f64], ref[f64]), 1e-9)
+            check(f"gmesh {name} P={P} f32 vs f64", rel(got[f32], got[f64]),
+                  1e-2)
+        for d in (f32, f64):
+            p = paths[("gmesh", damping, 4, d)]
+            vs_plain(p, f"{kind[p.step.tier]} gmesh P=4 {name_of(d)}")
+    E_m = sim_m.mesh.lenum
+    res["elements"] = {"gslab": E_g, "gmesh": E_m}
+
+    # ---- nonlinear soil on gmesh, and restarts on each path ----------
+    # the source 40 m under station 0, as phase nonlinear puts it: the
+    # waves reach the nonlinear layer within the run
+    sim_nl = case("graded_q_nl", prepare=nonlinear, layers=GRADED_Q_LAYERS,
+                  freq=q, hypocenter=(263.0, 241.0, 40.0))
+    nl_n = sim_nl.nl_tables.n
+    restart = {}
+    for label, sim, P, want in (("gslab graded_bkt", sim_ck, 4, "gslab"),
+                                ("gmesh nonlinear", sim_nl, 2, "gmesh")):
+        runs = []
+        for tag in ("a", "b"):
+            d = rundir(f"restart {label} {tag}")
+            if tag == "b":
+                ck = os.path.join(runs[0][3], "checkpoints")
+                os.makedirs(os.path.join(d, "checkpoints"), exist_ok=True)
+                for f in ("checkpoint.out0", "checkpoint.out1"):
+                    if checkpoint_read(os.path.join(ck, f))[0] == half:
+                        shutil.copy(os.path.join(ck, f), os.path.join(
+                            d, "checkpoints", "checkpoint.in"))
+            state, samp, path = mc(
+                sim, f"restart {label} {tag}", P, f32, want, rundir=d,
+                outputs=lambda s=sim, d=d: SimOutputs(s.mesh, s.params,
+                                                      rundir=d))
+            runs.append((state, samp, sim.start_step, d))
+        (sa, pa, s0a, _), (sb, pb, s0b, _) = runs
+        la, lb = driver._flat(sa), driver._flat(sb)
+        same = (s0a, s0b) == (0, half) and len(la) == len(lb) and all(
+            x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
+        require(same and np.array_equal(pb, pa[half:]),
+                f"restart {label}: not bit for bit")
+        restart[label] = {"resumed_at": s0b, "arrays": len(la),
+                          "bit_for_bit": True}
+        if label == "gmesh nonlinear":
+            ep = max(float(s[2][2].max()) for s in sa if s[2][2].numel())
+            require(ep > 0, "gmesh nonlinear: no plastic flow")
+            res["nonlinear"] = {"elements": sim.mesh.lenum,
+                                "nonlinear_elements": nl_n, "ranks": P,
+                                "steps": steps, "ep_max": ep,
+                                "nl_station_columns": sorted(
+                                    int(k) for k in sim.nl_station_extras)}
+    res["restart"] = restart
+
+    # ---- timing: the graded steps at P = 2, 4 beside cuda_mesh --------
+    def kernels_of(path, state):
+        """fn() launching every rank's and brick's kernel once."""
+        spare = [[torch.empty_like(S) for S in s[0]] for s in state]
+
+        def fn():
+            for r, s in enumerate(state):
+                for b, S in enumerate(s[0]):
+                    path.step.mods[r][b](S, out=spare[r][b])
+        return fn
+
+    def bound_of(path):
+        total = 0.0
+        for r in range(path.n_dev):
+            for mod, fb, b in zip(path.step.mods[r], path.st.bricks,
+                                  path.st.plan.bricks):
+                _, n1, n2 = b.node_shape
+                total += roofline.step_cost(
+                    mod, fb.LEN, int(fb.ez_of[r]) * (n1 - 1) * (n2 - 1),
+                    f32).bound_ms
+        return total
+
+    def timing_of(step_fn, kern_fn, bound, E):
+        b2b = timed(step_fn, 30, 5)
+        alone = lone(step_fn, reps=30)
+        device = graph_ms(step_fn)
+        kdev = graph_ms(kern_fn)
+        return {"step_ms_back_to_back": b2b, "step_ms_alone": alone,
+                "step_device_ms": device, "kernels_device_ms": kdev,
+                "kernels_bound_ms": bound,
+                "host_share": 1.0 - device / alone,
+                "element_updates_per_s": E / (b2b * 1e-3),
+                "device_kernels_ms": profile_kernels(step_fn, top=8)}
+
+    timing, eups1 = {}, {}
+    for label, sim, key in (("gslab graded", sim_g, "gslab"),
+                            ("gmesh basin", sim_m, "gmesh")):
+        plan = sim.brick_plan()
+        st_ = sim.stations
+        mt = fused_mesh.MeshPallasTables(plan, sim.tables, sim.src_ids,
+                                         st_.nodes, st_.phi, f32, dev)
+        state = fused_mesh.init_mesh_state(mt)
+        spare = fused_mesh.init_mesh_state(mt)
+        mstep = fused_mesh.make_mesh_step(mt)
+        srcf1 = torch.as_tensor(sim.src_forces[0] * sim.params.delta_t ** 2,
+                                dtype=f32, device=dev)
+
+        def mesh_kernels(mt=mt, state=state, spare=spare):
+            for b, mod in enumerate(mt.steps):
+                mod(state[0][b], out=spare[0][b])
+
+        E = sim.mesh.lenum
+        bound1 = sum(roofline.step_cost(
+            mod, mt.LENs[b], int(np.prod(plan.bricks[b].shape)), f32).bound_ms
+            for b, mod in enumerate(mt.steps))
+        row = {"P=1 cuda_mesh": timing_of(
+            lambda: mstep(state, spare, srcf1), mesh_kernels, bound1, E)}
+        eups1[key] = E / (row["P=1 cuda_mesh"]["kernels_device_ms"] * 1e-3)
+        for P in (2, 4):
+            path = (paths[("gslab", P, f32)] if key == "gslab"
+                    else paths[("gmesh", "rayleigh", P, f32)])
+            cols = path.src_cols()
+            f = np.asarray(sim.src_forces[0]) * sim.params.delta_t ** 2
+            srcf = [None if not len(c) else torch.as_tensor(
+                f[c], dtype=f32, device=dev) for c in cols]
+            box_ = [path.init_state()]
+
+            def one_step(path=path, box_=box_, srcf=srcf):
+                box_[0] = path.step.step(box_[0], srcf, 0)
+
+            row[f"P={P} {key}"] = timing_of(
+                one_step, kernels_of(path, box_[0]), bound_of(path), E)
+        timing[label] = row
+    res["timing_float32"] = timing
+
+    # ---- predictions for 2, 4 and 8 cards ----------------------------
+    pred = {"what": "comm_model.predict: a prediction for P cards from the "
+                    "one-card kernels' device rate on cuda_mesh, not a "
+                    "measurement"}
+    for key, sim, build, comm, legacy in (
+            ("gslab", sim_g, build_gslab_tables, comm_model.gslab_comm, True),
+            ("gmesh", sim_m, build_gmesh_tables, comm_model.gmesh_comm,
+             False)):
+        for P in (2, 4, 8):
+            st_ = build(sim.mesh, sim.tables, P, src_ids=sim.src_ids,
+                        plan=sim.brick_plan(legacy))
+            pred[f"{key} P={P}"] = comm_model.predict(
+                comm(st_), sim.mesh.lenum, eups1[key])
+        pred[f"{key} plan_scaling_report"] = comm_model.plan_scaling_report(
+            sim.brick_plan(legacy), sim.mesh.lenum, eups1[key])
+    res["prediction"] = pred
+    res["launches"] = launches
+    res["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "multigpu_graded", **res})
     return launches
 
 
@@ -1293,52 +1747,6 @@ def main():
         require(scale > 0, "zero reference conv")
         err = (a.double() - b).abs().max().item()
         return err / scale, err
-
-    def timed(fn, reps, warm):
-        """Median milliseconds of fn() over reps calls, after warm
-        calls."""
-        for _ in range(warm):
-            fn()
-        evs = [(torch.cuda.Event(enable_timing=True),
-                torch.cuda.Event(enable_timing=True))
-               for _ in range(reps)]
-        for a, b in evs:
-            a.record()
-            fn()
-            b.record()
-        torch.cuda.synchronize()
-        return statistics.median(a.elapsed_time(b) for a, b in evs)
-
-    def lone(fn, reps=60, warm=5):
-        """Median milliseconds of one call of fn() on an idle device:
-        synchronise, then events around the call."""
-        for _ in range(warm):
-            fn()
-        ts = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            torch.cuda.synchronize()
-            ts.append(a.elapsed_time(b))
-        return statistics.median(ts)
-
-    def graph_ms(fn, n=20, reps=10):
-        """Device ms of one fn() from a CUDA graph of n calls."""
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            for _ in range(3):
-                fn()
-        torch.cuda.current_stream().wait_stream(side)
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
-            for _ in range(n):
-                fn()
-        return timed(g.replay, reps, 2) / n
 
     # the launch counters of the kernels the solver routes launch
     counters = (brick_step, brick_chunk, bkt_step, bkt_chunk, bkt_node_step,
@@ -1564,6 +1972,9 @@ def main():
         # ---- multigpu: the slab and sharded paths on ranks of one card
         mc_launches = multigpu_phase(dev, work, counters, timed, lone,
                                      graph_ms)
+        # ---- multigpu_graded: gslab and gmesh on ranks of one card ----
+        mcg_launches = multigpu_graded_phase(dev, work, counters, timed,
+                                             lone, graph_ms)
 
         # ---- 2. K1 against its plain version ------------------------
         cases = []
@@ -2938,7 +3349,8 @@ def main():
         total_launches["brick_step"] += loh1_launches + sum(
             item7_launches.values())
         # and K1's, K2's and K4's on the slab fragments (phase multigpu)
-        for k, n in mc_launches.items():
+        # and on the graded paths' brick fragments (multigpu_graded)
+        for k, n in list(mc_launches.items()) + list(mcg_launches.items()):
             total_launches[k] += n
         # K4's launches on each box of its main path (the forced box:
         # none)

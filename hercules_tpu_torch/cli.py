@@ -17,14 +17,19 @@ Options:
                   visible CUDA device, one rank on --device=cpu; N > 1
                   on --device=cpu runs N ranks on the CPU; 1 forces the
                   single-device routes)
-  --mc-path=NAME  force a multi-chip path (slab, slab_pallas, sharded;
-                  gslab and gmesh are not ported yet)
+  --mc-path=NAME  force a multi-chip path (slab, slab_pallas, gslab,
+                  gmesh, sharded); one that does not take the mesh
+                  exits non-zero with its reason
 
 With more than one rank the monitor says "multi-chip pipeline: N
 devices" and names the path, "solver path: mc:slab_pallas" (a step
-kernel per z-slab of a one-brick mesh; mc:slab on the CPU) or
-"mc:sharded" (any other mesh, and nonlinear soil, DRM part 2 and
-fixed-base buildings, with a reason line).
+kernel per z-slab of a one-brick mesh; mc:slab on the CPU),
+"mc:gslab" (a depth-graded mesh: a step kernel per z-fragment of each
+brick), "mc:gmesh" (any other brick plan, and nonlinear soil) or
+"mc:sharded" (any other mesh, and DRM part 2, fixed-base buildings and
+the nonlinear soil gmesh refuses); a reason line names each path that
+refused the mesh.  On --device=cpu the automatic choice skips gslab and
+gmesh (except for nonlinear soil), as the JAX package does off the TPU.
 
 monitor.txt names the route that ran ("solver path: ..."): cuda_chunk
 or cuda_step (elastic), cuda_bkt_chunk or cuda_bkt_step (BKT, one Q

@@ -178,35 +178,88 @@ def mc_state_from_jax(path, carry):
       node-basis memory variables [n_dev, 8 | 16, LEN_jax] of its one
       Q set, or (u, u-, conv) [n_dev, 3, LEN_jax] with corner-basis
       ones [n_dev, 48 | 96, LEN_jax] (several Q sets), fitted to the
-      port's fragments (restart.fit_conv)."""
+      port's fragments (restart.fit_conv);
+    - "gslab": the same per brick, (Ss[, convs]) packed or (us, ups,
+      convs) with the corner basis, each entry a tuple over the bricks;
+    - "gmesh": (Ss, S_l[, convs | plastic state]), S_l [n_dev, 8, NL]
+      the loose section, the plastic state (stresses, plastic strains,
+      ep) padded to one width over the ranks: each rank keeps its own
+      rows."""
     from .solver.restart import fit_conv
     n = path.n_dev
     on = [lambda x, dev=dev: torch.as_tensor(np.asarray(x)).to(
         dev, path.dtype) for dev in path.group.devices]
-    if path.name != "slab_pallas":
+    if path.name not in ("slab_pallas", "gslab", "gmesh"):
         def rank(tree, r):
             if isinstance(tree, (tuple, list)):
                 return tuple(rank(t, r) for t in tree)
             return on[r](np.asarray(tree)[r])
         return [rank(tuple(carry), r) for r in range(n)]
+
+    def packed(S_j, conv_j, r, mod, LEN, tot_local):
+        """(S [8, LEN] on rank r's device, its memory variables or ())
+        from a JAX fragment's S [8 | 3 + 3, LEN_jax] and conv."""
+        S = np.zeros((8, LEN), S_j.dtype)
+        w = min(LEN, S_j.shape[-1], tot_local)
+        S[:S_j.shape[0], :w] = S_j[:, :w]
+        if conv_j is None:
+            return on[r](S), ()
+        cv = fit_conv(mod, LEN, (conv_j,))
+        dev = path.group.devices[r]
+        return on[r](S), tuple(torch.as_tensor(c).to(dev, dt) for c, (_, dt)
+                               in zip(cv, mod.state_parts(LEN)))
+
     step = path.step
-    S_j = np.asarray(carry[0])
-    if S_j.shape[1] == 3:                # the JAX corner tier: (u, u-, conv)
-        S_j = np.concatenate([S_j, np.asarray(carry[1]),
-                              np.zeros_like(S_j[:, :2])], axis=1)
-        carry = (S_j, carry[2])
+    if path.name == "slab_pallas":
+        S_j = np.asarray(carry[0])
+        conv = None
+        if S_j.shape[1] == 3:            # the JAX corner tier: (u, u-, conv)
+            S_j = np.concatenate([S_j, np.asarray(carry[1])], axis=1)
+            conv = np.asarray(carry[2])
+        elif len(carry) > 1:
+            conv = np.asarray(carry[1])
+        out = []
+        for r in range(n):
+            S, cv = packed(S_j[r], None if conv is None else conv[r], r,
+                           step.mods[r][0], step.LEN, path.st.tot_local)
+            out.append((S,) + cv)
+        return out
+
+    NB = len(path.st.bricks)
+    if path.name == "gslab":
+        first = carry[0]
+        if np.shape(first[0])[1] == 3:   # (us, ups, convs): corner tier
+            Ss = [np.concatenate([np.asarray(a), np.asarray(b)], axis=1)
+                  for a, b in zip(carry[0], carry[1])]
+            convs, rest = carry[2], None
+        else:
+            Ss = [np.asarray(a) for a in first]
+            convs = carry[1] if len(carry) > 1 else None
+            rest = None
+    else:
+        Ss = [np.asarray(a) for a in carry[0]]
+        rest = np.asarray(carry[1])
+        convs = (carry[2] if len(carry) > 2 and path.st.damping == "bkt"
+                 else None)
     out = []
     for r in range(n):
-        S = np.zeros((8, step.LEN), S_j.dtype)
-        w = min(step.LEN, S_j.shape[2], path.st.tot_local)
-        S[:, :w] = S_j[r][:, :w]
-        s = (on[r](S),)
-        if len(carry) > 1:
-            mod = step.mods[r]
-            cv = fit_conv(mod, step.LEN, (np.asarray(carry[1])[r],))
-            s += tuple(torch.as_tensor(c).to(path.group.devices[r], dt)
-                       for c, (_, dt) in zip(cv, mod.state_parts(step.LEN)))
+        bricks, cvs = [], []
+        for b, fb in enumerate(path.st.bricks):
+            S, cv = packed(Ss[b][r], None if convs is None
+                           else np.asarray(convs[b])[r], r,
+                           step.mods[r][b], fb.LEN, fb.tot_local)
+            bricks.append(S)
+            cvs.append(cv)
+        s = (tuple(bricks),)
+        if path.name == "gmesh":
+            s += (on[r](rest[r]),)
+        if convs is not None:
+            s += (tuple(cvs),)
+        elif path.name == "gmesh" and path.st.nl is not None:
+            k = len(path.st.nl[r]["idx"])
+            s += (tuple(on[r](np.asarray(a)[r, :k]) for a in carry[2]),)
         out.append(s)
+    assert all(len(x[0]) == NB for x in out)
     return out
 
 
@@ -214,9 +267,9 @@ def mc_state_to_jax(path, state, like):
     """The JAX package's rank-stacked carry (numpy) of a multi-chip
     path from the port's per-rank state, shaped as ``like`` (a JAX carry
     of the same path and rank count, e.g. its init_state): the
-    inverse of mc_state_from_jax, padding columns zero; a node-basis
-    conv [6 | 12, LEN] fills the first rows of the JAX [8 | 16,
-    LEN_jax]."""
+    inverse of mc_state_from_jax, padding columns (and gmesh's padded
+    plastic-state rows) zero; a node-basis conv [6 | 12, LEN] fills the
+    first rows of the JAX [8 | 16, LEN_jax]."""
     def host(x):
         return np.asarray(torch.as_tensor(x).detach().cpu().to(
             torch.float64 if x.dtype == torch.float64 else torch.float32))
@@ -240,4 +293,10 @@ def mc_state_to_jax(path, state, like):
     parts = list(state)
     if path.name == "slab_pallas" and np.shape(like[0])[1] == 3:
         parts = [(s[0][0:3], s[0][3:6]) + tuple(s[1:]) for s in parts]
+    if path.name in ("gslab", "gmesh") and path.st.damping == "bkt":
+        # one memory-variable array per brick, as the JAX carry holds it
+        parts = [s[:-1] + (tuple(c[0] for c in s[-1]),) for s in parts]
+    if path.name == "gslab" and np.shape(like[0][0])[1] == 3:
+        parts = [(tuple(S[0:3] for S in s[0]), tuple(S[3:6] for S in s[0]))
+                 + tuple(s[1:]) for s in parts]
     return walk(parts, like)

@@ -356,6 +356,67 @@ def add_building_keys(root, numerical_in, fixed_base=False):
                    np.stack([np.sin(t), 0 * t, 0 * t], 1))
 
 
+# the basin case: a soft column (Vs 600 m/s) over the full depth for
+# east < BASIN_EAST_M, Vs 1200 m/s elsewhere (rows Vp, Vs, rho)
+BASIN_EAST_M = 250.0
+BASIN_SOFT = (1200.0, 600.0, 2000.0)
+BASIN_HARD = (2400.0, 1200.0, 2350.0)
+
+
+def build_basin_cvm(path, res_m=CVM_RES_M):
+    """Write the basin case's CVM etree (the box's domain, octants of
+    edge res_m): BASIN_SOFT where an octant's centre lies east of the
+    origin by less than BASIN_EAST_M, BASIN_HARD elsewhere, at every
+    depth."""
+    import numpy as np
+
+    from .cvm import DBCtl
+    from .etree.writer import EtreeWriter
+    maxdim = max(EAST_M, NORTH_M, DEPTH_M)
+    endpoint = 1 << 31
+    ticksize = maxdim / endpoint
+    level = int(np.ceil(np.log2(maxdim / res_m)))
+    edge_ticks = endpoint >> level
+    edge_m = edge_ticks * ticksize
+    nx, ny, nz = (int(np.ceil(v / edge_m)) for v in (EAST_M, NORTH_M,
+                                                      DEPTH_M))
+    ii = np.arange(nx * ny * nz, dtype=np.int64)
+    ix, iy, iz = ii % nx, (ii // nx) % ny, ii // (nx * ny)
+    soft = (ix + 0.5) * edge_m < BASIN_EAST_M
+    mat = np.where(soft[:, None], np.asarray(BASIN_SOFT, "<f4"),
+                   np.asarray(BASIN_HARD, "<f4")).astype("<f4")
+    ctl = DBCtl(
+        create_model_name="Title:BASIN", create_author="Author:HT",
+        create_date="Date:01/01/2026", create_field_count="3",
+        create_field_names="Vp(float);Vs(float);density(float)",
+        region_origin_latitude_deg=0.0, region_origin_longitude_deg=0.0,
+        region_length_east_m=EAST_M, region_length_north_m=NORTH_M,
+        region_depth_shallow_m=0.0, region_depth_deep_m=DEPTH_M,
+        domain_endpoint_x=int(round(EAST_M / ticksize)),
+        domain_endpoint_y=int(round(NORTH_M / ticksize)),
+        domain_endpoint_z=int(round(DEPTH_M / ticksize)))
+    w = EtreeWriter(path, 12, appmeta=ctl.to_text(),
+                    asciischema="L 3 Vp float 4 0 Vs float 4 4 "
+                                "density float 4 8 ")
+    t = lambda i: (i * edge_ticks).astype(np.uint32)
+    return w.write(t(ix), t(iy), t(iz), np.full(len(ii), level, np.uint8),
+                   np.ascontiguousarray(mat).view(np.uint8).reshape(-1, 12))
+
+
+def write_basin_case(root, edge_m=62.5, steps=200, n_stations=2,
+                     damping="rayleigh", hypocenter=None):
+    """The box case over the basin CVM (build_basin_cvm) at
+    freq = four_q_freq(edge_m): the soft column meshes at edge_m and the
+    rest one level coarser, a laterally graded plan whose interface is
+    a vertical plane (gslab refuses it, gmesh takes it).  At 3.90625 m
+    the column is 64 x 256 x 128 = 2,097,152 elements and the rest 96 x
+    128 x 64 = 786,432 (2,883,584).  Returns write_box_case's paths."""
+    paths = write_box_case(root, edge_m, steps, n_stations, damping=damping,
+                           freq=four_q_freq(edge_m), hypocenter=hypocenter)
+    build_basin_cvm(paths[0])
+    return paths
+
+
 def box_simulation(root, edge_m=62.5, steps=200, n_stations=2, **case):
     """Write the box case into ``root`` and set it up: the port's
     ``Simulation`` (mesh, tables, source forces, stations).  ``case``:

@@ -3,11 +3,14 @@ checkpoints, restart, source streaming) on the slab and sharded paths.
 
 Counterpart of ``hercules_tpu/parallel/driver.py``; the JAX names are
 kept (``_localize``, ``_station_plan``, ``SlabXLAPath``,
-``SlabPallasPath``, ``ShardedPath``, ``choose_path``, ``run_multichip``)
-and so are the path names, which checkpoints store: "slab" (the plain
-slab step), "slab_pallas" (a step kernel per fragment: K1, K2 or K4)
-and "sharded" (the unstructured partition).  The graded paths "gslab"
-and "gmesh" are not ported yet (ROADMAP Queue 1, item 8b).
+``SlabPallasPath``, ``GslabPath``, ``GMeshPath``, ``ShardedPath``,
+``choose_path``, ``run_multichip``) and so are the path names, which
+checkpoints store: "slab" (the plain slab step), "slab_pallas" (a step
+kernel per fragment: K1, K2 or K4), "gslab" (the depth-graded stacked
+slabs: K1, K2 or K4 per brick fragment, the plane interfaces
+reconciled by point-to-point sends), "gmesh" (any brick plan: K1 or K2
+per brick fragment, the interfaces reconciled over one allsum;
+nonlinear soil) and "sharded" (the unstructured partition).
 
 The JAX driver scans each chunk inside ``shard_map``; here a chunk is
 k steps of the path's ``step`` over every rank of its
@@ -20,13 +23,16 @@ rank receiving the forces of the sources it owns.  ``on_chunk``,
 ``on_samples`` and the taps fire at chunk boundaries
 (``sim.SimOutputs.make_mc_hook``).
 
-Path choice (``choose_path``): a mesh that is one uniform brick with an
+Path choice (``choose_path``), the JAX package's order on a TPU
+(``driver.py:787-849``): a mesh that is one uniform brick with an
 element layer per rank takes the slab decomposition -- on CUDA devices
 the kernels ("slab_pallas") in float32 and float64 alike, since the
 port's kernels take both (the JAX package's TPU rule takes the XLA slab
 for float64, ``driver.py:802-806``); on the CPU the plain step ("slab"),
-as the JAX package's CPU rule does -- and every other mesh the sharded
-path, with the reason returned.
+as the JAX package's CPU rule does -- then, on CUDA devices, "gslab",
+then "gmesh" (off the TPU the JAX package skips both, and the port
+skips them on the CPU), and every other mesh the sharded path, with the
+reason each path gave for refusing the mesh.
 """
 
 from __future__ import annotations
@@ -37,8 +43,7 @@ import torch
 from ..solver.chunking import run_chunked
 from ..utils.timers import measure
 
-PATHS = ("slab", "slab_pallas", "sharded")
-GRADED = ("gslab", "gmesh")
+PATHS = ("slab", "slab_pallas", "gslab", "gmesh", "sharded")
 
 
 # ---------------------------------------------------------------------------
@@ -87,9 +92,9 @@ def _station_plan(node_sets, st_nodes):
 
 class _PathBase:
     """What run_multichip and the taps use of a path: ``name``,
-    ``n_dev``, ``group``, ``dtype``, ``step`` (the slab or sharded step
-    object: init_state, fields, step), ``src_cols``, the station plan,
-    the global fields and the checkpoint tail."""
+    ``n_dev``, ``group``, ``dtype``, ``step`` (the path's step object:
+    init_state, step), ``src_cols``, the station plan, the global fields
+    and the checkpoint tail."""
 
     name = "?"
     # per rank (station indices, local node ids [Sr, 8], weights) or
@@ -265,7 +270,7 @@ class SlabPallasPath(SlabXLAPath):
         out = []
         for r, ((a, b), dev) in enumerate(zip(self._fields_of(u, up),
                                               self.group.devices)):
-            mod = step.mods[r]
+            mod, = step.mods[r]
             S = np.zeros((8, step.LEN), a.dtype)
             S[0:3, :a.shape[1]], S[3:6, :b.shape[1]] = a, b
             s = (_tensor(S, self.dtype, dev),)
@@ -275,6 +280,233 @@ class SlabPallasPath(SlabXLAPath):
                 s += tuple(torch.as_tensor(c, device=dev).to(dt)
                            for c, (_, dt) in zip(
                                cv, mod.state_parts(step.LEN)))
+            out.append(s)
+        return out
+
+
+class GslabPath(_PathBase):
+    """The depth-graded stacked-slab decomposition (gslab.GSlabStep: K1,
+    K2 or K4 per brick fragment; their plain versions on the CPU)."""
+
+    name = "gslab"
+    _tail_from = 1
+
+    def __init__(self, st, group, dtype, N):
+        self.st, self.group, self.dtype, self.N = st, group, dtype, N
+        self.n_dev = st.n_dev
+        self.step = self._make_step(st, group, dtype)
+
+    @staticmethod
+    def _make_step(st, group, dtype):
+        from .gslab import GSlabStep
+        return GSlabStep(st, group, dtype)
+
+    def src_cols(self):
+        return self.step.rows
+
+    def _arrays(self, state):
+        """(the per-brick arrays, the loose section's or None) of a
+        rank's state."""
+        return state[0], None
+
+    def attach_stations(self, st_nodes, st_phi):
+        """Sample each station from the first brick, and in it the first
+        rank, holding all 8 of its element's nodes (the JAX package's
+        order, driver.py:363-382); a gmesh station in the loose section
+        from rank 0's copy."""
+        st_nodes, st_phi = np.asarray(st_nodes), np.asarray(st_phi)
+        S = len(st_nodes)
+        assigned = np.zeros(S, bool)
+        parts = [[] for _ in range(self.n_dev)]
+
+        def take(r, where, node_set):
+            li, present = _localize(np.asarray(node_set), st_nodes)
+            got = present & ~assigned
+            if got.any():
+                idx = np.flatnonzero(got)
+                dev = self.group.devices[r]
+                parts[r].append((where, idx, torch.as_tensor(
+                    li[idx].astype(np.int64), device=dev),
+                    torch.as_tensor(st_phi[idx], dtype=self.dtype,
+                                    device=dev)))
+            assigned[got] = True
+
+        for b, fb in enumerate(self.st.bricks):
+            for r in range(self.n_dev):
+                take(r, b, fb.gnid_local[r])
+        if S and not assigned.all() and getattr(self.st, "NL", 0):
+            take(0, "loose", self.st.gnid_loose)
+        if S and not assigned.all():
+            missing = np.flatnonzero(~assigned)
+            raise RuntimeError(f"stations {missing.tolist()} not local to "
+                               f"any device/brick")
+        self.n_st = S
+        self._st = [None if not p else
+                    (np.concatenate([q[1] for q in p]), p) for p in parts]
+
+    def sample(self, r, state):
+        got = self._st[r] if self._st is not None else None
+        if got is None:
+            return None
+        Ss, S_l = self._arrays(state)
+        return torch.cat([
+            torch.einsum("sk,csk->sc", phi,
+                         (S_l if where == "loose" else Ss[where])[0:3][:,
+                                                                   lidx])
+            for where, _, lidx, phi in got[1]])
+
+    def u_global(self, state):
+        from .gslab import gslab_u_global
+        return gslab_u_global(self.st, [s[0] for s in state], self.N)
+
+    def up_global(self, state):
+        from .gslab import gslab_u_global
+        return gslab_u_global(self.st, [s[0] for s in state], self.N,
+                              row0=3)
+
+    def _bricks_of_fields(self, u, up):
+        """Per rank the per-brick S [8, LEN_b] (numpy) of global [N, 3]
+        fields u, u-."""
+        u, up = np.asarray(u), np.asarray(up)
+        out = []
+        for r in range(self.n_dev):
+            Ss = []
+            for fb in self.st.bricks:
+                g = fb.gnid_local[r]
+                S = np.zeros((8, fb.LEN), u.dtype)
+                S[0:3, :len(g)], S[3:6, :len(g)] = u[g].T, up[g].T
+                Ss.append(S)
+            out.append(Ss)
+        return out
+
+    def _convs(self, r, tail_flat):
+        """Rank r's per-brick memory variables from a checkpoint tail
+        (one rank-stacked array [n_dev, rows, LEN'] per brick: the
+        port's, or the JAX package's node basis of 8 or 16 rows or corner
+        basis, fitted by solver/restart.fit_conv) or at zero."""
+        from ..solver.restart import fit_conv
+        dev = self.group.devices[r]
+        out = []
+        for b, (mod, fb) in enumerate(zip(self.step.mods[r],
+                                          self.st.bricks)):
+            parts = (tail_flat[b][r],) if tail_flat else ()
+            cv = fit_conv(mod, fb.LEN, parts)
+            out.append(tuple(torch.as_tensor(c, device=dev).to(dt)
+                             for c, (_, dt) in zip(
+                                 cv, mod.state_parts(fb.LEN))))
+        return tuple(out)
+
+    def _check_conv_tail(self, tail_flat):
+        NB = len(self.st.bricks)
+        if self.st.damping != "bkt":
+            if tail_flat:
+                raise RuntimeError(f"unexpected checkpoint tail for the "
+                                   f"elastic {self.name} path")
+        elif tail_flat and (len(tail_flat) != NB or any(
+                np.shape(a)[0] != self.n_dev for a in tail_flat)):
+            raise RuntimeError(f"the {self.name} path's BKT checkpoint "
+                               f"state must be one [n_dev, rows, LEN] "
+                               f"array per brick ({NB})")
+
+    def state_from_global(self, u, up, tail_flat):
+        """The ranks' state from canonical global [N, 3] fields and a
+        checkpoint tail (empty, or per brick one rank-stacked memory
+        variable array of this path at this rank count, see _convs)."""
+        self._check_conv_tail(tail_flat)
+        out = []
+        for r, (Ss, dev) in enumerate(zip(
+                self._bricks_of_fields(u, up), self.group.devices)):
+            s = (tuple(_tensor(S, self.dtype, dev) for S in Ss),)
+            if self.st.damping == "bkt":
+                s += (self._convs(r, tail_flat),)
+            out.append(s)
+        return out
+
+
+class GMeshPath(GslabPath):
+    """The general graded decomposition (gmesh.GMeshStep: K1 or K2 per
+    brick fragment, the interfaces over one allsum, the loose section
+    replicated, nonlinear soil)."""
+
+    name = "gmesh"
+    _tail_from = 2
+
+    @staticmethod
+    def _make_step(st, group, dtype):
+        from .gmesh import GMeshStep
+        return GMeshStep(st, group, dtype)
+
+    def src_cols(self):
+        L = len(self.st.src_ids) if self.st.src_ids is not None else 0
+        return [np.arange(L)] * self.n_dev
+
+    def _arrays(self, state):
+        return state[0], state[1]
+
+    def u_global(self, state):
+        from .gmesh import gmesh_u_global
+        return gmesh_u_global(self.st, [s[0] for s in state], state[0][1],
+                              self.N)
+
+    def up_global(self, state):
+        from .gmesh import gmesh_u_global
+        return gmesh_u_global(self.st, [s[0] for s in state], state[0][1],
+                              self.N, row0=3)
+
+    def _nl_width(self):
+        """The JAX package's common plastic-state width: the largest
+        rank's count of nonlinear elements, at least 1."""
+        return max(max(len(h["idx"]) for h in self.st.nl), 1)
+
+    def tail(self, state):
+        """The checkpoint tail: the bricks' memory variables with BKT;
+        with nonlinear soil the plastic state, each rank's padded with
+        zero rows to the JAX package's common width (gmesh.py:424-428)."""
+        if self.st.nl is None:
+            return super().tail(state)
+        M = self._nl_width()
+        out = []
+        for k in range(3):
+            parts = [_host(s[2][k]) for s in state]
+            a = np.zeros((self.n_dev, M) + parts[0].shape[1:],
+                         parts[0].dtype)
+            for r, x in enumerate(parts):
+                a[r, :len(x)] = x
+            out.append(a)
+        return tuple(out)
+
+    def state_from_global(self, u, up, tail_flat):
+        """As GslabPath's, with the loose section; with nonlinear soil
+        the tail is the plastic state in the JAX package's padded layout
+        (tail) or empty."""
+        st = self.st
+        if st.nl is None:
+            self._check_conv_tail(tail_flat)
+        elif tail_flat:
+            M = self._nl_width()
+            want = [(self.n_dev, M, 8, 6), (self.n_dev, M, 8, 6),
+                    (self.n_dev, M, 8)]
+            if [tuple(np.shape(a)) for a in tail_flat] != want:
+                raise RuntimeError(f"gmesh nonlinear checkpoint state "
+                                   f"{[np.shape(a) for a in tail_flat]} "
+                                   f"does not match {want}")
+        zero = self.init_state()
+        out = []
+        for r, (Ss, dev) in enumerate(zip(
+                self._bricks_of_fields(u, up), self.group.devices)):
+            S_l = np.zeros((8, st.NL), np.asarray(u).dtype)
+            if st.NL:
+                S_l[0:3] = np.asarray(u)[st.gnid_loose].T
+                S_l[3:6] = np.asarray(up)[st.gnid_loose].T
+            s = (tuple(_tensor(S, self.dtype, dev) for S in Ss),
+                 _tensor(S_l, self.dtype, dev))
+            if st.damping == "bkt":
+                s += (self._convs(r, tail_flat),)
+            elif st.nl is not None:
+                n = len(st.nl[r]["idx"])
+                s += ((tuple(_tensor(np.asarray(a)[r, :n], self.dtype, dev)
+                             for a in tail_flat) if tail_flat
+                       else zero[r][2]),)
             out.append(s)
         return out
 
@@ -353,43 +585,67 @@ class ShardedPath(_PathBase):
 # path selection
 
 def choose_path(mesh, tables, group, src_ids=None, dtype=torch.float32,
-                prefer=None):
+                prefer=None, plans=None):
     """(path, reason): the parallel path for this mesh on ``group``'s
-    ranks, and why it is not the slab family where the mesh sent it to
-    "sharded" ("" otherwise).
+    ranks, and why each path tried before it refused the mesh ("" when
+    the first was taken).
 
-    prefer: None (the slab decomposition where the mesh is one uniform
-    brick with an element layer per rank -- the kernels on CUDA devices,
-    the plain step on the CPU -- else "sharded"), or a path name, which
-    is built or raises (a mesh the slab does not take raises
-    RuntimeError).  "gslab" and "gmesh" raise: ROADMAP item 8b."""
+    prefer: None (the JAX package's order: the slab decomposition where
+    the mesh is one uniform brick with an element layer per rank -- the
+    kernels on CUDA devices, the plain step on the CPU -- then on CUDA
+    devices "gslab" and "gmesh", else "sharded"), or a path name, which
+    is built on any device (the kernels' plain versions on the CPU) or
+    raises its table function's RuntimeError.  ``plans(legacy_axes)``: the
+    mesh's brick plan (build_plan's default floor) in that storage order
+    (the slab paths' and gslab's pinned (z, y, x), gmesh's default),
+    built here once each when not given."""
+    from ..solver.bricks import build_plan
+    from .gmesh import build_gmesh_tables
+    from .gslab import build_gslab_tables
     from .partition import shard_tables
     from .slab import build_slab_tables
 
-    if prefer in GRADED:
-        raise RuntimeError(f"mc_path={prefer!r}: the graded multi-chip "
-                           f"paths are not ported yet (ROADMAP Queue 1, "
-                           f"item 8b)")
     if prefer not in (None, *PATHS):
         raise ValueError(f"mc_path={prefer!r}; expected one of "
-                         f"{', '.join(PATHS + GRADED)}")
+                         f"{', '.join(PATHS)}")
     P = group.size
-    reason = ""
+    cuda = group.devices[0].type == "cuda"
+    if plans is None:
+        made = {}
+
+        def plans(legacy_axes):
+            if legacy_axes not in made:
+                made[legacy_axes] = build_plan(mesh,
+                                               legacy_axes=legacy_axes)
+            return made[legacy_axes]
+    reasons = []
     if prefer in (None, "slab", "slab_pallas"):
         try:
-            st = build_slab_tables(mesh, tables, P, src_ids=src_ids)
+            st = build_slab_tables(mesh, tables, P, src_ids=src_ids,
+                                   plan=plans(True))
         except RuntimeError as e:
             if prefer is not None:
                 raise
-            reason = f"no slab decomposition: {e}"
+            reasons.append(f"no slab decomposition: {e}")
         else:
-            kernels = (prefer == "slab_pallas"
-                       or (prefer is None
-                           and group.devices[0].type == "cuda"))
+            kernels = prefer == "slab_pallas" or (prefer is None and cuda)
             cls = SlabPallasPath if kernels else SlabXLAPath
             return cls(st, group, dtype, mesh.nnum), ""
+    for name, build, cls, legacy in (
+            ("gslab", build_gslab_tables, GslabPath, True),
+            ("gmesh", build_gmesh_tables, GMeshPath, False)):
+        if prefer == name or (prefer is None and cuda):
+            try:
+                st = build(mesh, tables, P, src_ids=src_ids,
+                           plan=plans(legacy))
+            except RuntimeError as e:
+                if prefer == name:
+                    raise
+                reasons.append(f"no {name}: {e}")
+            else:
+                return cls(st, group, dtype, mesh.nnum), "; ".join(reasons)
     ust = shard_tables(tables, mesh, P, src_ids=src_ids)
-    return ShardedPath(ust, group, dtype, mesh.nnum), reason
+    return ShardedPath(ust, group, dtype, mesh.nnum), "; ".join(reasons)
 
 
 # ---------------------------------------------------------------------------

@@ -2,9 +2,9 @@
 package's ``shard_map`` over a device mesh.
 
 Rank r's tensors live on ``devices[r]``.  The multi-chip paths
-(``slab.py``, ``sharded.py``) run each rank's step in turn and exchange
-through two collectives, the ones their JAX counterparts call inside
-``shard_map``:
+(``slab.py``, ``gslab.py``, ``gmesh.py``, ``sharded.py``) run each
+rank's step in turn and exchange through the collectives their JAX
+counterparts call inside ``shard_map``:
 
 - ``shift(xs, d)``: the ring ``jax.lax.ppermute`` of
   ``hercules_tpu/parallel/slab.py:538-541``: rank r receives rank
@@ -26,7 +26,8 @@ and in dependent phases (``sent``, ``phases``); ``comm_model.py``
 predicts the same counts from the tables (tests/test_torch_comm_model.py
 holds them equal).  A shift is one phase in which every rank sends its
 tensor.  An allsum is two phases: the ranks after 0 send their tensors
-to rank 0, then rank 0 sends the total to each of them.
+to rank 0, then rank 0 sends the total to each of them.  A send is one
+phase at each end, its bytes counted against the sender.
 """
 
 from __future__ import annotations
@@ -64,6 +65,13 @@ class RankGroup:
             self.sent[r] += x.numel() * x.element_size()
             self.phases[r] += 1
         return out
+
+    def send(self, x, src, dst):
+        """Rank src's tensor ``x`` copied onto rank dst's device."""
+        self.sent[src] += x.numel() * x.element_size()
+        self.phases[src] += 1
+        self.phases[dst] += 1
+        return self._move(x, dst)
 
     def allsum(self, xs):
         """The sum of the ranks' tensors, added in rank order on rank

@@ -31,8 +31,11 @@ Two steps run on the fragments:
   Q set over the whole mesh, the JAX package's ``st.bk_scal``) or K4
   (BKT with several, ``slab.py:442-451``), never K3, so that the
   algebra is the JAX slab's -- built by the port's own machinery on a
-  one-brick fragment plan (``fused_mesh.brick_step_module``).  Then the
-  JAX halo algebra in torch ops: the sources added to the kernel's
+  one-brick fragment plan (``brick_fragment``,
+  ``fused_mesh.brick_step_module``).  It is ``FragmentSteps``, which the
+  graded paths ``gslab.py`` and ``gmesh.py`` run on every brick of
+  their plans, on the slab's one brick.  Then the JAX halo algebra in
+  torch ops (``halo_exchange``): the sources added to the kernel's
   output (owning rank only), the two shared planes' forces recovered by
   linearity, F = (u+ - u) / inv_mass - mass_minusaM (u - u-) (exact:
   the update is linear; the planes are real nodes, inv_mass > 0), the
@@ -45,7 +48,7 @@ Two steps run on the fragments:
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -54,6 +57,8 @@ from ..solver.bricks import build_plan
 from ..solver.brickstep import (BrickMeta, _elem_field, _scatter_back,
                                 assemble_brick_tables, brick_force)
 from ..solver.fused_bkt import bkt_kappa_zero, detect_bkt_uniform
+from ..solver.fused_brick import pallas_geometry
+from ..solver.fused_mesh import brick_step_module
 
 
 @dataclass
@@ -90,26 +95,81 @@ class SlabTables:
     tables: object = None
 
 
-def build_slab_tables(mesh, tables, n_dev, src_ids=None) -> SlabTables:
+def split_layers(nz, n_dev):
+    """(ez_hi, ez_of, z0s) of nz element layers split over n_dev ranks:
+    ez_of [n_dev] the layers each rank owns (ez_lo or ez_lo + 1, the
+    extras on the first nz % n_dev ranks), z0s [n_dev] each rank's first
+    layer, ez_hi the largest count (the fragments' buffer holds ez_hi +
+    1 node planes).  Raises RuntimeError where a rank would get none."""
+    if nz < n_dev:
+        raise RuntimeError(f"{nz} element layers cannot feed "
+                           f"{n_dev} devices (each needs >= 1)")
+    ez_lo, r = divmod(nz, n_dev)
+    ez_of = np.array([ez_lo + (1 if d < r else 0)
+                      for d in range(n_dev)], np.int32)
+    z0s = np.array([d * ez_lo + min(d, r) for d in range(n_dev)], np.int64)
+    return ez_lo + (1 if r else 0), ez_of, z0s
+
+
+@dataclass
+class FragmentedBrick:
+    """One brick split in layers of its outermost storage axis over the
+    ranks (slab.split_layers): rank r owns ez_of[r] element layers from
+    layer z0s[r], its fragment the (ez_of[r] + 1)-plane column range
+    from b.off + z0s[r] * plane, padded to tot_local = (ez + 1) * plane
+    columns (LEN with the kernels' padding)."""
+    plane: int
+    ez: int
+    tot_local: int
+    LEN: int
+    ez_of: np.ndarray
+    z0s: np.ndarray
+    gnid_local: list = field(default_factory=list)
+
+    def frag_cols(self, r):
+        """Rank r's fragment's first column within the brick."""
+        return int(self.z0s[r]) * self.plane
+
+
+def split_bricks(plan, n_dev):
+    """FragmentedBrick of every brick of the plan over n_dev ranks;
+    RuntimeError naming the first brick with fewer element layers than
+    ranks."""
+    out = []
+    for bi, b in enumerate(plan.bricks):
+        n0, n1, n2 = b.node_shape
+        try:
+            ez, ez_of, z0s = split_layers(n0 - 1, n_dev)
+        except RuntimeError as e:
+            raise RuntimeError(f"brick {bi}: {e}") from None
+        plane = n1 * n2
+        fb = FragmentedBrick(plane=plane, ez=ez, tot_local=(ez + 1) * plane,
+                             LEN=pallas_geometry((ez + 1) * plane),
+                             ez_of=ez_of, z0s=z0s)
+        for r in range(n_dev):
+            c0 = b.off + fb.frag_cols(r)
+            fb.gnid_local.append(
+                plan.gnid_cat[c0:c0 + (int(ez_of[r]) + 1) * plane])
+        out.append(fb)
+    return out
+
+
+def build_slab_tables(mesh, tables, n_dev, src_ids=None,
+                      plan=None) -> SlabTables:
     """Split the single uniform brick into per-rank fragments along the
     z axis (the storage axes pinned to (z, y, x), as the JAX package
-    pins them for its slabs).  Raises RuntimeError unless the mesh is
-    one brick with no loose elements and at least one element layer per
-    rank."""
-    plan = build_plan(mesh, legacy_axes=True)
+    pins them for its slabs; ``plan``: that plan where the caller has
+    it).  Raises RuntimeError unless the mesh is one brick with no loose
+    elements and at least one element layer per rank."""
+    if plan is None:
+        plan = build_plan(mesh, legacy_axes=True)
     if len(plan.bricks) != 1 or len(plan.loose_eidx):
         raise RuntimeError("slab decomposition requires a single "
                            "uniform brick covering the whole mesh")
     b = plan.bricks[0]
     nzp, nyp, nxp = b.node_shape
     nz = nzp - 1
-    if nz < n_dev:
-        raise RuntimeError(f"{nz} element layers cannot feed "
-                           f"{n_dev} devices (each needs >= 1)")
-    ez_lo, r = divmod(nz, n_dev)
-    ez_hi = ez_lo + (1 if r else 0)
-    ez_of = np.array([ez_lo + (1 if d < r else 0)
-                      for d in range(n_dev)], np.int32)
+    ez_hi, ez_of, z0s = split_layers(nz, n_dev)
     plane = nyp * nxp
     tot_local = (ez_hi + 1) * plane
 
@@ -123,8 +183,7 @@ def build_slab_tables(mesh, tables, n_dev, src_ids=None) -> SlabTables:
         n_dev=n_dev, nzp=nzp, nyp=nyp, nxp=nxp, tot_local=tot_local,
         meta=local_meta, dt=tables.dt, damping=tables.damping,
         m48=tables.m48, ez_of=ez_of, plan=plan, tables=tables)
-    st.n0 = np.array([(d * ez_lo + min(d, r)) * plane
-                      for d in range(n_dev)], np.int64)
+    st.n0 = z0s * plane
 
     cs = {k: [] for k in ("c1", "c2", "c3", "c4")}
     bks = ({k: [] for k in t_host["bkt"]}
@@ -292,21 +351,65 @@ class SlabStep:
         return out
 
 
-def fragment_plan(st: SlabTables, r):
-    """Rank r's fragment as a one-brick plan: the brick's corner offsets
-    over tot_local columns, and the columns' global node ids, element
+def brick_fragment(plan, b, col0, ez, plane, tot_local):
+    """The fragment of brick ``b`` of the plan that starts at its column
+    col0 and holds ez element layers (ez + 1 node planes of ``plane``
+    columns) as a one-brick plan: the brick's corner offsets over
+    tot_local columns, and the columns' global node ids, element
     validity (the last local plane's elements zeroed: they belong to the
-    next slab) and element ids -- what ``fused_mesh.brick_step_module``
-    reads of a plan."""
-    plan = st.plan
-    plane = st.nyp * st.nxp
-    n0, ez = int(st.n0[r]), int(st.ez_of[r])
-    cut = slice(n0, n0 + (ez + 1) * plane)
+    next fragment) and element ids -- what
+    ``fused_mesh.brick_step_module`` reads of a plan."""
+    brick = plan.bricks[b]
+    cut = slice(brick.off + col0, brick.off + col0 + (ez + 1) * plane)
     evalid = plan.evalid_cat[cut].copy()
     evalid[ez * plane:] = False
-    return _FragmentPlan(bricks=[_Fragment(st.tot_local, st.meta.offs)],
-                         gnid_cat=plan.gnid_cat[cut], evalid_cat=evalid,
-                         eidx_cat=plan.eidx_cat[cut])
+    return _FragmentPlan(
+        bricks=[_Fragment(tot_local, tuple(brick.corner_offsets()))],
+        gnid_cat=plan.gnid_cat[cut], evalid_cat=evalid,
+        eidx_cat=plan.eidx_cat[cut])
+
+
+def halo_views(K, invm_row, mm_rows, zb, plane):
+    """What the halo reads of a fragment's constant table K: the
+    inv_mass row and mass_minusaM rows of its top plane and of its
+    bottom shared plane, which starts at column zb."""
+    iv, m1 = K[invm_row], K[mm_rows]
+    return ((iv[:plane], m1[:, :plane]),
+            (iv[zb:zb + plane], m1[:, zb:zb + plane]), zb)
+
+
+def halo_exchange(group, plane, views, Ss, uns):
+    """The halo of one brick split over the ranks of ``group``, after
+    each rank's kernel launch: Ss[r] rank r's state before the step
+    (rows 0:3 u, 3:6 u-), uns[r] its next-step array (rows 0:3 u+,
+    updated in place), views[r] its halo_views.  Each shared plane's
+    force is recovered by linearity from the rank's own update,
+    F = (u+ - u) / inv_mass - mass_minusaM (u - u-) (exact: the update
+    is linear; the planes are real nodes, inv_mass > 0), the bottom
+    plane's force shifted down the ring and the top plane's up, and
+    both copies of each shared plane recomputed from scratch in one
+    operand order -- the lower rank's force, then the upper rank's:
+    u + (F_lower + F_upper + mass_minusaM (u - u-)) * inv_mass -- so
+    that they hold the same bits.  The ends of the ring keep the
+    kernel's update."""
+    P, pl = group.size, plane
+    f_top, f_bot = [], []
+    for S, un, ((iv_t, m1_t), (iv_b, m1_b), zb) in zip(Ss, uns, views):
+        f_top.append((un[0:3, :pl] - S[0:3, :pl]) / iv_t
+                     - m1_t * (S[0:3, :pl] - S[3:6, :pl]))
+        f_bot.append((un[0:3, zb:zb + pl] - S[0:3, zb:zb + pl]) / iv_b
+                     - m1_b * (S[0:3, zb:zb + pl] - S[3:6, zb:zb + pl]))
+    down = group.shift(f_bot, +1)
+    up_ = group.shift(f_top, -1)
+    for r, (S, un) in enumerate(zip(Ss, uns)):
+        (iv_t, m1_t), (iv_b, m1_b), zb = views[r]
+        if r > 0:
+            u, du = S[0:3, :pl], S[0:3, :pl] - S[3:6, :pl]
+            un[0:3, :pl] = u + (down[r] + f_top[r] + m1_t * du) * iv_t
+        if r < P - 1:
+            b = slice(zb, zb + pl)
+            u, du = S[0:3, b], S[0:3, b] - S[3:6, b]
+            un[0:3, b] = u + (f_bot[r] + up_[r] + m1_b * du) * iv_b
 
 
 @dataclass
@@ -336,105 +439,128 @@ def slab_kernel_tier(st: SlabTables):
     return "uniform" if st.bk_scal is not None else "corner"
 
 
-class SlabKernelStep:
-    """The kernel slab step of ``hercules_tpu/parallel/slab.py:
-    slab_pallas_step_builder`` on a RankGroup.  State per rank: (S,)
-    elastic, (S, conv) BKT, S [8, LEN] = (u, u-, 0, 0) and conv the
-    tier's memory variables (K2: node basis [6 | 12, LEN]; K4: corner
-    basis [48 | 96, LEN])."""
+class FragmentSteps:
+    """The per-rank, per-brick step modules of a fragmented plan, their
+    launches into spare buffers and their halos: what the kernel slab
+    step (SlabKernelStep, one brick) and the graded steps
+    (gslab.GSlabStep, gmesh.GMeshStep) share.  ``mods[r][b]`` is rank r's
+    module for brick b, ``tier`` "elastic" (K1), "uniform" (K2) or
+    "corner" (K4)."""
 
-    def __init__(self, st: SlabTables, group, dtype):
-        from ..solver.fused_mesh import brick_step_module
-        self.st, self.group, self.dtype = st, group, dtype
-        self.tier = slab_kernel_tier(st)
-        self.plane = st.nyp * st.nxp
-        tier = None if self.tier == "elastic" else self.tier
+    def _build_modules(self, plan, bricks, tables, group, dtype, tier,
+                       masked=None):
+        self.group, self.dtype, self.tier = group, dtype, tier
+        self.bricks = bricks
+        kt = None if tier == "elastic" else tier
         # K layout: elastic (c1, c2, beta, mm x 3, inv_mass, 0); BKT
         # (mm x 3, inv_mass, ...)
-        self.invm_row, self.mm_rows = ((6, slice(3, 6))
-                                       if self.tier == "elastic"
+        self.invm_row, self.mm_rows = ((6, slice(3, 6)) if tier == "elastic"
                                        else (3, slice(0, 3)))
-        self.mods, self.views, self.src = [], [], []
-        pl = self.plane
+        self.mods, self.views = [], []
         for r, dev in enumerate(group.devices):
-            mod, self.LEN = brick_step_module(fragment_plan(st, r), 0,
-                                              st.tables, dtype, dev,
-                                              tier=tier)
-            self.mods.append(mod)
-            K = mod.K
-            zb = int(st.ez_of[r]) * pl
-            iv, m1 = K[self.invm_row], K[self.mm_rows]
-            # the two shared planes' inv_mass and mass_minusaM
-            self.views.append(((iv[:pl], m1[:, :pl]),
-                               (iv[zb:zb + pl], m1[:, zb:zb + pl]), zb))
-            lidx, _ = rank_sources(st)[r]
-            pos = torch.as_tensor(lidx, device=dev)
-            self.src.append((pos, iv[pos]))
-        self._spare = [None] * group.size
+            mods, views = [], []
+            for b, fb in enumerate(bricks):
+                kw = {} if masked is None else {"masked": masked(r, b)}
+                frag = brick_fragment(plan, b, fb.frag_cols(r),
+                                      int(fb.ez_of[r]), fb.plane,
+                                      fb.tot_local)
+                mod, LEN = brick_step_module(frag, 0, tables, dtype, dev,
+                                             tier=kt, **kw)
+                assert LEN == fb.LEN
+                mods.append(mod)
+                views.append(halo_views(mod.K, self.invm_row, self.mm_rows,
+                                        int(fb.ez_of[r]) * fb.plane,
+                                        fb.plane))
+            self.mods.append(mods)
+            self.views.append(views)
+        self._spare = [[None] * len(bricks) for _ in group.devices]
+
+    def zero_bricks(self, r):
+        """Rank r's zero (Ss, convs)."""
+        dev = self.group.devices[r]
+        Ss = tuple(torch.zeros((8, fb.LEN), dtype=self.dtype, device=dev)
+                   for fb in self.bricks)
+        convs = tuple(
+            tuple(torch.zeros(shape, dtype=dt, device=dev)
+                  for shape, dt in mod.state_parts(fb.LEN))
+            for mod, fb in zip(self.mods[r], self.bricks)) \
+            if self.tier != "elastic" else ()
+        return Ss, convs
+
+    def launch(self, r, b, S, conv):
+        """One launch of rank r's brick-b kernel from (S, conv) into the
+        spare buffers: (S', conv')."""
+        spare = self._spare[r][b]
+        if spare is None or spare[0] is S:
+            spare = (torch.empty_like(S),) + tuple(torch.empty_like(c)
+                                                   for c in conv)
+        mod = self.mods[r][b]
+        if not conv:
+            new = (mod(S, out=spare[0]), ())
+        else:
+            Sn, *cv = mod(S, *conv, out=spare[0], conv_out=spare[1])
+            new = (Sn, tuple(cv))
+        self._spare[r][b] = (S,) + tuple(conv)
+        return new
+
+    def add_sources(self, r, uns, src, f):
+        """Add rank r's sources (brick, local columns, rows into f) with
+        forces f [rows, 3] (dt^2 applied) into its next-step arrays as F
+        * inv_mass."""
+        for b, pos, rows in src:
+            iv = self.mods[r][b].K[self.invm_row]
+            uns[b][0:3].index_add_(1, pos, f[rows].T * iv[pos][None, :])
+
+    def halos(self, Ss, uns):
+        """The within-brick halo of every brick (halo_exchange);
+        Ss[r], uns[r]: rank r's per-brick arrays before and after its
+        launches."""
+        for b, fb in enumerate(self.bricks):
+            halo_exchange(self.group, fb.plane,
+                          [v[b] for v in self.views],
+                          [S[b] for S in Ss], [un[b] for un in uns])
+
+
+class SlabKernelStep(FragmentSteps):
+    """The kernel slab step of ``hercules_tpu/parallel/slab.py:
+    slab_pallas_step_builder`` on a RankGroup: FragmentSteps on the
+    one brick.  State per rank: (S,) elastic, (S, conv) BKT, S [8, LEN]
+    = (u, u-, 0, 0) and conv the tier's memory variables (K2: node basis
+    [6 | 12, LEN]; K4: corner basis [48 | 96, LEN])."""
+
+    def __init__(self, st: SlabTables, group, dtype):
+        self.st = st
+        fb, = split_bricks(st.plan, st.n_dev)
+        self._build_modules(st.plan, [fb], st.tables, group, dtype,
+                            slab_kernel_tier(st))
+        self.LEN = fb.LEN
+        # per rank: its sources as (brick 0, local columns, rows of srcf)
+        self.src = []
+        for (lidx, _), dev in zip(rank_sources(st), group.devices):
+            self.src.append([(0, torch.as_tensor(lidx, device=dev),
+                              torch.arange(len(lidx), device=dev))]
+                            if len(lidx) else [])
 
     def init_state(self):
         out = []
-        for mod, dev in zip(self.mods, self.group.devices):
-            S = torch.zeros((8, self.LEN), dtype=self.dtype, device=dev)
-            parts = (() if self.tier == "elastic" else
-                     tuple(torch.zeros(shape, dtype=dt, device=dev)
-                           for shape, dt in mod.state_parts(self.LEN)))
-            out.append((S,) + parts)
+        for r in range(self.group.size):
+            Ss, convs = self.zero_bricks(r)
+            out.append(Ss + (convs[0] if convs else ()))
         return out
 
     @staticmethod
     def fields(state):
         return state[0][0:3], state[0][3:6]
 
-    def _launch(self, r, state):
-        """One launch of rank r's step kernel from ``state`` into the
-        rank's spare buffers; returns the new state."""
-        spare = self._spare[r]
-        if spare is None or spare[0] is state[0]:
-            spare = tuple(torch.empty_like(x) for x in state)
-        mod = self.mods[r]
-        if len(state) == 1:
-            new = (mod(state[0], out=spare[0]),)
-        else:
-            new = tuple(mod(state[0], state[1], out=spare[0],
-                            conv_out=spare[1]))
-        self._spare[r] = state
-        return new
-
     def step(self, states, srcf, step_idx=None, fb_disp=None):
         """One step of every rank; srcf[r]: rank r's owned sources'
         forces [Lr, 3] (dt^2 applied) or None.  (``step_idx`` and
         ``fb_disp``, the sharded step's, are not used.)"""
-        P, pl = self.group.size, self.plane
-        news, f_top, f_bot = [], [], []
+        news = []
         for r, state in enumerate(states):
-            new = self._launch(r, state)
-            un = new[0]
+            S, conv = self.launch(r, 0, state[0], state[1:])
             if srcf[r] is not None:
-                pos, ivs = self.src[r]
-                un[0:3].index_add_(1, pos, srcf[r].T * ivs[None, :])
-            S = state[0]
-            (iv_t, m1_t), (iv_b, m1_b), zb = self.views[r]
-            # plane forces from the rank's own update (linearity)
-            f_top.append((un[0:3, :pl] - S[0:3, :pl]) / iv_t
-                         - m1_t * (S[0:3, :pl] - S[3:6, :pl]))
-            f_bot.append((un[0:3, zb:zb + pl] - S[0:3, zb:zb + pl]) / iv_b
-                         - m1_b * (S[0:3, zb:zb + pl] - S[3:6, zb:zb + pl]))
-            news.append(new)
-        down = self.group.shift(f_bot, +1)
-        up_ = self.group.shift(f_top, -1)
-        # replica-symmetric plane update: both copies of a shared plane
-        # recompute u+ from scratch with the same operand order (the
-        # lower rank's force, then the upper rank's)
-        for r, (state, new) in enumerate(zip(states, news)):
-            S, un = state[0], new[0]
-            (iv_t, m1_t), (iv_b, m1_b), zb = self.views[r]
-            if r > 0:
-                u, du = S[0:3, :pl], S[0:3, :pl] - S[3:6, :pl]
-                un[0:3, :pl] = u + (down[r] + f_top[r] + m1_t * du) * iv_t
-            if r < P - 1:
-                b = slice(zb, zb + pl)
-                u, du = S[0:3, b], S[0:3, b] - S[3:6, b]
-                un[0:3, b] = u + (f_bot[r] + up_[r] + m1_b * du) * iv_b
+                self.add_sources(r, [S], self.src[r], srcf[r])
+            news.append((S,) + conv)
+        self.halos([s[:1] for s in states], [n[:1] for n in news])
         return news
-

@@ -518,6 +518,20 @@ class Simulation:
     # the multi-chip path (parallel/driver.py) of the last .run() with
     # ndev > 1; solver_path_name is then "mc:<its name>"
     mc_path: object = None
+    # the mesh's brick plans by storage order (brick_plan)
+    _plans: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    def brick_plan(self, legacy_axes=False):
+        """The mesh's brick plan (solver/bricks.build_plan at its default
+        brick floor): the default storage axes, which the single-device
+        routes and gmesh read, or with legacy_axes the (z, y, x) order
+        the slab paths and gslab pin; built once per order and kept,
+        since the mesh does not change."""
+        if legacy_axes not in self._plans:
+            from .solver.bricks import build_plan
+            self._plans[legacy_axes] = build_plan(self.mesh,
+                                                  legacy_axes=legacy_axes)
+        return self._plans[legacy_axes]
 
     @classmethod
     def setup(cls, physics_in, numerical_in=None, cvmdb=None,
@@ -630,15 +644,16 @@ class Simulation:
         fixed-base buildings prescribe their base nodes' displacements.
 
         ``ndev`` > 1 runs the multi-chip pipeline (``_run_multichip``:
-        the slab or sharded path of ``parallel/`` on ``ndev`` ranks,
+        a path of ``parallel/`` on ``ndev`` ranks,
         rank r on ``devices[r]``), never a single-device route; ndev
         None reads HT_NDEV (unset: one device), or is len(devices) when
         ``devices`` is given.  ``devices`` defaults to the first ndev
         CUDA devices (RuntimeError if fewer are visible), or ndev times
         the CPU when ``device`` is the CPU; one card can hold every rank
         ([cuda:0] * ndev).  ``mc_path`` forces a path ("slab",
-        "slab_pallas", "sharded"; "gslab" and "gmesh" raise, ROADMAP
-        item 8b).  ``solver`` must then be "auto".
+        "slab_pallas", "gslab", "gmesh", "sharded"; one that does not
+        take the mesh raises its table function's reason).  ``solver`` must
+        then be "auto".
 
         ``outputs``: a SimOutputs whose taps (4-D volume, planes,
         checkpoints) fire at chunks of the gcd of their rates, or a
@@ -823,15 +838,20 @@ class Simulation:
                        on_chunk, make_outputs, rundir, restart, st_nodes,
                        st_phi, prefer, drm, on_samples, fb_ids, fb_series):
         """The loop on ``ndev`` ranks (hercules_tpu/sim.py:951-1088):
-        the path (nonlinear soil, DRM part 2 and fixed-base buildings on
-        the sharded path, partition.shard_nonlinear / shard_drm /
-        shard_fixedbase; every other mesh by driver.choose_path), the
-        stations, the checkpoint restart (a carry tail must be this
-        path's at this rank count), the taps (SimOutputs.make_mc_hook)
-        and the chunked loop (driver.run_multichip).  Records the path
-        as solver_path_name "mc:<path>" and, where the mesh or the
-        physics sent the run to "sharded", the reason."""
-        from .parallel.driver import ShardedPath, choose_path, run_multichip
+        the path (nonlinear soil alone on "gmesh" where it takes the
+        case; nonlinear soil it refuses -- geostatic loading, BKT, a
+        nonlinear element in the loose section --, DRM part 2 and
+        fixed-base buildings on the sharded path, partition.
+        shard_nonlinear / shard_drm / shard_fixedbase; every other mesh
+        by driver.choose_path), the stations, the checkpoint restart (a
+        carry tail must be this path's at this rank count), the taps
+        (SimOutputs.make_mc_hook) and the chunked loop
+        (driver.run_multichip).  Records the path as solver_path_name
+        "mc:<path>" and, where a path refused the mesh or the physics,
+        the reason."""
+        from .parallel.driver import (GMeshPath, ShardedPath, choose_path,
+                                      run_multichip)
+        from .parallel.gmesh import build_gmesh_tables
         from .parallel.partition import (shard_drm, shard_fixedbase,
                                          shard_nonlinear, shard_tables)
         from .parallel.ranks import RankGroup
@@ -853,16 +873,29 @@ class Simulation:
             ("nonlinear soil", self.nl_tables is not None),
             ("DRM part 2", drm is not None),
             ("fixed-base buildings", fb_ids is not None)) if on]
+        path, reason = None, ""
         with measure("Solver tables", devices[0]):
-            if extras:
+            if extras == ["nonlinear soil"] and prefer in (None, "gmesh"):
+                # the gmesh path runs the plastic subset pass on every
+                # rank (nonlinear.c:1544-1823 on every MPI rank), on any
+                # device (hercules_tpu/sim.py:969-991); geostatic loading
+                # and nonlinear soil with BKT fall through to "sharded"
+                try:
+                    gmt = build_gmesh_tables(
+                        self.mesh, self.tables, ndev, src_ids=self.src_ids,
+                        nl_tables=self.nl_tables, params=p,
+                        plan=self.brick_plan())
+                except RuntimeError as e:
+                    if prefer == "gmesh":
+                        raise
+                    reason = f"gmesh: {e}"
+                else:
+                    path = GMeshPath(gmt, group, dtype, self.mesh.nnum)
+            if path is None and extras:
                 # per-element plastic state, per-node DRM forces and
                 # prescribed displacements shard with the unstructured
                 # partition (nonlinear.c:1671, drm.c:2316 and
                 # buildings.c:975-1146 run on every MPI rank)
-                if prefer in ("gslab", "gmesh"):
-                    raise RuntimeError(
-                        f"mc_path={prefer!r}: the graded multi-chip paths "
-                        f"are not ported yet (ROADMAP Queue 1, item 8b)")
                 if prefer not in (None, "sharded"):
                     raise RuntimeError(
                         f"{', '.join(extras)}: multi-chip runs take the "
@@ -878,14 +911,13 @@ class Simulation:
                                    nl=nl_b, drm=drm_b, fb=fb_b,
                                    fb_series=fb_series)
                 reason = (f"{', '.join(extras)}: the sharded path"
-                          + (" (the JAX package takes gmesh first for "
-                             "nonlinear soil; gmesh is ROADMAP item 8b)"
-                             if self.nl_tables is not None else "")
+                          + (f" ({reason})" if reason else "")
                           if prefer is None else "")
-            else:
+            elif path is None:
                 path, reason = choose_path(self.mesh, self.tables, group,
                                            src_ids=self.src_ids,
-                                           dtype=dtype, prefer=prefer)
+                                           dtype=dtype, prefer=prefer,
+                                           plans=self.brick_plan)
             if st_nodes is not None and len(st_nodes):
                 path.attach_stations(st_nodes, st_phi)
         self.solver_path_reason = reason
@@ -948,7 +980,6 @@ class Simulation:
         334-363); ``drm`` is DRM part 2's bundle, ``fixed_base`` whether
         fixed-base buildings prescribe displacements.  solver="pallas"
         raises where the kernel routes do not take the case."""
-        from .solver.bricks import build_plan
         from .solver.fused_brick import plan_applies
         from .solver.fused_mesh import (drm_mesh_refusal,
                                         mesh_plan_applies,
@@ -971,7 +1002,7 @@ class Simulation:
                                 "unstructured solver")
         try:
             with measure("Solver plan"):
-                plan = build_plan(self.mesh)
+                plan = self.brick_plan()
         except RuntimeError as e:
             if solver != "auto":
                 raise

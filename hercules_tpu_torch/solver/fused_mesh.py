@@ -274,6 +274,34 @@ def drm_mesh_refusal(plan, drm):
     return plane_refusal(plan)
 
 
+def nl_subset_plans(pos, brick_of, gnids, inv_mass, dtype, device,
+                    corner0=0):
+    """(gather, scatter) per-array plans of a subset pass over the flat
+    (element, corner) entries of elements whose corners sit at columns
+    pos [n, 8] of arrays brick_of [n] (array a's columns hold the global
+    nodes gnids[a]): gather (array, columns, entries); scatter (array,
+    entries or None for all of them in order, their fixed-order sum by
+    column, inv_mass [columns, 1]) over corners [corner0:8]."""
+    f = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+    i64 = lambda x: torch.as_tensor(np.asarray(x, np.int64), device=device)
+    nc = 8 - corner0
+    flat_pos = pos[:, corner0:].ravel()
+    flat_brick = np.repeat(brick_of, nc)
+    gth, sct = [], []
+    for bi, gn in enumerate(gnids):
+        m = flat_brick == bi
+        if not m.any():
+            continue
+        loc = flat_pos[m]
+        dst = np.flatnonzero(m)
+        every = m.all()
+        gth.append((bi, i64(loc), None if every else i64(dst)))
+        invm = inv_mass[gn[np.unique(loc)]]
+        sct.append((bi, None if every else i64(dst),
+                    SegmentSum(loc, device), f(invm)[:, None]))
+    return gth, sct
+
+
 def attach_nonlinear_mesh(mesh, params, tables, nl_tables, plan,
                           dtype=torch.float32, device="cuda"):
     """Nonlinear bundle for the mesh route (pallas_mesh.py:518-662), on
@@ -320,28 +348,11 @@ def attach_nonlinear_mesh(mesh, params, tables, nl_tables, plan,
                                    f"match elem_lnid")
         return pos, brick_of
 
+    gnids = [g[b.off:b.off + b.nb] for b in plan.bricks]
+
     def subset_plans(pos, brick_of, corner0=0):
-        """(gather, scatter) per-brick plans over the flat (element,
-        corner) entries: gather (brick, columns, entries); scatter
-        (brick, entries or None for all of them in order, their
-        fixed-order sum by column, inv_mass [columns, 1]) over corners
-        [corner0:8]."""
-        nc = 8 - corner0
-        flat_pos = pos[:, corner0:].ravel()
-        flat_brick = np.repeat(brick_of, nc)
-        gth, sct = [], []
-        for bi, b in enumerate(plan.bricks):
-            m = flat_brick == bi
-            if not m.any():
-                continue
-            loc = flat_pos[m]
-            dst = np.flatnonzero(m)
-            every = m.all()
-            gth.append((bi, i64(loc), None if every else i64(dst)))
-            invm = tables.inv_mass[g[b.off + np.unique(loc)]]
-            sct.append((bi, None if every else i64(dst),
-                        SegmentSum(loc, device), f(invm)[:, None]))
-        return gth, sct
+        return nl_subset_plans(pos, brick_of, gnids, tables.inv_mass,
+                               dtype, device, corner0)
 
     pos, brick_of = corner_positions(t.eidx, cols)
     gth, sct = subset_plans(pos, brick_of)
@@ -499,6 +510,32 @@ def interface_epilogue_consts(plan, tables, src_ids, dtype, device):
     return out
 
 
+def interface_algebra(ep, u_ex, up_ex, un_ex, srcf):
+    """The index epilogue's algebra (compute_adjust, psolve.c:5936-6039)
+    on the interface entries' (u, u-, u+) [K, 3], ``ep`` the tables of
+    interface_epilogue_consts: each copy's local force recovered by
+    linearity, the group sums and the group-level sources, the dangling
+    nodes' forces distributed to their anchors, the update, and the
+    dangling nodes assigned from their anchors.  Returns u+ [K, 3] of
+    every entry."""
+    du_ex = u_ex - up_ex
+    F_ex = (un_ex - u_ex) * ep["mass_ex"] - ep["mm_ex"] * du_ex
+    tot = ep["grp_sum"](F_ex)                              # [G, 3]
+    if ep["src_grp_idx"] is not None:
+        tot.index_add_(0, ep["src_grp_idx"], srcf[ep["src_grp_rows"]])
+    if ep["D"]:
+        contrib = (tot[ep["dn_grp"]][:, None, :]
+                   * ep["dn_wgt"][:, :, None])             # [D, 4, 3]
+        tot = tot.index_add(0, ep["anc_sum"].ids,
+                            ep["anc_sum"](contrib.reshape(-1, 3)))
+    un_ex = u_ex + (tot[ep["ex_seg"]] + ep["mm_ex"] * du_ex) * ep["invm_ex"]
+    if ep["D"]:
+        u_rep = un_ex[ep["grp_first"]]
+        dnv = (u_rep[ep["dn_anc_grp"]] * ep["dn_wgt"][:, :, None]).sum(dim=1)
+        un_ex[ep["dnc_k"]] = dnv[ep["dnc_src"]]
+    return un_ex
+
+
 class MeshPallasTables:
     """Tables, per-brick step modules, the loose section, the
     reconciler, sources and stations of a multi-brick plan, on
@@ -605,16 +642,8 @@ class MeshPallasTables:
         if self.reconciler == "index":
             self.ex_gather = _Gather(ep["ex_arr"], ep["ex_loc"], NB + 1,
                                      self.K, dev)
-            for k in ("ex_seg", "grp_sum", "grp_first", "mass_ex",
-                      "invm_ex", "mm_ex"):
-                setattr(self, k, ep[k])
-            if self.D:
-                for k in ("dn_grp", "dn_anc_grp", "anc_sum", "dn_wgt",
-                          "dnc_k", "dnc_src"):
-                    setattr(self, k, ep[k])
+            self.ep = ep
         # a shared node's source is added once, by the reconciler
-        self.src_grp_idx = ep["src_grp_idx"]
-        self.src_grp_rows = ep["src_grp_rows"]
         self.src_direct = ep["src_direct"]
         self.has_src = src_ids is not None and len(src_ids) > 0
 
@@ -932,28 +961,9 @@ def make_mesh_step(mt: MeshPallasTables):
             mt.plane_rec.apply([S[0:3] for S in Ss], [S[3:6] for S in Ss],
                                Sns, srcf)
         elif mt.reconciler == "index":
-            u_ex = mt.ex_gather(Ss, 0)
-            up_ex = mt.ex_gather(Ss, 3)
-            un_ex = mt.ex_gather(Sns, 0)
-            du_ex = u_ex - up_ex
-            # recover each copy's local force by linearity
-            F_ex = (un_ex - u_ex) * mt.mass_ex - mt.mm_ex * du_ex
-            tot = mt.grp_sum(F_ex)                         # [G, 3]
-            if mt.src_grp_idx is not None:
-                tot.index_add_(0, mt.src_grp_idx,
-                               srcf[mt.src_grp_rows])
-            if mt.D:
-                contrib = (tot[mt.dn_grp][:, None, :]
-                           * mt.dn_wgt[:, :, None])        # [D, 4, 3]
-                tot = tot.index_add(0, mt.anc_sum.ids,
-                                    mt.anc_sum(contrib.reshape(-1, 3)))
-            un_ex = u_ex + (tot[mt.ex_seg] + mt.mm_ex * du_ex) \
-                * mt.invm_ex
-            if mt.D:
-                u_rep = un_ex[mt.grp_first]
-                dnv = (u_rep[mt.dn_anc_grp]
-                       * mt.dn_wgt[:, :, None]).sum(dim=1)
-                un_ex[mt.dnc_k] = dnv[mt.dnc_src]
+            un_ex = interface_algebra(mt.ep, mt.ex_gather(Ss, 0),
+                                      mt.ex_gather(Ss, 3),
+                                      mt.ex_gather(Sns, 0), srcf)
             mt.ex_gather.scatter_set(Sns, un_ex)
 
         # ---- direct (single-copy) source injection ----------------------

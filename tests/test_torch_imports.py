@@ -73,6 +73,8 @@ MODULES = ("hercules_tpu_torch", "hercules_tpu_torch.cli",
            "hercules_tpu_torch.parallel.partition",
            "hercules_tpu_torch.parallel.ranks",
            "hercules_tpu_torch.parallel.slab",
+           "hercules_tpu_torch.parallel.gslab",
+           "hercules_tpu_torch.parallel.gmesh",
            "hercules_tpu_torch.parallel.sharded",
            "hercules_tpu_torch.parallel.driver",
            "hercules_tpu_torch.parallel.comm_model")

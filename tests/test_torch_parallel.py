@@ -152,19 +152,25 @@ def _assert_mc_close(sim, state, samp, jsim, jstate, jsamp):
 
 @pytest.mark.parametrize("geostatic", [False, True])
 def test_sharded_nonlinear_matches_jax(tmp_path, geostatic):
-    """Nonlinear soil on 4 ranks (NL_LAYERS: the soft layer nonlinear):
-    the sharded path, its reason written; stations, u, the plastic
-    state and the stations' nonlinear columns against the JAX package's
-    sharded run."""
+    """Nonlinear soil on 4 ranks (NL_LAYERS: the soft layer nonlinear)
+    on the sharded path: with geostatic loading the automatic choice
+    (gmesh refuses it), its reason written; without, forced (the
+    automatic choice takes gmesh, tests/test_torch_gmesh.py); stations,
+    u, the plastic state and the stations' nonlinear columns against the
+    JAX package's sharded run."""
     paths = write_box_case(str(tmp_path), 62.5, STEPS, 5, layers=NL_LAYERS,
                            freq=NL_FREQ)
     add_nonlinear_keys(paths[2], 2000.0,
                        **(dict(geostatic_s=0.05, cushion_s=0.01)
                           if geostatic else {}))
-    got = _mc_pair(tmp_path, tmp_path, paths[1], paths[2], paths[0])
+    got = _mc_pair(tmp_path, tmp_path, paths[1], paths[2], paths[0],
+                   **({} if geostatic else {"mc_path": "sharded"}))
     sim, jsim = got[0], got[3]
-    assert "nonlinear soil" in sim.solver_path_reason
-    assert "8b" in sim.solver_path_reason
+    if geostatic:
+        assert "nonlinear soil" in sim.solver_path_reason
+        assert "gmesh: geostatic loading" in sim.solver_path_reason
+    else:
+        assert sim.solver_path_reason == ""
     _assert_mc_close(*got)
     assert sim.nl_station_extras.keys() == jsim.nl_station_extras.keys()
     # the stations' columns replay the plastic recursion on the host
@@ -216,18 +222,20 @@ def test_sharded_fixed_base_matches_jax(tmp_path):
 
 
 def test_physics_refuses_a_slab_path(tmp_path):
-    """Nonlinear soil runs on the sharded path: forcing a slab path, or
-    a graded one, raises before the loop."""
+    """Nonlinear soil runs on gmesh or the sharded path: forcing a slab
+    path, or gslab, raises before the loop; forcing gmesh runs it
+    there."""
     paths = write_box_case(str(tmp_path), 62.5, STEPS, 2, layers=NL_LAYERS,
                            freq=NL_FREQ)
     add_nonlinear_keys(paths[2], 2000.0)
     sim = Simulation.setup(paths[1], paths[2], cvmdb=paths[0])
-    with pytest.raises(RuntimeError, match="sharded path"):
-        sim.run(device="cpu", ndev=2, mc_path="slab_pallas",
-                rundir=str(tmp_path))
-    with pytest.raises(RuntimeError, match="8b"):
-        sim.run(device="cpu", ndev=2, mc_path="gmesh",
-                rundir=str(tmp_path))
+    for forced in ("slab_pallas", "gslab"):
+        with pytest.raises(RuntimeError, match="sharded path"):
+            sim.run(device="cpu", ndev=2, mc_path=forced,
+                    rundir=str(tmp_path))
+    sim.run(device="cpu", ndev=2, mc_path="gmesh", rundir=str(tmp_path),
+            total_steps=2)
+    assert sim.solver_path_name == "mc:gmesh"
 
 
 def test_seeded_state_into_both(sims):

@@ -261,11 +261,13 @@ def test_auto_runs_unstructured_where_build_plan_raises(sims, monkeypatch):
     samples are run_solver's."""
     from hercules_tpu_torch.solver import bricks
 
-    def no_plan(mesh):
+    def no_plan(mesh, **kw):
         raise RuntimeError("no brick decomposition")
 
     sim, _ = sims("graded")
     monkeypatch.setattr(bricks, "build_plan", no_plan)
+    # the plan an earlier run kept (Simulation.brick_plan) is set aside
+    monkeypatch.setattr(sim, "_plans", {})
     (u, _, conv), samp = sim.run(device="cpu", total_steps=STEPS)
     assert sim.solver_path_name == "unstructured"
     assert u.shape == (sim.mesh.nnum, 3) and conv is None

@@ -136,6 +136,28 @@ JSON line {"phase": ...}:
               CUDA graph, the kernels' device time and bound, the host's
               share); comm_model's predictions and plan_scaling_report
               for 2, 4 and 8 cards (labelled predictions).
+   multiprocess -- the multi-process launcher (parallel/multihost.py,
+              ROADMAP Queue 1, item 8c) as 2 processes on the one card
+              over gloo (multihost.spawn; each child given 300 s, any
+              child's failure fails the phase): the O(shard) slab
+              pipeline on fixture (a) at 2^20 (each process meshes and
+              tabulates only its block), Rayleigh 400 steps (K1) and one
+              Q set 200 steps (K2) in both types, each child's counter
+              reading steps x local ranks and nothing else, float32
+              within 1e-2 of float64; the 62.5 m boxes (K1, K2, K4), 40
+              float64 steps, every state array bit-identical to the
+              one-process run at P = 2 (main with two local ranks) and
+              within 2e-13 of max|u| of the plain slab step; the gather
+              chain on GRADED_LAYERS (gslab) and the basin (gmesh) at
+              7.8125 m, 100 float64 steps, bit-identical to the
+              one-process path at P = 2; the 2-process step at 2^20 in
+              float32 beside the one-process step (per step over the
+              loop and after its first chunk, the exchanges' share), its
+              bytes and phases per step equal to comm_model.slab_comm's,
+              each process's meshing and tables seconds.  With 2 or
+              more cards, nccl_check: the 62.5 m boxes over NCCL, a card
+              per process, bit for bit; on one card a line says NCCL
+              was not run.
 2. k1      -- brick_step (K1) against brick_step_plain on the card: the
               2048-element box and the four-layer Rayleigh box at
               62.5 m (one brick, 2048 elements with four different c1,
@@ -1572,6 +1594,318 @@ def multigpu_graded_phase(dev, work, counters, timed, lone, graph_ms):
     return launches
 
 
+def nccl_check(cases, steps, work, timeout, count=None):
+    """The 62.5 m slab boxes of phase multiprocess (Rayleigh: K1, one Q
+    set: K2, four Q sets: K4; float64) in 2 processes over NCCL, each on
+    a card of its own, held bit for bit against one process with two
+    local ranks on two cards (``multihost.main``, a RankGroup).  Needs 2
+    cards.  ``count(report, {kernel: launches})`` checks each child's
+    launches.  Returns the phase's "nccl" entry."""
+    import numpy as np
+    import torch
+
+    from hercules_tpu_torch.parallel import multihost as mh
+
+    require(torch.cuda.device_count() >= 2, "NCCL needs two cards")
+    kind = {"rayleigh": "brick_step", "bkt": "bkt_step",
+            "four_q": "bkt_corner_step"}
+    save = os.path.join(work, "mp_nccl")
+    t0 = time.perf_counter()
+    out = mh.spawn(2, ["--device", "cuda", "--backend", "nccl", "--dtype",
+                       "float64", "--save", save,
+                       *[a for c in cases.values() for a in c]],
+                   timeout=timeout)
+    secs = time.perf_counter() - t0
+    with open(os.path.join(LOG, "multiprocess_nccl.log"), "w") as f:
+        for k, (rc, text) in enumerate(out):
+            f.write(f"==== process {k}: rc {rc}\n{text}\n")
+    require(all(rc == 0 for rc, _ in out),
+            f"multiprocess nccl: a child failed ({[rc for rc, _ in out]}): "
+            f"{out[0][1][-1500:]} {out[1][1][-1500:]}")
+    n = 0
+    for k, (name, case) in enumerate(cases.items()):
+        one = os.path.join(work, f"mp1_nccl_{name}")
+        require(mh.main(["--device", "cuda", "--local-ranks", "2", "--dtype",
+                         "float64", "--save", one, *case]) == 0,
+                "one-process main")
+        ref = np.load(os.path.join(one, "case0_float64_p0.npz"))
+        for pid in range(2):
+            base = os.path.join(save, f"case{k}_float64_p{pid}")
+            arrs = np.load(base + ".npz")
+            with open(base + ".json") as f:
+                rep = json.load(f)
+            require(rep["ranks"] == [pid], f"nccl ranks {rep['ranks']}")
+            if count is not None:
+                count(rep, {kind[name]: steps})
+            for x in arrs.files:
+                require(np.array_equal(arrs[x], ref[x]),
+                        f"multiprocess nccl {name}: {x} differs from the "
+                        f"one-process run")
+                n += 1
+    return {"run": True, "cards": torch.cuda.device_count(),
+            "arrays_bit_identical": n, "spawn_s": secs}
+
+
+def multiprocess_phase(dev, work, edge=7.8125, steps=(400, 200), small=62.5,
+                       small_steps=40, chain_edge=7.8125, chain_steps=100,
+                       timeout=300):
+    """Phase multiprocess (ROADMAP Queue 1, item 8c): the multi-process
+    launcher (``hercules_tpu_torch.parallel.multihost``) as 2 processes
+    (``multihost.spawn``, each child given ``timeout`` seconds; a
+    child's failure fails the phase) on the one card, over gloo with
+    host copies (see the module docstring).  ``edge``, ``steps`` and the
+    rest shrink it for a rehearsal on the CPU (``dev`` the CPU: the
+    kernels' plain versions, no launch counted).  Prints one JSON line
+    and returns {kernel: launches} of the child processes' runs."""
+    import numpy as np
+    import torch
+
+    from hercules_tpu_torch.config import load_params
+    from hercules_tpu_torch.cvm import CVM
+    from hercules_tpu_torch.fixtures import (FOUR_Q_LAYERS, GRADED_LAYERS,
+                                             four_q_freq, write_basin_case,
+                                             write_box_case)
+    from hercules_tpu_torch.meshgen import generate_mesh
+    from hercules_tpu_torch.parallel import comm_model
+    from hercules_tpu_torch.parallel import multihost as mh
+    from hercules_tpu_torch.parallel.ranks import RankGroup
+    from hercules_tpu_torch.utils import roofline
+
+    cuda = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    card = roofline.card() if cuda else "cpu rehearsal"
+    res = {"card": card, "processes": 2, "transport": "gloo, host copies"}
+    launches = {}
+    kind = {"rayleigh": "brick_step", "bkt": "bkt_step",
+            "four_q": "bkt_corner_step"}
+    # the gloo runs: both processes on the one card
+    env = dict(os.environ)
+    if cuda:
+        env["CUDA_VISIBLE_DEVICES"] = str(dev.index or 0)
+
+    def spawn(tag, cases, dtypes, extra=(), env=env):
+        save = os.path.join(work, f"mp_{tag}")
+        t0 = time.perf_counter()
+        out = mh.spawn(2, ["--device", dev.type, "--dtype", ",".join(dtypes),
+                           "--save", save, *extra,
+                           *[a for c in cases for a in c]],
+                       timeout=timeout, env=env)
+        secs = time.perf_counter() - t0
+        with open(os.path.join(LOG, f"multiprocess_{tag}.log"), "w") as f:
+            for k, (rc, text) in enumerate(out):
+                f.write(f"==== process {k}: rc {rc}\n{text}\n")
+        require(all(rc == 0 for rc, _ in out),
+                f"multiprocess {tag}: a child failed "
+                f"({[rc for rc, _ in out]}): {out[0][1][-1500:]} "
+                f"{out[1][1][-1500:]}")
+        return save, secs
+
+    def load(save, k, d, pid):
+        base = os.path.join(save, f"case{k}_{d}_p{pid}")
+        with open(base + ".json") as f:
+            return dict(np.load(base + ".npz")), json.load(f)
+
+    def count(rep, want):
+        """The child's launches: ``want`` {kernel: n} on the card and
+        nothing else (none counted on the CPU)."""
+        got = rep["launches"]
+        require(got == (want if cuda else {}),
+                f"multiprocess: launches {got}, expected {want}")
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+
+    def u_global(parts, N):
+        """The global [N, 3] field from (arrays, report) of processes
+        saved with their gather maps."""
+        u = None
+        for arrs, rep in parts:
+            for r in rep["ranks"]:
+                a, g = arrs[f"r{r}_0"], arrs[f"g{r}"]
+                if u is None:
+                    u = np.zeros((N, 3), a.dtype)
+                u[g] = a[0:3, :len(g)].T
+        return u
+
+    def same(a_parts, b, what):
+        """Every array of every process's saved state in b's, bit for
+        bit; the number of arrays compared."""
+        n = 0
+        for arrs, _ in a_parts:
+            for f, x in arrs.items():
+                require(f in b and b[f].dtype == x.dtype
+                        and np.array_equal(b[f], x),
+                        f"multiprocess {what}: {f} differs from the "
+                        f"one-process run")
+                n += 1
+        return n
+
+    def one_process(tag, case, dtypes, mode="auto"):
+        """main in this process with two local ranks (a RankGroup) on
+        the card: {dtype: (arrays, report)}."""
+        save = os.path.join(work, f"mp1_{tag}")
+        require(mh.main(["--device", dev.type, "--local-ranks", "2",
+                         "--dtype", ",".join(dtypes), "--slab-step", mode,
+                         "--save", save, *case]) == 0, "one-process main")
+        return {d: load(save, 0, d, 0) for d in dtypes}
+
+    # ---- the O(shard) slab pipeline at full width -------------------
+    full = {"rayleigh": write_box_case(os.path.join(work, "mp_ray"), edge,
+                                       steps[0], 2),
+            "bkt": write_box_case(os.path.join(work, "mp_bkt"), edge,
+                                  steps[1], 2, damping="bkt")}
+    save, secs = spawn("full", list(full.values()), ("float32", "float64"))
+    res["full"] = {"spawn_s": secs, "cases": {}}
+    for k, (name, case) in enumerate(full.items()):
+        T = steps[0] if name == "rayleigh" else steps[1]
+        runs = {d: [load(save, k, d, pid) for pid in range(2)]
+                for d in ("float32", "float64")}
+        info = {"steps": T, "kernel": kind[name], "processes": []}
+        for d, parts in runs.items():
+            for arrs, rep in parts:
+                require(rep["path"] == "slab"
+                        and rep["shard_elements"] < rep["e_global"]
+                        and rep["table_columns"] < rep["n_global"],
+                        f"multiprocess {name}: a process held more than "
+                        f"its block: {rep}")
+                count(rep, {kind[name]: T * len(rep["ranks"])})
+                info["processes"].append({
+                    "dtype": d, "pid": rep["pid"],
+                    "shard_elements": rep["shard_elements"],
+                    "e_global": rep["e_global"], "mesh_s": rep["mesh_s"],
+                    "tables_s": rep["tables_s"], "loop_s": rep["loop_s"],
+                    "ms_per_step": rep["loop_s"] / T * 1e3,
+                    "ms_per_step_after_first_chunk":
+                        rep["ms_per_step_after_first_chunk"],
+                    "exchange_s": rep["exchange_s"],
+                    "exchange_wait_s": rep["exchange_wait_s"],
+                    "local_umax": rep["local_umax"]})
+        N = runs["float64"][0][1]["n_global"]
+        u32 = u_global(runs["float32"], N)
+        u64 = u_global(runs["float64"], N)
+        scale = np.abs(u64).max()
+        require(scale > 0 and np.isfinite(u32).all(), f"{name}: zero field")
+        info["f32_vs_f64"] = float(np.abs(u32 - u64).max() / scale)
+        require(info["f32_vs_f64"] <= 1e-2,
+                f"multiprocess {name}: float32 {info['f32_vs_f64']} from "
+                f"float64")
+        res["full"]["cases"][name] = info
+
+    # ---- timing: the 2-process step beside the one-process P = 2 step
+    ray = full["rayleigh"]
+    ref = one_process("full_ray", ray, ("float32",))["float32"]
+    two = [load(save, 0, "float32", pid) for pid in range(2)]
+    grid = two[0][1]["grid"]
+    model = comm_model.slab_comm_dims(grid[2], grid[1], 2, dtype_bytes=4)
+    per_step = [{"rank": r, "bytes": rep["sent"][str(r)] / steps[0],
+                 "phases": rep["phases"][str(r)] / steps[0]}
+                for _, rep in two for r in rep["ranks"]]
+    require(all(p["bytes"] == model.bytes_out and p["phases"] == model.phases
+                for p in per_step),
+            f"multiprocess: exchange {per_step} against the model "
+            f"{model.bytes_out} B, {model.phases} phases")
+    res["timing_float32"] = {
+        "card": card, "elements": two[0][1]["e_global"], "steps": steps[0],
+        # the loop, and its steps after the first of its four chunks
+        "two_process_ms_per_step": [rep["loop_s"] / steps[0] * 1e3
+                                    for _, rep in two],
+        "two_process_ms_per_step_after_first_chunk": [
+            rep["ms_per_step_after_first_chunk"] for _, rep in two],
+        "two_process_exchange_share": [rep["exchange_s"] / rep["loop_s"]
+                                       for _, rep in two],
+        "two_process_exchange_wait_share": [
+            rep["exchange_wait_s"] / rep["loop_s"] for _, rep in two],
+        "one_process_P2_ms_per_step": ref[1]["loop_s"] / steps[0] * 1e3,
+        "one_process_P2_ms_per_step_after_first_chunk":
+            ref[1]["ms_per_step_after_first_chunk"],
+        "one_process_mesh_s": ref[1]["mesh_s"],
+        "one_process_tables_s": ref[1]["tables_s"],
+        "exchange_per_step_per_rank": per_step,
+        "comm_model": {"bytes": model.bytes_out, "phases": model.phases},
+        # not a gate: the two-process run's sources come from the shards
+        "bit_identical_to_one_process": all(
+            np.array_equal(arrs[f"r{r}_0"], ref[0][f"r{r}_0"])
+            for arrs, rep in two for r in rep["ranks"])}
+
+    # ---- bit for bit against one process, 62.5 m, float64 -----------
+    small_cases = {
+        "rayleigh": write_box_case(os.path.join(work, "mp_s_ray"), small,
+                                   small_steps, 2),
+        "bkt": write_box_case(os.path.join(work, "mp_s_bkt"), small,
+                              small_steps, 2, damping="bkt"),
+        "four_q": write_box_case(os.path.join(work, "mp_s_fourq"), small,
+                                 small_steps, 2, damping="bkt",
+                                 layers=FOUR_Q_LAYERS,
+                                 freq=four_q_freq(small))}
+    save, secs = spawn("small", list(small_cases.values()), ("float64",))
+    res["small"] = {"spawn_s": secs, "steps": small_steps, "cases": {}}
+    for k, (name, case) in enumerate(small_cases.items()):
+        parts = [load(save, k, "float64", pid) for pid in range(2)]
+        for _, rep in parts:
+            count(rep, {kind[name]: small_steps * len(rep["ranks"])})
+        ref = one_process(f"s_{name}", case, ("float64",))["float64"][0]
+        n = same(parts, ref, name)
+        plain = one_process(f"s_{name}_plain", case, ("float64",),
+                            "plain")["float64"]
+        N = parts[0][1]["n_global"]
+        u, up = u_global(parts, N), u_global([plain], N)
+        scale = np.abs(up).max()
+        err = float(np.abs(u - up).max() / scale)
+        require(scale > 0 and err <= 2e-13,
+                f"multiprocess {name}: {err} of max|u| from SlabStep")
+        res["small"]["cases"][name] = {"arrays_bit_identical": n,
+                                       "vs_plain_SlabStep": err}
+
+    # ---- the gather chain: gslab and gmesh, float64 -----------------
+    chain = {"gslab": write_box_case(os.path.join(work, "mp_graded"),
+                                     chain_edge, chain_steps, 2,
+                                     layers=GRADED_LAYERS,
+                                     freq=four_q_freq(chain_edge)),
+             "gmesh": write_basin_case(os.path.join(work, "mp_basin"),
+                                       chain_edge, chain_steps, 2)}
+    save, secs = spawn("chain", list(chain.values()), ("float64",))
+    res["chain"] = {"spawn_s": secs, "steps": chain_steps, "cases": {}}
+    group1 = RankGroup([dev, dev])
+    for k, (name, (cv, ph, nu)) in enumerate(chain.items()):
+        parts = [load(save, k, "float64", pid) for pid in range(2)]
+        p = load_params(ph, nu)
+        t0 = time.perf_counter()
+        mesh = mh.dangling_in_id_order(generate_mesh(p, CVM(cv)))
+        one_save = os.path.join(work, f"mp1_chain_{name}")
+        mh.solve_mesh(0, mesh, p, group1, [torch.float64], save=one_save)
+        ref, rep1 = load(one_save, 0, "float64", 0)
+        require(rep1["path"] == name, f"multiprocess: {name} took "
+                                      f"{rep1['path']}")
+        for _, rep in parts:
+            require(rep["path"] == name, f"multiprocess chain: {rep}")
+            count(rep, {"brick_step": rep["bricks"] * chain_steps
+                        * len(rep["ranks"])})
+        res["chain"]["cases"][name] = {
+            "elements": int(mesh.lenum), "bricks": parts[0][1]["bricks"],
+            "arrays_bit_identical": same(parts, ref, name),
+            "one_process_s": time.perf_counter() - t0,
+            "one_process_ms_per_step_after_first_chunk":
+                rep1["ms_per_step_after_first_chunk"],
+            "processes": [{k_: rep[k_] for k_ in (
+                "pid", "mesh_s", "gather_s", "tables_s", "loop_s",
+                "ms_per_step_after_first_chunk", "exchange_s",
+                "exchange_wait_s")} for _, rep in parts]}
+
+    # ---- NCCL: a card for each process ------------------------------
+    if cuda and torch.cuda.device_count() >= 2:
+        res["nccl"] = nccl_check(small_cases, small_steps, work, timeout,
+                                 count)
+    else:
+        res["nccl"] = {"run": False,
+                       "why": "one card: NCCL needs a card per process"}
+        print("multiprocess: NCCL not run (one card; NCCL needs a card "
+              "per process)", flush=True)
+
+    res["launches"] = launches
+    res["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "multiprocess", **res})
+    return launches
+
+
 def main():
     import numpy as np
     import torch
@@ -1975,6 +2309,8 @@ def main():
         # ---- multigpu_graded: gslab and gmesh on ranks of one card ----
         mcg_launches = multigpu_graded_phase(dev, work, counters, timed,
                                              lone, graph_ms)
+        # ---- multiprocess: 2 processes on the card over gloo ---------
+        mp_launches = multiprocess_phase(dev, work)
 
         # ---- 2. K1 against its plain version ------------------------
         cases = []
@@ -3350,7 +3686,9 @@ def main():
             item7_launches.values())
         # and K1's, K2's and K4's on the slab fragments (phase multigpu)
         # and on the graded paths' brick fragments (multigpu_graded)
-        for k, n in list(mc_launches.items()) + list(mcg_launches.items()):
+        # and in the child processes of phase multiprocess
+        for k, n in (list(mc_launches.items()) + list(mcg_launches.items())
+                     + list(mp_launches.items())):
             total_launches[k] += n
         # K4's launches on each box of its main path (the forced box:
         # none)

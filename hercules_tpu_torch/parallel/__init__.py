@@ -1,6 +1,7 @@
-"""Multi-chip paths of the port: the slab and sharded decompositions on
-a list of ranks in one process (``ranks.RankGroup``), their driver and
-their communication model.  Counterpart of ``hercules_tpu/parallel/``;
-the graded paths (gslab, gmesh) and the multi-process shape
-(multihost, shardbuild) are not ported yet (ROADMAP Queue 1, items 8b
-and 8c).  Importing the package builds no kernel."""
+"""Multi-chip paths of the port: the slab, gslab, gmesh and sharded
+decompositions on a group of ranks (``ranks.RankGroup`` in one process,
+``ranks.DistRankGroup`` over the processes of a ``torch.distributed``
+group), their driver, their communication model, and the multi-process
+launcher (``multihost``, with the shard-local slab tables of
+``shardbuild``).  Counterpart of ``hercules_tpu/parallel/``.  Importing
+the package builds no kernel."""

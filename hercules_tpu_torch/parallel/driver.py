@@ -661,7 +661,10 @@ def run_multichip(path, src_forces, total_steps, dt, chunk=None,
     every chunk boundary (checkpoints, taps, monitor).  on_samples(s0,
     ys): consumes each chunk's sample rows (steps [s0, s0 + len)) and
     returns what to accumulate.  Returns (state, station samples [T, S,
-    3] numpy); ``state`` is the list of the ranks' states."""
+    3] numpy); ``state`` is the list of the ranks' states, None at the
+    ranks of other processes (a ``ranks.DistRankGroup``'s: this process
+    steps its local ranks, and the path's collectives cross to the
+    others)."""
     group, dtype = path.group, path.dtype
     if state is None:
         state = path.init_state()
@@ -674,21 +677,23 @@ def run_multichip(path, src_forces, total_steps, dt, chunk=None,
     n_st = path.n_st
     np_dtype = torch.empty((), dtype=dtype).numpy().dtype
 
+    loc = group.local_ranks
+
     def advance(state, s, k):
         srcf = [None] * group.size
         fb = None
         if L:
             f = np.asarray(src_forces[s:s + k]) * dt2
-            srcf = [None if not len(c) else
-                    _tensor(f[:, c], dtype, dev)
-                    for c, dev in zip(cols, group.devices)]
+            for r in loc:
+                if len(cols[r]):
+                    srcf[r] = _tensor(f[:, cols[r]], dtype, group.devices[r])
         if fb_series is not None:
             fb = [_tensor(fb_series[s:s + k], dtype, dev)
                   for dev in group.devices]
         rows = [[] for _ in range(group.size)]
         for i in range(k):
-            for r, st_r in enumerate(state):
-                y = path.sample(r, st_r)
+            for r in loc:
+                y = path.sample(r, state[r])
                 if y is not None:
                     rows[r].append(y)
             state = path.step.step(
@@ -701,7 +706,7 @@ def run_multichip(path, src_forces, total_steps, dt, chunk=None,
                 ys[:, idx] += torch.stack(rr).cpu().numpy()
         return state, ys
 
-    with measure("Solver time loop", group.devices[0]):
+    with measure("Solver time loop", group.devices[loc[0]]):
         return run_chunked(advance, state, total_steps,
                            start_step=start_step, chunk=chunk,
                            on_chunk=on_chunk, on_samples=on_samples)

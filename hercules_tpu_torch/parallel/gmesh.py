@@ -282,8 +282,10 @@ def gmesh_u_global(st: GMeshTables, Ss_ranks, S_l, N=None, row0=0):
 
 def init_nl_gmesh_state(st: GMeshTables, dtype, devices):
     """Zero plastic state of every rank: (stresses, plastic strains, ep)
-    [Enl_r, 8, 6], [Enl_r, 8, 6], [Enl_r, 8]."""
-    return [tuple(torch.zeros(shape, dtype=dtype, device=dev)
+    [Enl_r, 8, 6], [Enl_r, 8, 6], [Enl_r, 8] (None where the rank's
+    device is None: another process's rank)."""
+    return [None if dev is None else
+            tuple(torch.zeros(shape, dtype=dtype, device=dev)
                   for shape in ((n, 8, 6), (n, 8, 6), (n, 8)))
             for dev, n in zip(devices, (len(h["idx"]) for h in st.nl))]
 
@@ -304,13 +306,18 @@ class GMeshStep(FragmentSteps):
         g = plan.gnid_cat
         off_loose = plan.total_nb - st.NL
         le = plan.loose_eidx
-        eps, self.ep, self.loose, self.ent = {}, [], [], []
-        self.src, self.nl = [], []
-        for r, dev in enumerate(group.devices):
+        P = group.size
+        eps = {}
+        self.ep, self.loose, self.ent = [None] * P, [None] * P, [None] * P
+        self.src, self.src_loose = [None] * P, [None] * P
+        self.nl = [None] * P if st.nl is not None else []
+        pp, srows = st.src_loose
+        for r in group.local_ranks:
+            dev = group.devices[r]
             if dev not in eps:
                 eps[dev] = (interface_epilogue_consts(
                     plan, tables, st.src_ids, dtype, dev) if st.K else None)
-            self.ep.append(eps[dev])
+            self.ep[r] = eps[dev]
             lo = {"mm": f(tables.mass_minusaM[g[off_loose:]].T, dev),
                   "invm": f(tables.inv_mass[g[off_loose:]], dev)[None, :]}
             if st.El:
@@ -323,24 +330,21 @@ class GMeshStep(FragmentSteps):
                 lo["c"] = [f(getattr(tables, f"c{k}")[le], dev)
                            for k in range(1, 5)]
                 lo["mcat"] = f(tables.m48.T, dev)
-            self.loose.append(lo)
-            self.ent.append((
+            self.loose[r] = lo
+            self.ent[r] = (
                 [tuple(i64(a, dev) for a in st.gather[r][b])
                  for b in range(len(st.bricks))],
                 [tuple(i64(a, dev) for a in st.scatter[r][b])
                  for b in range(len(st.bricks))],
-                tuple(i64(a, dev) for a in st.loose_ent)))
-            self.src.append(
-                [(b, i64(pos, dev), i64(rows, dev))
-                 for b, pos, rows in st.src_brick[r]])
+                tuple(i64(a, dev) for a in st.loose_ent))
+            self.src[r] = [(b, i64(pos, dev), i64(rows, dev))
+                           for b, pos, rows in st.src_brick[r]]
             if st.nl is not None:
-                self.nl.append(self._nl_rank(r, dev))
-        pp, rows = st.src_loose
-        self.src_loose = [
-            None if not len(pp) else
-            (i64(pp, dev), i64(rows, dev),
-             f(tables.inv_mass[g[off_loose + pp]], dev)[:, None])
-            for dev in group.devices]
+                self.nl[r] = self._nl_rank(r, dev)
+            if len(pp):
+                self.src_loose[r] = (
+                    i64(pp, dev), i64(srows, dev),
+                    f(tables.inv_mass[g[off_loose + pp]], dev)[:, None])
 
     def _nl_rank(self, r, dev):
         """Rank r's subset-pass bundle (fused_mesh._nl_subset_pass's)."""
@@ -362,10 +366,11 @@ class GMeshStep(FragmentSteps):
                 "geostatic": False}
 
     def init_state(self):
-        out = []
+        out = [None] * self.group.size
         nls = (init_nl_gmesh_state(self.st, self.dtype, self.group.devices)
                if self.st.nl is not None else None)
-        for r, dev in enumerate(self.group.devices):
+        for r in self.group.local_ranks:
+            dev = self.group.devices[r]
             Ss, convs = self.zero_bricks(r)
             s = (Ss, torch.zeros((8, self.st.NL), dtype=self.dtype,
                                  device=dev))
@@ -373,7 +378,7 @@ class GMeshStep(FragmentSteps):
                 s += (convs,)
             elif nls is not None:
                 s += (nls[r],)
-            out.append(s)
+            out[r] = s
         return out
 
     def _loose(self, r, S_l, srcf):
@@ -400,14 +405,15 @@ class GMeshStep(FragmentSteps):
         return Sn_l
 
     def step(self, states, srcf, step_idx=0, fb_disp=None):
-        """One step of every rank; srcf[r]: all L sources' forces [L, 3]
-        (dt^2 applied) on rank r, or None.  (``fb_disp``, the sharded
-        step's, is not used.)"""
+        """One step of every local rank; srcf[r]: all L sources' forces
+        [L, 3] (dt^2 applied) on rank r, or None.  (``fb_disp``, the
+        sharded step's, is not used.)"""
         st, group = self.st, self.group
-        NB = len(st.bricks)
-        Ss = [s[0] for s in states]
-        uns, convs, nls = [], [], []
-        for r, state in enumerate(states):
+        NB, P, loc = len(st.bricks), group.size, group.local_ranks
+        Ss = [None if s is None else s[0] for s in states]
+        uns, convs, nls = [None] * P, [None] * P, [None] * P
+        for r in loc:
+            state = states[r]
             conv = state[2] if self.tier != "elastic" else ((),) * NB
             new = [self.launch(r, b, Ss[r][b], conv[b]) for b in range(NB)]
             un = [n[0] for n in new]
@@ -422,15 +428,18 @@ class GMeshStep(FragmentSteps):
                     nst = nl_state_update(nl["d"], ue, nst, nl["dt"])
                     nst = _nl_subset_pass(SimpleNamespace(nl=nl), Ss[r], un,
                                           ue, nst, step_idx)
-                nls.append(nst)
-            uns.append(un)
-            convs.append(tuple(n[1] for n in new))
+                nls[r] = nst
+            uns[r] = un
+            convs[r] = tuple(n[1] for n in new)
         self.halos(Ss, uns)
-        loose = [self._loose(r, s[1], srcf[r]) for r, s in enumerate(states)]
+        loose = [None] * P
+        for r in loc:
+            loose[r] = self._loose(r, states[r][1], srcf[r])
 
         if st.K:
-            bufs = []
-            for r, (un, S_l) in enumerate(zip(uns, (s[1] for s in states))):
+            bufs = [None] * P
+            for r in loc:
+                un, S_l = uns[r], states[r][1]
                 gat, _, lent = self.ent[r]
                 buf = un[0].new_zeros((st.K, 9))
                 for b, (rows, cols) in enumerate(gat):
@@ -441,9 +450,10 @@ class GMeshStep(FragmentSteps):
                     rows, cols = lent
                     buf[rows] = torch.cat([S_l[0:6, cols],
                                            loose[r][0:3, cols]]).T
-                bufs.append(buf)
+                bufs[r] = buf
             full = group.allsum(bufs)
-            for r, un in enumerate(uns):
+            for r in loc:
+                un = uns[r]
                 _, sca, lent = self.ent[r]
                 un_ex = interface_algebra(self.ep[r], full[r][:, 0:3],
                                           full[r][:, 3:6], full[r][:, 6:9],
@@ -455,12 +465,12 @@ class GMeshStep(FragmentSteps):
                     rows, cols = lent
                     loose[r][0:3, cols] = un_ex[rows].T
 
-        out = []
-        for r in range(group.size):
+        out = [None] * P
+        for r in loc:
             s = (tuple(uns[r]), loose[r])
             if self.tier != "elastic":
                 s += (convs[r],)
             elif self.nl:
                 s += (nls[r],)
-            out.append(s)
+            out[r] = s
         return out

@@ -161,29 +161,35 @@ class GSlabStep(FragmentSteps):
         self.st = st
         self._build_modules(st.plan, st.bricks, st.tables, group, dtype,
                             st.tier)
-        # the plane reconcilers' tables on the devices of the ranks that
-        # run an interface's algebra
+        # the plane reconcilers' tables on the devices of the local
+        # ranks that run an interface's algebra
         self.recs = {}
         for own in st.hang_own + st.same_own:
+            if not group.is_local(own[0]):
+                continue
             dev = group.devices[own[0]]
             if dev not in self.recs:
                 self.recs[dev] = PlaneReconciler.build(
                     st.plan, st.tables, dtype=dtype, device=dev)
         # per rank: the source rows it owns (its srcf's rows), and per
-        # brick (local columns, positions among those rows)
+        # local rank and brick (local columns, positions among those
+        # rows)
         self.rows = [np.unique(np.concatenate([rows for _, _, rows in s]))
                      if s else np.zeros(0, np.int64) for s in st.src]
-        self.src = [[(b, torch.as_tensor(pos, device=dev),
-                      torch.as_tensor(np.searchsorted(self.rows[r], rows),
-                                      device=dev))
-                     for b, pos, rows in st.src[r]]
-                    for r, dev in enumerate(group.devices)]
+        self.src = [None] * group.size
+        for r in group.local_ranks:
+            dev = group.devices[r]
+            self.src[r] = [
+                (b, torch.as_tensor(pos, device=dev),
+                 torch.as_tensor(np.searchsorted(self.rows[r], rows),
+                                 device=dev))
+                for b, pos, rows in st.src[r]]
 
     def init_state(self):
-        out = []
-        for r in range(self.group.size):
+        out = [None] * self.group.size
+        for r in self.group.local_ranks:
             Ss, convs = self.zero_bricks(r)
-            out.append((Ss,) if self.tier == "elastic" else (Ss, convs))
+            out[r] = (Ss,) if self.tier == "elastic" else (Ss, convs)
         return out
 
     def _plane(self, a, b, lz):
@@ -191,22 +197,22 @@ class GSlabStep(FragmentSteps):
         return a[0:3, lz * pl:(lz + 1) * pl]
 
     def step(self, states, srcf, step_idx=None, fb_disp=None):
-        """One step of every rank; srcf[r]: the forces [Lr, 3] (dt^2
-        applied) of rank r's source rows (``rows[r]``), or None.
+        """One step of every local rank; srcf[r]: the forces [Lr, 3]
+        (dt^2 applied) of rank r's source rows (``rows[r]``), or None.
         (``step_idx`` and ``fb_disp``, the sharded step's, are not
         used.)"""
         st, group = self.st, self.group
-        NB = len(st.bricks)
-        Ss = [s[0] for s in states]
-        uns, convs = [], []
-        for r, state in enumerate(states):
+        NB, P = len(st.bricks), group.size
+        Ss = [None if s is None else s[0] for s in states]
+        uns, convs = [None] * P, [None] * P
+        for r in group.local_ranks:
+            state = states[r]
             conv = state[1] if len(state) > 1 else ((),) * NB
             new = [self.launch(r, b, Ss[r][b], conv[b]) for b in range(NB)]
-            un = [n[0] for n in new]
+            uns[r] = [n[0] for n in new]
             if srcf[r] is not None:
-                self.add_sources(r, un, self.src[r], srcf[r])
-            uns.append(un)
-            convs.append(tuple(n[1] for n in new))
+                self.add_sources(r, uns[r], self.src[r], srcf[r])
+            convs[r] = tuple(n[1] for n in new)
         self.halos(Ss, uns)
 
         def triplet(r, b, lz):
@@ -217,36 +223,66 @@ class GSlabStep(FragmentSteps):
         def put(r, b, lz, v):
             self._plane(uns[r][b], b, lz).copy_(v.reshape(3, -1))
 
+        def buffer(r, b, rows):
+            """What rank r receives of brick b's plane: [rows, plane]."""
+            return torch.empty((rows, st.bricks[b].plane), dtype=self.dtype,
+                               device=group.devices[r])
+
+        # each interface: its coarse (or second) plane's triplet to the
+        # fine (or first) plane's rank, the algebra there, the result
+        # back; a process runs the parts of its own ranks
         for i, (df, lzf, dc, lzc) in enumerate(st.hang_own):
-            h = self.recs[group.devices[df]].hang[i]
-            fine = triplet(df, h.fi, lzf).view(9, h.nyf, h.nxf)
-            coarse = triplet(dc, h.ci, lzc)
+            fi, ci = st.hang[i].fi, st.hang[i].ci
+            if group.is_local(dc):
+                coarse = triplet(dc, ci, lzc)
+            elif group.is_local(df):
+                coarse = buffer(df, ci, 9)
+            else:
+                continue
             if df != dc:
                 coarse = group.send(coarse, dc, df)
-            coarse = coarse.view(9, h.nyc, h.nxc)
-            v2 = PlaneReconciler.hanging_algebra(
-                fine[0:3], fine[3:6], fine[6:9],
-                coarse[0:3], coarse[3:6], coarse[6:9], h)
-            put(df, h.fi, lzf, v2)
-            v2c = v2[:, ::2, ::2].contiguous()
+            if group.is_local(df):
+                h = self.recs[group.devices[df]].hang[i]
+                fine = triplet(df, fi, lzf).view(9, h.nyf, h.nxf)
+                coarse = coarse.view(9, h.nyc, h.nxc)
+                v2 = PlaneReconciler.hanging_algebra(
+                    fine[0:3], fine[3:6], fine[6:9],
+                    coarse[0:3], coarse[3:6], coarse[6:9], h)
+                put(df, fi, lzf, v2)
+                v2c = v2[:, ::2, ::2].contiguous()
+            else:
+                v2c = buffer(dc, ci, 3)
             if df != dc:
                 v2c = group.send(v2c, df, dc)
-            put(dc, h.ci, lzc, v2c)
+            if group.is_local(dc):
+                put(dc, ci, lzc, v2c)
 
         for i, (da, lza, db, lzb) in enumerate(st.same_own):
-            s = self.recs[group.devices[da]].same[i]
-            ta = triplet(da, s.ai, lza).view(9, s.ny, s.nx)
-            tb = triplet(db, s.bi, lzb)
+            ai, bi = st.same[i].ai, st.same[i].bi
+            if group.is_local(db):
+                tb = triplet(db, bi, lzb)
+            elif group.is_local(da):
+                tb = buffer(da, bi, 9)
+            else:
+                continue
             if da != db:
                 tb = group.send(tb, db, da)
-            tb = tb.view(9, s.ny, s.nx)
-            unv = PlaneReconciler.same_level_algebra(
-                ta[0:3], ta[3:6], ta[6:9], tb[0:3], tb[3:6], tb[6:9], s)
-            put(da, s.ai, lza, unv)
+            if group.is_local(da):
+                s = self.recs[group.devices[da]].same[i]
+                ta = triplet(da, ai, lza).view(9, s.ny, s.nx)
+                tb = tb.view(9, s.ny, s.nx)
+                unv = PlaneReconciler.same_level_algebra(
+                    ta[0:3], ta[3:6], ta[6:9], tb[0:3], tb[3:6], tb[6:9], s)
+                put(da, ai, lza, unv)
+            else:
+                unv = buffer(db, bi, 3)
             if da != db:
                 unv = group.send(unv, da, db)
-            put(db, s.bi, lzb, unv)
+            if group.is_local(db):
+                put(db, bi, lzb, unv)
 
-        if self.tier == "elastic":
-            return [(tuple(un),) for un in uns]
-        return [(tuple(un), cv) for un, cv in zip(uns, convs)]
+        out = [None] * P
+        for r in group.local_ranks:
+            out[r] = ((tuple(uns[r]),) if self.tier == "elastic"
+                      else (tuple(uns[r]), convs[r]))
+        return out

@@ -30,11 +30,14 @@ Two steps run on the fragments:
   brick's step kernel on the fragment -- K1 (elastic), K2 (BKT with one
   Q set over the whole mesh, the JAX package's ``st.bk_scal``) or K4
   (BKT with several, ``slab.py:442-451``), never K3, so that the
-  algebra is the JAX slab's -- built by the port's own machinery on a
-  one-brick fragment plan (``brick_fragment``,
-  ``fused_mesh.brick_step_module``).  It is ``FragmentSteps``, which the
-  graded paths ``gslab.py`` and ``gmesh.py`` run on every brick of
-  their plans, on the slab's one brick.  Then the JAX halo algebra in
+  algebra is the JAX slab's -- its constants packed from the tables'
+  own stacked arrays (``slab_step_module``), as the JAX kernel step
+  packs them: byte for byte the K that ``fused_mesh.brick_step_module``
+  builds on the rank's one-brick fragment plan (``brick_fragment``), so
+  that shard-built tables (``shardbuild.py``), which have no global
+  plan, drive the kernels.  It is ``FragmentSteps``, which the graded
+  paths ``gslab.py`` and ``gmesh.py`` run on every brick of their
+  plans, on the slab's one brick.  Then the JAX halo algebra in
   torch ops (``halo_exchange``): the sources added to the kernel's
   output (owning rank only), the two shared planes' forces recovered by
   linearity, F = (u+ - u) / inv_mass - mass_minusaM (u - u-) (exact:
@@ -44,6 +47,13 @@ Two steps run on the fragments:
   both copies: u + (F_lower + F_upper + mass_minusaM (u - u-)) *
   inv_mass.  The end planes of the ring keep the kernel's update.  On
   the CPU the kernels' plain versions run.
+
+Both steps build modules and state only for the rank group's
+``local_ranks`` (every rank of a ``ranks.RankGroup``; a process's own
+of a ``ranks.DistRankGroup``) and index every per-rank list by global
+rank, None at other processes' ranks; tables built with ``dev_slice``
+(or by ``shardbuild.py``) hold the stacked arrays of ranks [dev0, dev0
++ n) only.
 """
 
 from __future__ import annotations
@@ -53,11 +63,14 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..kernels.bkt_corner_step import corner_tab
 from ..solver.bricks import build_plan
 from ..solver.brickstep import (BrickMeta, _elem_field, _scatter_back,
                                 assemble_brick_tables, brick_force)
-from ..solver.fused_bkt import bkt_kappa_zero, detect_bkt_uniform
-from ..solver.fused_brick import pallas_geometry
+from ..solver.fused_bkt import (BktStep, bk_row_names, bkt_kappa_zero,
+                                detect_bkt_uniform, recursion_scalars)
+from ..solver.fused_bktq import BktCornerStep, _unique_rows, bkt_fm
+from ..solver.fused_brick import BrickStep, pallas_geometry
 from ..solver.fused_mesh import brick_step_module
 
 
@@ -75,24 +88,34 @@ class SlabTables:
     # per-rank owned layer counts; the bottom shared plane of rank r
     # starts at ez_of[r] * plane
     ez_of: np.ndarray = None
-    # stacked per-rank arrays [n_dev, ...]
+    # the stacked arrays below hold ranks [dev0, dev0 + their length)
+    # (build_slab_tables' dev_slice, shardbuild's shard-local tables)
+    dev0: int = 0
+    # stacked per-rank arrays [n_ranks, ...]
     c: dict = None
     inv_mass: np.ndarray = None
     mass_minusaM: np.ndarray = None
-    src_lidx: np.ndarray = None     # [n_dev, L]
+    src_lidx: np.ndarray = None     # [n_ranks, L]
     src_mask: np.ndarray = None
-    gnid_local: list = None         # per rank: global node ids
-    bkt: dict = None                # [n_dev, tot_local] BKT coefficients
+    gnid_local: list = None         # per rank: global node ids (None
+                                    # where the tables hold no rank)
+    bkt: dict = None                # [n_ranks, tot_local] BKT coefficients
     kmu: np.ndarray = None          # [24, 24] BKT operators
     kkappa: np.ndarray = None
     # one global BKT coefficient set -> K2 on the kernel path
     bk_scal: dict = None
-    # the brick plan and each rank's first global column (the kernel
-    # path's fragment plans)
-    plan: object = None
-    n0: np.ndarray = None
-    # the global SolverTables (the fragments' step modules read them)
-    tables: object = None
+    # per rank: 1.0 at the columns of the elements it owns
+    bkt_valid: np.ndarray = None    # [n_ranks, tot_local]
+    # whether the bulk (kappa) attenuation is off over the whole mesh
+    shear_only: bool = None
+
+    def row(self, r):
+        """Rank r's row in the stacked arrays."""
+        i = r - self.dev0
+        if not 0 <= i < len(self.inv_mass):
+            raise ValueError(f"the slab tables hold ranks [{self.dev0}, "
+                             f"{self.dev0 + len(self.inv_mass)}), not {r}")
+        return i
 
 
 def split_layers(nz, n_dev):
@@ -155,12 +178,17 @@ def split_bricks(plan, n_dev):
 
 
 def build_slab_tables(mesh, tables, n_dev, src_ids=None,
-                      plan=None) -> SlabTables:
+                      plan=None, dev_slice=None) -> SlabTables:
     """Split the single uniform brick into per-rank fragments along the
     z axis (the storage axes pinned to (z, y, x), as the JAX package
     pins them for its slabs; ``plan``: that plan where the caller has
     it).  Raises RuntimeError unless the mesh is one brick with no loose
-    elements and at least one element layer per rank."""
+    elements and at least one element layer per rank.
+
+    dev_slice: optional (d0, d1) -- the stacked per-rank arrays only for
+    ranks [d0, d1) (a process's ranks in a multi-process run), so no
+    process holds the others' tables; gnid_local stays global (it is
+    the gather map).  The tables carry d0 in ``dev0``."""
     if plan is None:
         plan = build_plan(mesh, legacy_axes=True)
     if len(plan.bricks) != 1 or len(plan.loose_eidx):
@@ -179,16 +207,17 @@ def build_slab_tables(mesh, tables, n_dev, src_ids=None,
     gm = metas[0]
     local_meta = BrickMeta(off=0, nb=tot_local,
                            S=tot_local - gm.offs[7], offs=gm.offs)
+    d0, d1 = dev_slice if dev_slice is not None else (0, n_dev)
     st = SlabTables(
         n_dev=n_dev, nzp=nzp, nyp=nyp, nxp=nxp, tot_local=tot_local,
         meta=local_meta, dt=tables.dt, damping=tables.damping,
-        m48=tables.m48, ez_of=ez_of, plan=plan, tables=tables)
-    st.n0 = z0s * plane
+        m48=tables.m48, ez_of=ez_of, dev0=d0)
+    n0s = z0s * plane
 
     cs = {k: [] for k in ("c1", "c2", "c3", "c4")}
     bks = ({k: [] for k in t_host["bkt"]}
            if tables.damping == "bkt" else None)
-    invm, m1 = [], []
+    vals, invm, m1 = [], [], []
     srcl, srcm = [], []
     L = len(src_ids) if src_ids is not None else 0
 
@@ -199,9 +228,9 @@ def build_slab_tables(mesh, tables, n_dev, src_ids=None,
         w = [(0, 0)] * (v.ndim - 1) + [(0, tot_local - v.shape[-1])]
         return np.pad(v, w)
 
-    for d in range(n_dev):
+    for d in range(d0, d1):
         ez_d = int(ez_of[d])
-        n0 = int(st.n0[d])
+        n0 = int(n0s[d])
         real = (ez_d + 1) * plane
         n1 = n0 + real
         for k in cs:
@@ -214,6 +243,9 @@ def build_slab_tables(mesh, tables, n_dev, src_ids=None,
                 v = t_host["bkt"][k][n0:n1].copy()
                 v[ez_d * plane:] = 0.0
                 bks[k].append(padded(v, real))
+            v = plan.evalid_cat[n0:n1].astype(np.float64)
+            v[ez_d * plane:] = 0.0
+            vals.append(padded(v, real))
         invm.append(padded(t_host["inv_mass"][n0:n1], real))
         m1.append(padded(t_host["mass_minusaM"][:, n0:n1], real))
         if L:
@@ -230,7 +262,7 @@ def build_slab_tables(mesh, tables, n_dev, src_ids=None,
     st.c = {k: np.stack(v) for k, v in cs.items()}
     st.inv_mass = np.stack(invm)
     st.mass_minusaM = np.stack(m1)
-    st.gnid_local = [plan.gnid_cat[int(st.n0[d]):int(st.n0[d])
+    st.gnid_local = [plan.gnid_cat[int(n0s[d]):int(n0s[d])
                                    + (int(ez_of[d]) + 1) * plane]
                      for d in range(n_dev)]
     if L:
@@ -238,12 +270,13 @@ def build_slab_tables(mesh, tables, n_dev, src_ids=None,
         st.src_mask = np.stack(srcm)
     if bks is not None:
         st.bkt = {k: np.stack(v) for k, v in bks.items()}
+        st.bkt_valid = np.stack(vals)
         st.kmu = t_host["kmu_cat"]
         st.kkappa = t_host["kkappa_cat"]
+        st.shear_only = bkt_kappa_zero(tables.bkt)
         E = len(np.asarray(tables.bkt["shear_c1"]))
         st.bk_scal = detect_bkt_uniform(
-            tables.bkt, np.arange(E), np.ones(E, bool),
-            bkt_kappa_zero(tables.bkt))
+            tables.bkt, np.arange(E), np.ones(E, bool), st.shear_only)
     return st
 
 
@@ -263,11 +296,13 @@ slab_pallas_u_global = slab_u_global
 
 def rank_sources(st: SlabTables):
     """Per rank (local columns, indices among the L sources) of the
-    sources it owns."""
-    if st.src_lidx is None:
-        return [(np.zeros(0, np.int64), np.zeros(0, np.int64))] * st.n_dev
-    return [(st.src_lidx[d][st.src_mask[d]].astype(np.int64),
-             np.flatnonzero(st.src_mask[d])) for d in range(st.n_dev)]
+    sources it owns (none at the ranks the tables do not hold)."""
+    none = (np.zeros(0, np.int64), np.zeros(0, np.int64))
+    out = [none] * st.n_dev
+    if st.src_lidx is not None:
+        for i, (sl, sm) in enumerate(zip(st.src_lidx, st.src_mask)):
+            out[st.dev0 + i] = (sl[sm].astype(np.int64), np.flatnonzero(sm))
+    return out
 
 
 class SlabStep:
@@ -280,32 +315,37 @@ class SlabStep:
         self.bkt = st.damping == "bkt"
         m = st.meta
         self.plane = st.nyp * st.nxp
-        self.tabs = []
-        for r, dev in enumerate(group.devices):
+        self.tabs = [None] * group.size
+        srcs = rank_sources(st)
+        for r in group.local_ranks:
+            dev, i = group.devices[r], st.row(r)
             f = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype,
                                           device=dev)
-            cut = lambda v: f(v[r][None, :m.S])
-            t = {"mcat": f(st.m48.T), "inv_mass": f(st.inv_mass[r])[None],
-                 "mass_minusaM": f(st.mass_minusaM[r])}
+            cut = lambda v: f(v[i][None, :m.S])
+            t = {"mcat": f(st.m48.T), "inv_mass": f(st.inv_mass[i])[None],
+                 "mass_minusaM": f(st.mass_minusaM[i])}
             if self.bkt:
                 t["bkt"] = {k: cut(v) for k, v in st.bkt.items()}
                 t["kmu_cat"] = f(st.kmu)
                 t["kkappa_cat"] = f(st.kkappa)
             else:
                 t.update({k: cut(v) for k, v in st.c.items()})
-            lidx, _ = rank_sources(st)[r]
+            lidx, _ = srcs[r]
             t["src_lidx"] = torch.as_tensor(lidx, device=dev)
-            self.tabs.append(t)
+            self.tabs[r] = t
 
     def init_state(self):
-        out = []
-        for dev in self.group.devices:
+        """The ranks' zero state (None at the ranks of other
+        processes)."""
+        out = [None] * self.group.size
+        for r in self.group.local_ranks:
+            dev = self.group.devices[r]
             z = lambda shape: torch.zeros(shape, dtype=self.dtype,
                                           device=dev)
             u = z((3, self.st.tot_local))
             conv = (tuple(z((24, self.st.meta.S)) for _ in range(4)),) \
                 if self.bkt else ()
-            out.append((u, u) + conv)
+            out[r] = (u, u) + conv
         return out
 
     @staticmethod
@@ -318,9 +358,10 @@ class SlabStep:
         forces [Lr, 3] (dt^2 applied) or None.  (``step_idx`` and
         ``fb_disp``, the sharded step's, are not used.)"""
         st, m, pl, P = self.st, self.st.meta, self.plane, self.group.size
-        forces, convs = [], []
-        for r, state in enumerate(states):
-            t = self.tabs[r]
+        loc = self.group.local_ranks
+        forces, convs = [None] * P, [None] * P
+        for r in loc:
+            state, t = states[r], self.tabs[r]
             u, up = state[0], state[1]
             ue, upe = _elem_field(u, m), _elem_field(up, m)
             fe, cv = brick_force(t, lambda v: v, ue, upe,
@@ -329,16 +370,18 @@ class SlabStep:
             _scatter_back(force, fe, m)
             if srcf[r] is not None:
                 force.index_add_(1, t["src_lidx"], srcf[r].T)
-            forces.append(force)
-            convs.append(cv)
+            forces[r], convs[r] = force, cv
         # halo exchange on the two shared node planes
         zbs = [int(st.ez_of[r]) * pl for r in range(P)]
-        f_bot = [f[:, zb:zb + pl] for f, zb in zip(forces, zbs)]
+        f_bot, f_top = [None] * P, [None] * P
+        for r in loc:
+            f_bot[r] = forces[r][:, zbs[r]:zbs[r] + pl]
+            f_top[r] = forces[r][:, :pl]
         down = self.group.shift(f_bot, +1)
-        up_ = self.group.shift([f[:, :pl] for f in forces], -1)
-        out = []
-        for r, (state, force, zb) in enumerate(zip(states, forces, zbs)):
-            t = self.tabs[r]
+        up_ = self.group.shift(f_top, -1)
+        out = [None] * P
+        for r in loc:
+            state, force, zb, t = states[r], forces[r], zbs[r], self.tabs[r]
             if r < P - 1:
                 force[:, zb:zb + pl] = f_bot[r] + up_[r]
             if r > 0:
@@ -347,7 +390,7 @@ class SlabStep:
             # increment form (see solver/step.py)
             u_next = u + (force + t["mass_minusaM"] * (u - up)) \
                 * t["inv_mass"]
-            out.append((u_next, u) + ((convs[r],) if self.bkt else ()))
+            out[r] = (u_next, u) + ((convs[r],) if self.bkt else ())
         return out
 
 
@@ -391,17 +434,20 @@ def halo_exchange(group, plane, views, Ss, uns):
     operand order -- the lower rank's force, then the upper rank's:
     u + (F_lower + F_upper + mass_minusaM (u - u-)) * inv_mass -- so
     that they hold the same bits.  The ends of the ring keep the
-    kernel's update."""
+    kernel's update.  The lists are indexed by global rank; only the
+    group's local ranks are read."""
     P, pl = group.size, plane
-    f_top, f_bot = [], []
-    for S, un, ((iv_t, m1_t), (iv_b, m1_b), zb) in zip(Ss, uns, views):
-        f_top.append((un[0:3, :pl] - S[0:3, :pl]) / iv_t
-                     - m1_t * (S[0:3, :pl] - S[3:6, :pl]))
-        f_bot.append((un[0:3, zb:zb + pl] - S[0:3, zb:zb + pl]) / iv_b
-                     - m1_b * (S[0:3, zb:zb + pl] - S[3:6, zb:zb + pl]))
+    f_top, f_bot = [None] * P, [None] * P
+    for r in group.local_ranks:
+        S, un, ((iv_t, m1_t), (iv_b, m1_b), zb) = Ss[r], uns[r], views[r]
+        f_top[r] = ((un[0:3, :pl] - S[0:3, :pl]) / iv_t
+                    - m1_t * (S[0:3, :pl] - S[3:6, :pl]))
+        f_bot[r] = ((un[0:3, zb:zb + pl] - S[0:3, zb:zb + pl]) / iv_b
+                    - m1_b * (S[0:3, zb:zb + pl] - S[3:6, zb:zb + pl]))
     down = group.shift(f_bot, +1)
     up_ = group.shift(f_top, -1)
-    for r, (S, un) in enumerate(zip(Ss, uns)):
+    for r in group.local_ranks:
+        S, un = Ss[r], uns[r]
         (iv_t, m1_t), (iv_b, m1_b), zb = views[r]
         if r > 0:
             u, du = S[0:3, :pl], S[0:3, :pl] - S[3:6, :pl]
@@ -447,33 +493,42 @@ class FragmentSteps:
     module for brick b, ``tier`` "elastic" (K1), "uniform" (K2) or
     "corner" (K4)."""
 
-    def _build_modules(self, plan, bricks, tables, group, dtype, tier,
-                       masked=None):
+    def _setup(self, bricks, group, dtype, tier):
         self.group, self.dtype, self.tier = group, dtype, tier
         self.bricks = bricks
-        kt = None if tier == "elastic" else tier
         # K layout: elastic (c1, c2, beta, mm x 3, inv_mass, 0); BKT
         # (mm x 3, inv_mass, ...)
         self.invm_row, self.mm_rows = ((6, slice(3, 6)) if tier == "elastic"
                                        else (3, slice(0, 3)))
-        self.mods, self.views = [], []
-        for r, dev in enumerate(group.devices):
-            mods, views = [], []
+        P = group.size
+        self.mods, self.views, self._spare = [None] * P, [None] * P, \
+            [None] * P
+
+    def _add_rank(self, r, mods):
+        """Rank r's step modules, one per brick, and their halo views."""
+        self.mods[r] = mods
+        self.views[r] = [halo_views(mod.K, self.invm_row, self.mm_rows,
+                                    int(fb.ez_of[r]) * fb.plane, fb.plane)
+                         for mod, fb in zip(mods, self.bricks)]
+        self._spare[r] = [None] * len(self.bricks)
+
+    def _build_modules(self, plan, bricks, tables, group, dtype, tier,
+                       masked=None):
+        """The local ranks' modules from the global plan and tables."""
+        self._setup(bricks, group, dtype, tier)
+        kt = None if tier == "elastic" else tier
+        for r in group.local_ranks:
+            mods = []
             for b, fb in enumerate(bricks):
                 kw = {} if masked is None else {"masked": masked(r, b)}
                 frag = brick_fragment(plan, b, fb.frag_cols(r),
                                       int(fb.ez_of[r]), fb.plane,
                                       fb.tot_local)
-                mod, LEN = brick_step_module(frag, 0, tables, dtype, dev,
-                                             tier=kt, **kw)
+                mod, LEN = brick_step_module(frag, 0, tables, dtype,
+                                             group.devices[r], tier=kt, **kw)
                 assert LEN == fb.LEN
                 mods.append(mod)
-                views.append(halo_views(mod.K, self.invm_row, self.mm_rows,
-                                        int(fb.ez_of[r]) * fb.plane,
-                                        fb.plane))
-            self.mods.append(mods)
-            self.views.append(views)
-        self._spare = [[None] * len(bricks) for _ in group.devices]
+            self._add_rank(r, mods)
 
     def zero_bricks(self, r):
         """Rank r's zero (Ss, convs)."""
@@ -513,39 +568,112 @@ class FragmentSteps:
 
     def halos(self, Ss, uns):
         """The within-brick halo of every brick (halo_exchange);
-        Ss[r], uns[r]: rank r's per-brick arrays before and after its
-        launches."""
+        Ss[r], uns[r]: local rank r's per-brick arrays before and after
+        its launches (None at other processes' ranks)."""
+        def pick(xs, b):
+            return [None if x is None else x[b] for x in xs]
         for b, fb in enumerate(self.bricks):
-            halo_exchange(self.group, fb.plane,
-                          [v[b] for v in self.views],
-                          [S[b] for S in Ss], [un[b] for un in uns])
+            halo_exchange(self.group, fb.plane, pick(self.views, b),
+                          pick(Ss, b), pick(uns, b))
+
+
+def slab_brick(st: SlabTables) -> FragmentedBrick:
+    """The slab's one brick as a FragmentedBrick (its gnid_local left
+    empty: the tables hold it)."""
+    ez, ez_of, z0s = split_layers(st.nzp - 1, st.n_dev)
+    return FragmentedBrick(plane=st.nyp * st.nxp, ez=ez,
+                           tot_local=st.tot_local,
+                           LEN=pallas_geometry(st.tot_local), ez_of=ez_of,
+                           z0s=z0s)
+
+
+def slab_step_module(st: SlabTables, r, dtype, device):
+    """Rank r's step module on its fragment (the tier of
+    slab_kernel_tier), its constants packed from the tables' own
+    stacked arrays, as the JAX kernel slab step packs them
+    (hercules_tpu/parallel/slab.py:420-466) -- so that shard-built
+    tables, which have no global plan, drive the kernels.  K is the
+    one brick_step_module builds on the rank's fragment plan, byte for
+    byte: elastic (c1, c2, beta = c3 / c1, mass_minusaM, inv_mass, 0);
+    K2 (mass_minusaM, inv_mass, element valid, 0 x 3) with the global
+    coefficient set bk_scal; K4 (mass_minusaM, inv_mass, mu_f, kappa_f,
+    the shear and kappa set indices) with the fragment's distinct
+    coefficient rows.  BKT modules carry ``evalid`` for a restart
+    (solver/restart.fit_conv)."""
+    i, n = st.row(r), st.tot_local
+    LEN = pallas_geometry(n)
+    offs = tuple(int(o) for o in st.meta.offs)
+    as_t = lambda x: None if x is None else torch.as_tensor(
+        x, dtype=dtype, device=device)
+    tier = slab_kernel_tier(st)
+    K = np.zeros((8, LEN))
+    if tier == "elastic":
+        c1, c3 = st.c["c1"][i], st.c["c3"][i]
+        K[0, :n], K[1, :n] = c1, st.c["c2"][i]
+        K[2, :n] = np.divide(c3, c1, out=np.zeros_like(c1), where=c1 != 0)
+        K[3:6, :n] = st.mass_minusaM[i]
+        K[6, :n] = st.inv_mass[i]
+        return BrickStep(as_t(K), offs)
+    K[0:3, :n] = st.mass_minusaM[i]
+    K[3, :n] = st.inv_mass[i]
+    so = st.shear_only
+    if tier == "uniform":
+        K[4, :n] = st.bkt_valid[i]
+        sc = st.bk_scal
+        mod = BktStep(as_t(K), offs, (sc["mu_f"], sc["kappa_f"]),
+                      recursion_scalars(sc, so), so)
+    else:
+        names = bk_row_names(so)
+        rows = np.zeros((len(names), LEN))
+        for j, k in enumerate(names):
+            rows[j, :n] = st.bkt[k][i]
+        K[4:6] = rows[-2:]
+        sets = []
+        for ch in range(1 if so else 2):
+            s_, inv = _unique_rows(rows[9 * ch:9 * ch + 9].T)
+            K[6 + ch] = inv
+            sets.append(s_)
+        tab = corner_tab(as_t(bkt_fm()), as_t(sets[0]),
+                         None if so else as_t(sets[1]))
+        mod = BktCornerStep(as_t(K), tab, offs, so)
+    mod.evalid = np.zeros(LEN, bool)
+    mod.evalid[:n] = st.bkt_valid[i] != 0
+    mod.node_src = mod.mixed_cols = None
+    return mod
 
 
 class SlabKernelStep(FragmentSteps):
-    """The kernel slab step of ``hercules_tpu/parallel/slab.py:
-    slab_pallas_step_builder`` on a RankGroup: FragmentSteps on the
-    one brick.  State per rank: (S,) elastic, (S, conv) BKT, S [8, LEN]
-    = (u, u-, 0, 0) and conv the tier's memory variables (K2: node basis
-    [6 | 12, LEN]; K4: corner basis [48 | 96, LEN])."""
+    """The JAX kernel slab step (``hercules_tpu/parallel/slab.py``,
+    its Pallas step at :400-466) on a rank group: FragmentSteps on the
+    one brick, each local rank's module packed from the tables' stacked
+    arrays (slab_step_module), so the tables may be global
+    (build_slab_tables) or shard-built (shardbuild.py).  State per
+    rank: (S,) elastic, (S, conv) BKT, S [8, LEN] = (u, u-, 0, 0) and
+    conv the tier's memory variables (K2: node basis [6 | 12, LEN]; K4:
+    corner basis [48 | 96, LEN])."""
 
     def __init__(self, st: SlabTables, group, dtype):
         self.st = st
-        fb, = split_bricks(st.plan, st.n_dev)
-        self._build_modules(st.plan, [fb], st.tables, group, dtype,
-                            slab_kernel_tier(st))
+        fb = slab_brick(st)
+        self._setup([fb], group, dtype, slab_kernel_tier(st))
         self.LEN = fb.LEN
-        # per rank: its sources as (brick 0, local columns, rows of srcf)
-        self.src = []
-        for (lidx, _), dev in zip(rank_sources(st), group.devices):
-            self.src.append([(0, torch.as_tensor(lidx, device=dev),
-                              torch.arange(len(lidx), device=dev))]
-                            if len(lidx) else [])
+        # per local rank: its sources as (brick 0, local columns, rows
+        # of srcf)
+        self.src = [None] * group.size
+        srcs = rank_sources(st)
+        for r in group.local_ranks:
+            dev = group.devices[r]
+            self._add_rank(r, [slab_step_module(st, r, dtype, dev)])
+            lidx = srcs[r][0]
+            self.src[r] = ([(0, torch.as_tensor(lidx, device=dev),
+                             torch.arange(len(lidx), device=dev))]
+                           if len(lidx) else [])
 
     def init_state(self):
-        out = []
-        for r in range(self.group.size):
+        out = [None] * self.group.size
+        for r in self.group.local_ranks:
             Ss, convs = self.zero_bricks(r)
-            out.append(Ss + (convs[0] if convs else ()))
+            out[r] = Ss + (convs[0] if convs else ())
         return out
 
     @staticmethod
@@ -553,14 +681,17 @@ class SlabKernelStep(FragmentSteps):
         return state[0][0:3], state[0][3:6]
 
     def step(self, states, srcf, step_idx=None, fb_disp=None):
-        """One step of every rank; srcf[r]: rank r's owned sources'
-        forces [Lr, 3] (dt^2 applied) or None.  (``step_idx`` and
-        ``fb_disp``, the sharded step's, are not used.)"""
-        news = []
-        for r, state in enumerate(states):
+        """One step of every local rank; srcf[r]: rank r's owned
+        sources' forces [Lr, 3] (dt^2 applied) or None.  (``step_idx``
+        and ``fb_disp``, the sharded step's, are not used.)"""
+        P = self.group.size
+        news = [None] * P
+        for r in self.group.local_ranks:
+            state = states[r]
             S, conv = self.launch(r, 0, state[0], state[1:])
             if srcf[r] is not None:
                 self.add_sources(r, [S], self.src[r], srcf[r])
-            news.append((S,) + conv)
-        self.halos([s[:1] for s in states], [n[:1] for n in news])
+            news[r] = (S,) + conv
+        pick = lambda xs: [None if x is None else x[:1] for x in xs]
+        self.halos(pick(states), pick(news))
         return news

@@ -77,7 +77,10 @@ MODULES = ("hercules_tpu_torch", "hercules_tpu_torch.cli",
            "hercules_tpu_torch.parallel.gmesh",
            "hercules_tpu_torch.parallel.sharded",
            "hercules_tpu_torch.parallel.driver",
-           "hercules_tpu_torch.parallel.comm_model")
+           "hercules_tpu_torch.parallel.comm_model",
+           "hercules_tpu_torch.mesh.distributed",
+           "hercules_tpu_torch.parallel.shardbuild",
+           "hercules_tpu_torch.parallel.multihost")
 
 
 def test_port_imports_no_jax(tmp_path):
@@ -107,6 +110,46 @@ def test_port_imports_no_jax(tmp_path):
         r.stderr[-3000:]
     assert "solver path: torch_plain" in \
         (tmp_path / "monitor.txt").read_text()
+
+
+_MH_CHILD = r'''
+import sys
+from hercules_tpu_torch.parallel import multihost
+pid, port = sys.argv[1:3]
+rc = multihost.main(["--coordinator", f"127.0.0.1:{port}", "--nprocs", "2",
+                     "--pid", pid, "--device", "cpu", *sys.argv[3:]])
+foreign = sorted(m for m in sys.modules if m in ("jax", "hercules_tpu")
+                 or m.startswith(("jax.", "hercules_tpu.")))
+assert rc == 0 and not foreign, foreign
+print("ok", flush=True)
+'''
+
+
+def test_multihost_children_import_no_jax(tmp_path):
+    """Both processes of a 2-process gloo run of the multi-process
+    launcher (fixture (a) at 62.5 m, 10 steps: sharded meshing, the
+    shard-local tables, the slab solve) load no module of jax or of the
+    JAX package; each child has 120 seconds."""
+    from hercules_tpu_torch.fixtures import write_box_case
+    from hercules_tpu_torch.parallel.multihost import free_port
+    paths = write_box_case(str(tmp_path), 62.5, 10, 2)
+    port = free_port()
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen([sys.executable, "-c", _MH_CHILD, str(k),
+                               str(port), *paths], cwd=tmp_path, env=env,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for k in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=120)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    assert all(p.returncode == 0 for p in procs), [o[-2000:] for o in outs]
+    assert all(o.strip().endswith("ok") for o in outs)
 
 
 def _args(device):

@@ -158,6 +158,23 @@ JSON line {"phase": ...}:
               more cards, nccl_check: the 62.5 m boxes over NCCL, a card
               per process, bit for bit; on one card a line says NCCL
               was not run.
+   tools   -- the port's tools and graft_entry (ROADMAP Queue 1,
+              items 9a-9c; tools_phase): tools/resident_bench on
+              fixture (a) at 2^20 in float32, 400 steps per K5 launch
+              (one to warm, two timed), its lines, its 3 K5 launches,
+              its state bit-identical to run_pallas_solver's chunk
+              route from the same seeded start; tools/perf_ab
+              rayleigh 100 and bkt 100 with the configs "" and
+              HT_BKT_UNIFORM=0 on the same box (built once for both
+              tools; the BKT box once more), 2 x 2 x (100 + 100) K1 or
+              K2 launches, one route and tier for both configs;
+              graft_entry.entry: a float32 step on the card, float64
+              over three steps within 1e-12 of max|u| of the CPU's;
+              graft_entry.dryrun_multichip(4), every rank on the card:
+              each leg's line and launches (K1 on legs 1-3 and 6, K2
+              on leg 4); utils/debug: make_chunk_checker as on_chunk
+              of a 62.5 m run, and a NaN at node k named k in the
+              route's layout and in the global [N, 3] field.
 2. k1      -- brick_step (K1) against brick_step_plain on the card: the
               2048-element box and the four-layer Rayleigh box at
               62.5 m (one brick, 2048 elements with four different c1,
@@ -1906,6 +1923,178 @@ def multiprocess_phase(dev, work, edge=7.8125, steps=(400, 200), small=62.5,
     return launches
 
 
+def tools_phase(dev, work, counters, elems=1_000_000, CH=400, steps=100,
+                ndry=4, debug_edge=62.5):
+    """Phase tools (ROADMAP Queue 1, items 9a-9c): the port's timing
+    tools, its graft_entry and its NaN checker on the card (see the
+    module docstring).  ``elems``, ``CH``, ``steps`` and ``ndry`` shrink
+    it for a rehearsal on the CPU (``dev`` the CPU: the plain versions,
+    no launch counted).  Prints one JSON line and returns {kernel:
+    launches} of the tools' and the dry run's runs."""
+    import numpy as np
+    import torch
+
+    from hercules_tpu_torch import graft_entry
+    from hercules_tpu_torch.fixtures import write_box_case
+    from hercules_tpu_torch.sim import Simulation
+    from hercules_tpu_torch.solver.bricks import build_plan
+    from hercules_tpu_torch.solver.fused_brick import (pallas_u_global,
+                                                       run_pallas_solver)
+    from hercules_tpu_torch.tools import perf_ab, resident_bench
+    from hercules_tpu_torch.utils import roofline
+    from hercules_tpu_torch.utils.debug import (check_state,
+                                                make_chunk_checker)
+
+    cuda = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    card = roofline.card() if cuda else "cpu rehearsal"
+    res = {"card": card}
+    launches = {}
+
+    def counted(fn):
+        """fn() with the counters read before and after (never reset:
+        the main path's counts stay whole); its lines, and the launches
+        between."""
+        before = {c.__name__: c.launches for c in counters}
+        buf = io.StringIO()
+        out = fn(buf)
+        print(buf.getvalue(), end="", flush=True)
+        got = {c.__name__: c.launches - before[c.__name__] for c in counters
+               if c.launches > before[c.__name__]}
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+        return out, buf.getvalue().splitlines(), got
+
+    def want(got, kernel, n, what):
+        if cuda:
+            require(got.get(kernel, 0) == n and set(got) == {kernel},
+                    f"{what}: launches {got}, expected {n} of {kernel}")
+
+    # ---- resident_bench: K5 on the box, CH steps per launch, 3 launches
+    t0 = time.perf_counter()
+    box = resident_bench.build(elems, "rayleigh")
+    build_s = time.perf_counter() - t0
+    rb, lines, got = counted(lambda out: resident_bench.run(
+        CH, device=dev, problem=box, out=out))
+    want(got, "brick_chunk", 3, "resident_bench")
+    plan = build_plan(box[1])
+    pt_dt = box[0].delta_t
+    (u, up), _ = run_pallas_solver(
+        plan, box[2], None, np.zeros((3 * CH, 0, 3)), 3 * CH, pt_dt,
+        dtype=torch.float32, device=dev, chunk=CH, route="chunk",
+        state=(rb["S0"],))
+    same = bool(torch.equal(rb["S"][0:3], u) and torch.equal(rb["S"][3:6],
+                                                             up))
+    require(same, "resident_bench state differs from run_pallas_solver's "
+                  "chunk route")
+    res["resident_bench"] = {
+        "elements": rb["elements"], "LEN": rb["LEN"], "chunk": CH,
+        "box_build_s": build_s, "lines": lines, "launches": got,
+        "compile_first_s": rb["compile_first_s"], "runs": rb["runs"],
+        "state_bytes": rb["state_bytes"],
+        "bytes_per_step": rb["bytes_per_step"], "bound_ms": rb["bound_ms"],
+        "bit_identical_to_run_pallas_solver": same}
+
+    # ---- perf_ab: the per-step route under two configs, two rounds
+    configs = ["", "HT_BKT_UNIFORM=0"]
+    for damping, kernel in (("rayleigh", "brick_step"), ("bkt", "bkt_step")):
+        t0 = time.perf_counter()
+        prob = box if damping == "rayleigh" else \
+            resident_bench.build(elems, damping)
+        build_s = time.perf_counter() - t0
+        ab, lines, got = counted(lambda out: perf_ab.run(
+            damping, steps, configs, device=dev, problem=prob, out=out))
+        want(got, kernel, 2 * len(configs) * 2 * steps, f"perf_ab {damping}")
+        routes = {(r["route"], r["tier"]) for r in ab.values()}
+        require(len(routes) == 1, f"perf_ab {damping}: routes {routes}")
+        res[f"perf_ab {damping}"] = {
+            "steps": steps, "configs": configs, "box_build_s": build_s,
+            "lines": lines, "launches": got,
+            "route": ab[""]["route"], "tier": ab[""]["tier"],
+            "us_per_step": {c or "(default)": r["us_per_step"]
+                            for c, r in ab.items()},
+            "eups": {c or "(default)": r["eups"] for c, r in ab.items()}}
+    del box, prob
+
+    # ---- graft_entry.entry: one step on the card; float64 against the
+    # CPU over three steps
+    fn, args = graft_entry.entry(device=dev)
+    u2, u1 = fn(*args)
+    require(bool(torch.isfinite(u2).all()) and u2.abs().max() > 0,
+            "entry step")
+    outs = {}
+    for where in (dev, torch.device("cpu")):
+        fn, (u, up, srcf) = graft_entry.entry(device=where,
+                                              dtype=torch.float64)
+        for _ in range(3):
+            u, up = fn(u, up, srcf)
+        outs[where.type] = u.cpu()
+    scale = outs["cpu"].abs().max().item()
+    err = (outs[dev.type] - outs["cpu"]).abs().max().item()
+    require(scale > 0 and err <= 1e-12 * scale,
+            f"entry float64 on {dev} against the CPU: {err} of {scale}")
+    res["entry"] = {"dtype_step": "float32", "f64_3_steps_max_abs_err": err,
+                    "f64_scale": scale, "bound": 1e-12}
+
+    # ---- graft_entry.dryrun_multichip: every rank on the one card
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        legs = graft_entry.dryrun_multichip(ndry, device=dev)
+    print(buf.getvalue(), end="", flush=True)
+    kernel_of = {"1 slab_pallas": "brick_step", "1 restart": "brick_step",
+                 "2 gslab": "brick_step", "3 gmesh": "brick_step",
+                 "4 gmesh bkt": "bkt_step", "6 gmesh nonlinear": "brick_step"}
+    for leg, r in legs.items():
+        for k, n in r["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+        if cuda and leg in kernel_of:
+            require(r["launches"].get(kernel_of[leg], 0) > 0,
+                    f"dry run leg {leg}: launches {r['launches']}")
+    res["dryrun"] = {
+        "ranks": ndry, "seconds": time.perf_counter() - t0,
+        "lines": [ln for ln in buf.getvalue().splitlines()
+                  if ln.startswith("[dryrun]")],
+        "legs": {k: {f: v for f, v in r.items() if f != "samples"}
+                 for k, r in legs.items()}}
+
+    # ---- utils.debug: the checker as on_chunk passes a healthy run; a
+    # NaN at node k raises naming k
+    paths = write_box_case(os.path.join(work, "debug"), debug_edge, 40, 2)
+    sim = Simulation.setup(paths[1], paths[2], cvmdb=paths[0])
+    seen = []
+    hook = make_chunk_checker(inner=lambda done, st: seen.append(done))
+    state, _ = sim.run(device=dev, chunk=10, on_chunk=hook)
+    require(seen == [10, 20, 30, 40], f"checker ran at {seen}")
+    caught = {}
+    plan = build_plan(sim.mesh)
+    N = sim.mesh.nnum
+    k = N // 3
+    for label, field, col in (
+            ("route layout", state[0].clone(),
+             int(np.flatnonzero(plan.gnid_cat == k)[0])),
+            ("global [N, 3]", torch.as_tensor(pallas_u_global(
+                plan, state[0], N), device=dev), k)):
+        if field.shape[0] in (3, 8):
+            field[1, col] = float("nan")
+        else:
+            field[col, 1] = float("nan")
+        try:
+            check_state((field,), where="after step 40")
+        except FloatingPointError as e:
+            caught[label] = str(e)
+        want_msg = f"non-finite displacement after step 40 at nodes [{col}]"
+        require(caught.get(label) == want_msg,
+                f"NaN check ({label}): {caught.get(label)!r}")
+    res["debug"] = {"route": sim.solver_path_name, "chunks_checked": seen,
+                    "nan_messages": caught}
+
+    res["launches"] = launches
+    res["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "tools", **res})
+    return launches
+
+
 def main():
     import numpy as np
     import torch
@@ -2311,6 +2500,8 @@ def main():
                                              lone, graph_ms)
         # ---- multiprocess: 2 processes on the card over gloo ---------
         mp_launches = multiprocess_phase(dev, work)
+        # ---- tools: the timing tools, graft_entry, the checker -----
+        tools_launches = tools_phase(dev, work, counters)
 
         # ---- 2. K1 against its plain version ------------------------
         cases = []
@@ -3686,9 +3877,11 @@ def main():
             item7_launches.values())
         # and K1's, K2's and K4's on the slab fragments (phase multigpu)
         # and on the graded paths' brick fragments (multigpu_graded)
-        # and in the child processes of phase multiprocess
+        # and in the child processes of phase multiprocess, and K1's,
+        # K2's and K5's in phase tools (the timing tools, the dry run)
         for k, n in (list(mc_launches.items()) + list(mcg_launches.items())
-                     + list(mp_launches.items())):
+                     + list(mp_launches.items())
+                     + list(tools_launches.items())):
             total_launches[k] += n
         # K4's launches on each box of its main path (the forced box:
         # none)

@@ -14,6 +14,8 @@ values on top (``write_inputs``), so it needs no reference data.
 ``GOLDEN`` is the committed converged float64 run of the uniformly fine
 (375 m) mesh on the JAX package's unstructured solver
 (``tests/goldens/loh1_fine_f64.npz``, samples [200, 3, 3]).
+``main`` regenerates it (``python -m hercules_tpu_torch.tools.loh1
+[out.npz] [--device=cpu]``; the default path is the committed file).
 ``gof_scores`` scores a run against it as
 ``tests/test_validation_loh1.py`` does: the envelope+phase GOF
 (``utils/gof.py``) of every energetic component (at least 0.1 of its
@@ -219,3 +221,36 @@ def gof_scores(samples, ref=None):
             scores[(s, c)] = float(gof_score(ref[:, s, c],
                                              np.asarray(samples)[:, s, c]))
     return scores
+
+
+def main(argv=None):
+    """Regenerate the golden: the fine 375 m mesh through ``run`` in
+    float64 on the card (``--device=cpu`` on the CPU), written with
+    ``np.savez_compressed`` to the path given, else to ``GOLDEN``; the
+    keys of hercules_tpu/tools/loh1.py:150-167."""
+    import sys
+    import tempfile
+    argv = list(sys.argv[1:] if argv is None else argv)
+    device = "cuda"
+    for a in [a for a in argv if a.startswith("--device=")]:
+        device = a.split("=", 1)[1]
+        argv.remove(a)
+    out = (argv or [GOLDEN])[0]
+    with tempfile.TemporaryDirectory(prefix="loh1_golden_") as tmp:
+        cvm = build_cvm(tmp)
+        p = make_params(tmp)
+        mesh = fine_mesh(p, cvm)
+        samples = run(mesh, p, device=device)
+    os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+    np.savez_compressed(
+        out, samples=samples, dt=DT, stations=np.array(STATIONS),
+        layers=np.array(LAYERS), src=np.array(SRC),
+        note="LOH.1 (validationtests.pdf B2) converged f64 fine-mesh "
+             "(375 m uniform) seismograms; regenerate with "
+             "python -m hercules_tpu_torch.tools.loh1")
+    print(f"golden written: {out} ({samples.shape})")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

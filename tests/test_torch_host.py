@@ -342,3 +342,62 @@ def test_nonlinear_host_parts_equal(twin, tmp_path):
             jnl.nonlinear_station_series(u8, con["h"], con, 1e-3,
                                          jcfg.material_model, rate_dep),
             "nonlinear_station_series")
+
+
+# the tool copies: the module's code after its docstring
+TOOL_COPIES = ("etree.edit", "tools.cvmtools", "tools.q4", "tools.qmesh",
+               "tools.plotmesh")
+
+
+def _after_docstring(path):
+    import ast
+    with open(path) as f:
+        text = f.read()
+    return "\n".join(text.splitlines()[ast.parse(text).body[0].end_lineno:])
+
+
+@pytest.mark.parametrize("module", TOOL_COPIES)
+def test_tool_copies_are_the_jax_code(module):
+    """etree/edit.py and tools/{cvmtools,q4,qmesh,plotmesh}.py are the
+    JAX package's files after the module docstring (which differs only
+    in naming the port's commands and whose copy it is); their relative
+    imports resolve to the port's own modules."""
+    import importlib
+    import inspect
+    mine = importlib.import_module(f"hercules_tpu_torch.{module}")
+    ref = importlib.import_module(f"hercules_tpu.{module}")
+    assert _after_docstring(inspect.getfile(mine)) == \
+        _after_docstring(inspect.getfile(ref))
+    assert "The port's copy of ``hercules_tpu/" in mine.__doc__
+    for name, v in vars(mine).items():
+        mod = getattr(v, "__module__", None) or ""
+        if mod.startswith("hercules_tpu") and name != "__builtins__":
+            assert mod.startswith("hercules_tpu_torch"), (name, mod)
+
+
+def test_tool_copies_give_the_same_output(twin, tmp_path):
+    """On the same box: the editor opens the fixture's CVM into equal
+    arrays and commits it to the same bytes; cvmtools' scancvm and
+    showdbctl print the same text; qmesh's mesh.e (the port's mesh
+    through the port's writer) is byte-equal to the JAX package's."""
+    import io
+
+    from hercules_tpu.etree.edit import EtreeEditor as JaxEditor
+    from hercules_tpu.tools import cvmtools as jcvmtools
+    from hercules_tpu_torch.etree.edit import EtreeEditor
+    from hercules_tpu_torch.tools import cvmtools
+    cv = twin.paths[0]
+    ed, jed = EtreeEditor.open(cv), JaxEditor.open(cv)
+    for name in ("x", "y", "z", "level", "payload"):
+        assert_same(getattr(ed, name), getattr(jed, name), name)
+    ed.commit(str(tmp_path / "a.e"))
+    jed.commit(str(tmp_path / "b.e"))
+    assert (tmp_path / "a.e").read_bytes() == (tmp_path / "b.e").read_bytes()
+    for fn in ("scancvm", "showdbctl"):
+        a, b = io.StringIO(), io.StringIO()
+        getattr(cvmtools, fn)(cv, out=a)
+        getattr(jcvmtools, fn)(cv, out=b)
+        assert a.getvalue() == b.getvalue(), fn
+    write_mesh_etree(str(tmp_path / "m.e"), twin.mesh)
+    jax_write_mesh(str(tmp_path / "jm.e"), twin.jmesh)
+    assert (tmp_path / "m.e").read_bytes() == (tmp_path / "jm.e").read_bytes()

@@ -80,7 +80,16 @@ MODULES = ("hercules_tpu_torch", "hercules_tpu_torch.cli",
            "hercules_tpu_torch.parallel.comm_model",
            "hercules_tpu_torch.mesh.distributed",
            "hercules_tpu_torch.parallel.shardbuild",
-           "hercules_tpu_torch.parallel.multihost")
+           "hercules_tpu_torch.parallel.multihost",
+           "hercules_tpu_torch.etree.edit",
+           "hercules_tpu_torch.utils.debug",
+           "hercules_tpu_torch.tools.cvmtools",
+           "hercules_tpu_torch.tools.q4",
+           "hercules_tpu_torch.tools.qmesh",
+           "hercules_tpu_torch.tools.plotmesh",
+           "hercules_tpu_torch.tools.resident_bench",
+           "hercules_tpu_torch.tools.perf_ab",
+           "hercules_tpu_torch.graft_entry")
 
 
 def test_port_imports_no_jax(tmp_path):
@@ -258,3 +267,19 @@ def test_entry_points_default_to_cuda(entry, small_box, monkeypatch):
             fn(plan, sim.tables)
         else:
             fn(sim.tables, plan)
+
+
+@pytest.mark.parametrize("tool", ["resident_bench", "perf_ab"])
+def test_timing_tools_default_to_cuda(tool, monkeypatch):
+    """The timing tools run on the card unless given --device=cpu: their
+    run() defaults to CUDA, and their command line without the flag
+    raises without a CUDA device before it builds anything."""
+    import importlib
+    mod = importlib.import_module(f"hercules_tpu_torch.tools.{tool}")
+    assert inspect.signature(mod.run).parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(mod, "build", lambda *a, **k: pytest.fail("built"))
+    argv = ["10", "--elems=2048"] if tool == "resident_bench" else \
+        ["rayleigh", "5", "", "--elems=2048"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main(argv)

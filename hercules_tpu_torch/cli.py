@@ -152,7 +152,7 @@ def main(argv=None):
               f"Total nodes: {sim.mesh.nnum}\n"
               f"Total dangling nodes: {len(sim.mesh.dn_ids)}\n")
 
-    with measure("Mesh Stats Print"):
+    with GLOBAL_TIMERS.span("Mesh Stats Print"):
         buf = io.StringIO()
         mesh_stats(sim.mesh, out=buf)
         mon.print(buf.getvalue())

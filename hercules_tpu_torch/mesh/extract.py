@@ -95,7 +95,7 @@ def extract_mesh(tree: Octree) -> MeshArrays:
     # — peak stays ~0.4 KB/element so 1e8+-element meshes fit one
     # host; see bench.py mesh_scale_bench)
     from .. import native
-    with TM.measure("extract: corner keys"):
+    with TM.span("extract: corner keys"):
         ck = native.corner_keys(x, y, z, e, tree.farendp)
     if ck is not None:
         # fused corner generation + far-boundary clamp + interleave
@@ -116,9 +116,9 @@ def extract_mesh(tree: Octree) -> MeshArrays:
                          np.minimum(cz, tree.farendp[2] - 1))
         del cx, cy, cz
     # unique corners in Z order -> node table; gnid = index
-    with TM.measure("extract: zorder argsort"):
+    with TM.span("extract: zorder argsort"):
         order = morton.zorder_argsort(chi, clo)
-    with TM.measure("extract: group ids"):
+    with TM.span("extract: group ids"):
         gg = native.group_ids(chi, clo, order)
     if gg is not None:
         # fused single pass: per-corner node ids + group starts (no
@@ -172,7 +172,7 @@ def extract_mesh(tree: Octree) -> MeshArrays:
 
     dn_entries = {}  # node id -> (anchor ids tuple)
     dn_direct = None  # vectorized (ids, anchors, deps) from the scan
-    with TM.measure("extract: dangling scan"):
+    with TM.span("extract: dangling scan"):
         scan = (native.dangling_scan(nhi, nlo, bx, by, bz, be,
                                      tree.farendp)
                 if len(bx) else ((), (), ()))

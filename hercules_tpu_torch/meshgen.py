@@ -58,7 +58,7 @@ def generate_mesh(params: Params, cvm: CVM,
                   buildings=None, verbose=False) -> MeshArrays:
     from .utils.timers import GLOBAL_TIMERS as TM
     origin = MeshOrigin.from_params(params, cvm.ctl)
-    with TM.measure("Octor Newtree"):
+    with TM.span("Octor Newtree"):
         tree = Octree.newtree(params.region_length_north_m,
                               params.region_length_east_m,
                               params.region_depth_deep_m)
@@ -95,7 +95,7 @@ def generate_mesh(params: Params, cvm: CVM,
         if balanced_before:
             # balanced + sorted leaf set entering this step
             pre = (_key128(tree.hi, tree.lo), tree.level.copy())
-        with TM.measure("Octor Refinetree"):
+        with TM.span("Octor Refinetree"):
             rec = tree.refine(sr, te)
         if mstep > 1:
             # record aligned with the POST-refine sorted leaves (the
@@ -103,7 +103,7 @@ def generate_mesh(params: Params, cvm: CVM,
             # on the level check and re-query)
             cache = (_key128(tree.hi, tree.lo), tree.level.copy(),
                      rec)
-        with TM.measure("Octor Balancetree"):
+        with TM.span("Octor Balancetree"):
             if pre is not None:
                 # first-sweep sources = leaves refine created (a
                 # surviving (key, level) pair is unchanged; child 0
@@ -124,15 +124,15 @@ def generate_mesh(params: Params, cvm: CVM,
     if buildings is not None:
         # octor_carvebuildings (octor.c:4817-4897): drop "air" leaves
         # (negative Vp) above the pushed-down surface
-        with TM.measure("Carve Buildings"):
+        with TM.span("Carve Buildings"):
             rec = setrec(tree, tree.hi, tree.lo, tree.level)
             tree.carve(buildings.carve_mask(rec))
         if verbose:
             print(f"  carved to {tree.n} leaves")
 
-    with TM.measure("Octor Extractmesh"):
+    with TM.span("Octor Extractmesh"):
         mesh = extract_mesh(tree)
-    with TM.measure("Mesh correct properties"):
+    with TM.span("Mesh correct properties"):
         correct_properties(mesh, cvm, params, origin, buildings=buildings)
     mesh.origin = origin
     mesh.buildings = buildings

@@ -709,4 +709,5 @@ def run_multichip(path, src_forces, total_steps, dt, chunk=None,
     with measure("Solver time loop", group.devices[loc[0]]):
         return run_chunked(advance, state, total_steps,
                            start_step=start_step, chunk=chunk,
-                           on_chunk=on_chunk, on_samples=on_samples)
+                           on_chunk=on_chunk, on_samples=on_samples,
+                           device=group.devices[loc[0]])

@@ -53,7 +53,7 @@ from .physics.kmats import XI
 from .source.model import SourceModel, compute_domain_coords_linearinterp
 
 from .solver.assemble import assemble
-from .utils.timers import measure
+from .utils.timers import GLOBAL_TIMERS, measure
 
 @dataclass
 class StationSet:
@@ -320,7 +320,7 @@ class SimOutputs:
             # the taps' host time (device-to-host copies, global fields,
             # plane sampling, queueing), beside the writers' own
             # io_seconds
-            with measure("Solver output taps"):
+            with GLOBAL_TIMERS.span("Solver output taps"):
                 taps(done, state)
             if inner is not None:
                 inner(done, state)
@@ -539,14 +539,16 @@ class Simulation:
         """hercules_tpu.sim.Simulation.setup: the buildings parsed
         before meshing, the nonlinear tables, the DRM classification and
         its part-0 files."""
-        params = load_params(physics_in, numerical_in)
+        with GLOBAL_TIMERS.span("Read parameters"):
+            params = load_params(physics_in, numerical_in)
         rundir = os.path.dirname(os.path.dirname(
             os.path.abspath(physics_in))) or "."
         if cvmdb is None:
             cvmdb = params.cvmdb_input_file
             if cvmdb and not os.path.isabs(cvmdb):
                 cvmdb = os.path.join(rundir, cvmdb)
-        cvm = open_material_db(cvmdb, params)
+        with GLOBAL_TIMERS.span("Material db open"):
+            cvm = open_material_db(cvmdb, params)
         buildings = None
         if params.include_buildings:
             from .buildings import Buildings
@@ -575,11 +577,14 @@ class Simulation:
                   f"(min dt_X {dt_x:g}, min dt_Z {dt_z:g}); the "
                   f"explicit integration will be unstable",
                   file=sys.stderr)
-        tables = assemble(mesh, params)
+        with GLOBAL_TIMERS.span("Solver assemble"):
+            tables = assemble(mesh, params)
         shift = buildings.surface_shift if buildings is not None else 0.0
-        source = SourceModel.parse(params, surface_shift=shift)
-        src_ids, src_forces = source.compute_forces(mesh, params)
-        stations = setup_stations(mesh, params)
+        with GLOBAL_TIMERS.span("Source forces"):
+            source = SourceModel.parse(params, surface_shift=shift)
+            src_ids, src_forces = source.compute_forces(mesh, params)
+        with GLOBAL_TIMERS.span("Stations locate"):
+            stations = setup_stations(mesh, params)
         sim = cls(params=params, cvm=cvm, mesh=mesh, tables=tables,
                   source=source, src_ids=src_ids, src_forces=src_forces,
                   stations=stations)
@@ -1001,7 +1006,7 @@ class Simulation:
             return refuse(None, "fixed-base buildings run on the "
                                 "unstructured solver")
         try:
-            with measure("Solver plan"):
+            with GLOBAL_TIMERS.span("Solver plan"):
                 plan = self.brick_plan()
         except RuntimeError as e:
             if solver != "auto":

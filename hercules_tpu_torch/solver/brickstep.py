@@ -384,12 +384,13 @@ def run_brick_solver(plan, tables, src_ids, src_forces, total_steps, dt,
         for i in range(k):
             state, sample = step(state, None if srcf is None else srcf[i])
             samples.append(sample)
-        return state, torch.stack(samples).cpu().numpy()
+        return state, torch.stack(samples)
 
     with measure("Solver time loop", device):
         return run_chunked(advance, state, total_steps,
                            start_step=start_step, chunk=chunk,
-                           on_chunk=on_chunk, on_samples=on_samples)
+                           on_chunk=on_chunk, on_samples=on_samples,
+                           device=device)
 
 
 def brick_u_global(plan, u_cat, N):

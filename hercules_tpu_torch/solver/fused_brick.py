@@ -47,7 +47,7 @@ from ..physics.kmats import stiffness_matrices_24
 
 from ..kernels.brick_chunk import brick_chunk, sample_stations
 from ..kernels.brick_step import brick_step
-from ..utils.timers import measure
+from ..utils.timers import GLOBAL_TIMERS, measure
 from .chunking import run_chunked
 from .fused_bktq import bkt_step_module
 from .restart import Checkpoint, fit_conv
@@ -326,18 +326,21 @@ def step_advance(pt, src_forces, dt2):
     def advance(state, s, k):
         spare = tuple(torch.empty_like(x) for x in state)
         srcf = None
-        if pt.src_pos is not None:
-            srcf = torch.as_tensor(src_forces[s:s + k] * dt2,
-                                   dtype=pt.dtype, device=pt.device)
+        with GLOBAL_TIMERS.span("Solver forces upload"):
+            if pt.src_pos is not None:
+                srcf = torch.as_tensor(src_forces[s:s + k] * dt2,
+                                       dtype=pt.dtype, device=pt.device)
         samples = []
-        for i in range(k):
-            samples.append(sample_stations(state[0], pt.st_pos, pt.st_phi))
-            new = _step_once(pt, state, spare)
-            if srcf is not None:
-                new[0][0:3].index_add_(1, pt.src_pos,
-                                       srcf[i].T * invm_src[None, :])
-            state, spare = new, state
-        return state, torch.stack(samples).cpu().numpy()
+        with GLOBAL_TIMERS.span("Solver issue"):
+            for i in range(k):
+                samples.append(sample_stations(state[0], pt.st_pos,
+                                               pt.st_phi))
+                new = _step_once(pt, state, spare)
+                if srcf is not None:
+                    new[0][0:3].index_add_(1, pt.src_pos,
+                                           srcf[i].T * invm_src[None, :])
+                state, spare = new, state
+        return state, torch.stack(samples)
 
     return advance
 
@@ -359,10 +362,12 @@ def chunk_advance(pt, src_forces, dt2):
     """advance(state, s, k) for the chunk route: one launch of K5 (K6)."""
 
     def advance(state, s, k):
-        srcf = source_increments(pt, src_forces, dt2, s, k)
-        *state, samples = pt.step.chunk(*state, srcf, pt.src_pos,
-                                        pt.st_pos, pt.st_phi)
-        return tuple(state), samples.cpu().numpy()
+        with GLOBAL_TIMERS.span("Solver forces upload"):
+            srcf = source_increments(pt, src_forces, dt2, s, k)
+        with GLOBAL_TIMERS.span("Solver issue"):
+            *state, samples = pt.step.chunk(*state, srcf, pt.src_pos,
+                                            pt.st_pos, pt.st_phi)
+        return tuple(state), samples
 
     return advance
 
@@ -414,7 +419,8 @@ def run_pallas_solver(plan, tables, src_ids, src_forces, total_steps, dt,
         state, samples = run_chunked(advance, state, total_steps,
                                      start_step=start_step, chunk=chunk,
                                      on_chunk=on_chunk,
-                                     on_samples=on_samples)
+                                     on_samples=on_samples,
+                                     device=pt.device)
     return packed_snap_of(state), samples
 
 

@@ -78,7 +78,7 @@ import torch
 
 from ..nonlinear import (nl_device_tables, nl_force, nl_state_shapes,
                          nl_state_update, smooth_rise_factor)
-from ..utils.timers import measure
+from ..utils.timers import GLOBAL_TIMERS, measure
 from .brickstep import SegmentSum, loose_bkt_force, loose_elastic_force
 from .chunking import run_chunked
 from .fused_brick import (BrickStep, pack_constants, pallas_geometry,
@@ -1033,20 +1033,24 @@ def run_mesh(mt: MeshPallasTables, src_forces, total_steps, dt, chunk=None,
     spare = [init_mesh_state(mt)]
 
     def advance(state, s, k):
-        srcf = (torch.as_tensor(src_forces[s:s + k] * dt2, dtype=mt.dtype,
-                                device=mt.device) if mt.has_src else None)
+        with GLOBAL_TIMERS.span("Solver forces upload"):
+            srcf = (torch.as_tensor(src_forces[s:s + k] * dt2,
+                                    dtype=mt.dtype, device=mt.device)
+                    if mt.has_src else None)
         samples = []
-        for i in range(k):
-            new, sample = step(state, spare[0],
-                               None if srcf is None else srcf[i], s + i)
-            samples.append(sample)
-            spare[0], state = state, new
-        return state, torch.stack(samples).cpu().numpy()
+        with GLOBAL_TIMERS.span("Solver issue"):
+            for i in range(k):
+                new, sample = step(state, spare[0],
+                                   None if srcf is None else srcf[i], s + i)
+                samples.append(sample)
+                spare[0], state = state, new
+        return state, torch.stack(samples)
 
     with measure("Solver time loop", mt.device):
         return run_chunked(advance, state, total_steps,
                            start_step=start_step, chunk=chunk,
-                           on_chunk=on_chunk, on_samples=on_samples)
+                           on_chunk=on_chunk, on_samples=on_samples,
+                           device=mt.device)
 
 
 def mesh_u_global(plan, Ss, N, gnid=None):

@@ -429,9 +429,10 @@ def run_solver(tables, src_ids, src_forces, total_steps, dt,
             x = (srcf[i], s + i) if fb is None else (srcf[i], s + i, fb[i])
             state, sample = step(state, x)
             samples.append(sample)
-        return state, torch.stack(samples).cpu().numpy()
+        return state, torch.stack(samples)
 
     with measure("Solver time loop", device):
         return run_chunked(advance, state, total_steps,
                            start_step=start_step, chunk=chunk,
-                           on_chunk=on_chunk, on_samples=on_samples)
+                           on_chunk=on_chunk, on_samples=on_samples,
+                           device=device)

@@ -1,22 +1,49 @@
-"""Named cumulative wall-clock timers + hierarchical report.
+"""Named cumulative wall-clock timers, spans, and the hierarchical
+report.
 
 Mirrors timers.c:29-227 (Timer_Start/Stop/Value/Reduce) and the solver
 timing report (print_timing_stat, psolve.c:6041-6274).
 
-The port's copy of ``hercules_tpu/utils/timers.py``, with one change:
-the JAX package fences device work inside ``Timers.stop``
+The port's copy of ``hercules_tpu/utils/timers.py``, grown into spans.
+``Timers.span`` times a block as a named timer does (``acc`` and
+``counts``, which the report prints), keeps a record of it (its parent,
+the time step it covers, its clock readings and counts) in a bounded
+log, and opens a ``torch.profiler.record_function`` range of the same
+name, so that a traced run holds the span on the profiler's clock beside
+the device's operations; a span never waits for the device.  The JAX
+package fences device work inside ``Timers.stop``
 (``jax.block_until_ready``); here the fence is the module-level
-``measure``, which waits for the queued CUDA work with
-``torch.cuda.synchronize()`` before it stops the clock, so a phase is
-charged the device time it caused.  The host meshing stages record into
-this module's ``GLOBAL_TIMERS``."""
+``measure``, a span that waits for the queued CUDA work with
+``torch.cuda.synchronize()`` before it ends, so a phase is charged the
+device time it caused.  ``ChunkClock`` reads the device's own clock at
+the time loop's chunk boundaries, with CUDA events and without a wait.
+The host meshing stages record into this module's ``GLOBAL_TIMERS``."""
 
 from __future__ import annotations
 
+import collections
 import time
 from contextlib import contextmanager
 
 import torch
+
+SPAN_LOG = 4096          # records the span log keeps, the newest
+CHUNK = "Solver chunk"   # the time loop's span of one chunk
+
+
+class Span:
+    """One span: ``name``; ``parent``, the span open around it (None at
+    the top); ``step``, the first time step it covers (None outside the
+    time loop; a span given none takes its parent's); ``t0_ns`` and
+    ``t1_ns`` on ``time.perf_counter_ns`` (``t1_ns`` None while open);
+    ``counts``, its numbers by name."""
+
+    __slots__ = ("name", "parent", "step", "t0_ns", "t1_ns", "counts")
+
+    def __init__(self, name, parent, step, counts):
+        self.name, self.parent, self.step = name, parent, step
+        self.counts = counts
+        self.t0_ns = self.t1_ns = None
 
 
 class Timers:
@@ -24,6 +51,9 @@ class Timers:
         self.acc = {}
         self.running = {}
         self.counts = {}
+        self.log = collections.deque(maxlen=SPAN_LOG)   # closed spans
+        self.open = []                                   # innermost last
+        self.parent_of = {}   # span name -> the name open around it first
 
     def start(self, name):
         self.running[name] = time.perf_counter()
@@ -36,23 +66,52 @@ class Timers:
         self.counts[name] = self.counts.get(name, 0) + 1
 
     @contextmanager
-    def measure(self, name):
-        self.start(name)
-        try:
-            yield
-        finally:
-            self.stop(name)
+    def span(self, name, step=None, **counts):
+        """Time the block as ``name``: its seconds and one call go to
+        ``acc`` and ``counts`` as ``start``/``stop``'s do, and its
+        ``Span`` (which the block gets, to add counts to) to the end of
+        ``log`` once it ends, also when it raises.  Its parent is the
+        span open around it; a ``torch.profiler.record_function`` range
+        of the same name spans it.  Never waits for the device."""
+        parent = self.open[-1] if self.open else None
+        if step is None and parent is not None:
+            step = parent.step
+        rec = Span(name, parent, step, counts)
+        self.parent_of.setdefault(name, parent and parent.name)
+        self.open.append(rec)
+        with torch.profiler.record_function(name):
+            rec.t0_ns = time.perf_counter_ns()
+            try:
+                yield rec
+            finally:
+                rec.t1_ns = time.perf_counter_ns()
+                self.open.pop()
+                self.acc[name] = (self.acc.get(name, 0.0)
+                                  + (rec.t1_ns - rec.t0_ns) * 1e-9)
+                self.counts[name] = self.counts.get(name, 0) + 1
+                self.log.append(rec)
 
     def value(self, name):
         return self.acc.get(name, 0.0)
 
+    def path(self, name):
+        """``name`` after the names of the spans open around it when it
+        first opened, outermost first."""
+        p = [name]
+        while self.parent_of.get(p[-1]) not in (None, *p):
+            p.append(self.parent_of[p[-1]])
+        return p[::-1]
+
     def report(self, out=None, total=None):
+        """Every timer, longest first, with its share of ``total``: by
+        default the sum of the timers that never ran inside a span."""
         import sys
         out = out or sys.stdout
         out.write("\n# %-40s %12s %8s\n" % ("timer", "seconds", "calls"))
         out.write("# " + "-" * 64 + "\n")
         items = sorted(self.acc.items(), key=lambda kv: -kv[1])
-        tot = total or sum(self.acc.values())
+        tot = total or sum(v for k, v in self.acc.items()
+                           if self.parent_of.get(k) is None)
         for name, v in items:
             pct = 100.0 * v / tot if tot else 0.0
             out.write("  %-40s %12.3f %8d  %5.1f%%\n"
@@ -64,16 +123,54 @@ GLOBAL_TIMERS = Timers()
 
 
 @contextmanager
-def measure(name, device=None, timers=GLOBAL_TIMERS):
-    """Time the block as ``name``; on a CUDA ``device`` the clock stops
+def measure(name, device, timers=GLOBAL_TIMERS):
+    """A span of the block as ``name`` (``Timers.span``; the block gets
+    its ``Span``) fenced on ``device``: on a CUDA device the span ends
     after the device has finished the block's work."""
-    timers.start(name)
-    try:
-        yield
-    finally:
-        if device is not None and torch.device(device).type == "cuda":
-            torch.cuda.synchronize(device)
-        timers.stop(name)
+    with timers.span(name) as rec:
+        try:
+            yield rec
+        finally:
+            if device is not None and torch.device(device).type == "cuda":
+                torch.cuda.synchronize(device)
+
+
+class ChunkClock:
+    """The device's clock at the time loop's chunk boundaries, on a CUDA
+    ``device`` (nothing elsewhere): a CUDA event before a chunk's first
+    device operation (``start``) and one as soon as its samples' copy to
+    the host has returned (``end``).  ``end`` writes into the chunk's ``Span`` the
+    device seconds since the previous chunk's end event (``gap_s``), and
+    into the previous chunk's its device seconds, start to end
+    (``device_s``).  It reads only events that came before the chunk's
+    samples copy in the stream, complete once that copy has returned, so
+    it never waits: a chunk's own end event is read at the next chunk's
+    end, and the last chunk's ``device_s`` stays as it was."""
+
+    def __init__(self, device):
+        self.device = (torch.device(device) if device is not None
+                       and torch.device(device).type == "cuda" else None)
+        self.t0 = None
+        self.prev = None            # (start, end, Span) of the last chunk
+
+    def _event(self):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(self.device))
+        return ev
+
+    def start(self):
+        if self.device is not None:
+            self.t0 = self._event()
+
+    def end(self, rec):
+        if self.device is None:
+            return
+        t1 = self._event()
+        if self.prev is not None:
+            p0, p1, prec = self.prev
+            prec.counts["device_s"] = p0.elapsed_time(p1) * 1e-3
+            rec.counts["gap_s"] = p1.elapsed_time(self.t0) * 1e-3
+        self.prev = (self.t0, t1, rec)
 
 
 MESHING_TIMERS = ("Octor Newtree", "Octor Refinetree",
@@ -92,7 +189,7 @@ def print_timing_stat(params, mesh, timers=None, out=None,
     t = timers or GLOBAL_TIMERS
 
     out.write("\n________________________Raw Timers____________________\n")
-    t.report(out=out)
+    t.report(out=out, total=t.value("Total Wall Clock") or None)
 
     E = mesh.lenum
     steps = params.total_steps
@@ -128,6 +225,9 @@ def print_timing_stat(params, mesh, timers=None, out=None,
             out.write("    %-32s: %.2f seconds\n" % (k, t.value(k)))
     out.write("TOTAL SOLVER                        : %.2f seconds\n"
               % solver)
-    for k in sorted(t.acc):
-        if k.startswith("Solver "):
-            out.write("    %-32s: %.2f seconds\n" % (k[7:], t.value(k)))
+    # a span indented under the solver's spans it ran inside
+    for k in sorted((k for k in t.acc if k.startswith("Solver ")),
+                    key=t.path):
+        d = sum(a.startswith("Solver ") for a in t.path(k)) - 1
+        out.write("    %s%-*s: %.2f seconds\n"
+                  % ("  " * d, 32 - 2 * d, k[7:], t.value(k)))

@@ -181,13 +181,21 @@ JSON line {"phase": ...}:
               c2 and beta: a tile reading another element's
               coefficients fails here), 40 steps in float64 (bound
               2e-13 max|u|) and 20 in float32 (1e-4 max|u|) each; the
-              2^20-element box, 10 steps in float32 (1e-4 max|u|).
+              2^20-element box, 10 steps in float32 (1e-4 max|u|).  On
+              the seeded bricks (SEEDED_BRICKS: B1, the graded fine
+              brick, two node planes), both types: the library's grid
+              (stages, blocks per SM, resident blocks, slab, items)
+              equal to kernels/tiles.py's step_grid, one step's bytes
+              equal to the synchronous march's (K1_SYNC_DIGESTS), and
+              brick_step.configs counting the B1 launch under its key.
 3. k5      -- brick_chunk (K5) against the K1 step loop on the
               2048-element box and the four-layer Rayleigh box, chunks
               of 16 steps, 37 steps, float64 and float32: states
               bit-identical, samples within 1e-12 (float64) / 1e-5
-              (float32) relative; and K5 against brick_chunk_plain at
-              2^20 elements, 10 steps in float32 (1e-4 max|u|).
+              (float32) relative; K5 against brick_chunk_plain at
+              2^20 elements, 10 steps in float32 (1e-4 max|u|); and K5
+              against the K1 loop on the seeded bricks, 9 steps with 4
+              sources and 6 stations, both types, bit for bit.
 4. main    -- the elastic main path through the CLI, launch counters
               set to 0 just before and read just after: the
               2^20-element box (128 x 128 x 64 at 7.8125 m), 400 steps,
@@ -389,6 +397,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import hashlib
 import io
 import json
 import os
@@ -417,9 +426,10 @@ def require(cond, msg):
 
 
 def tile_registers(log):
-    """{kernel<T[,CT,kappa]>: registers} of the tiled kernels (K1, K5:
-    kernel<T>; K2, K3, K4, K6: kernel<T,CT,kappa>) from the ptxas -v
-    output in the build log."""
+    """{kernel<T[,CT,kappa]>: registers} of the tiled kernels (K5:
+    kernel<T>; K1: kernel<T,BX,BY,BA>, one a set of corner roles; K2,
+    K3, K4, K6: kernel<T,CT,kappa>) from the ptxas -v output in the
+    build log."""
     types = {"f": "float", "d": "double", "13__nv_bfloat16": "bf16"}
     regs, entry = {}, None
     for ln in log.splitlines():
@@ -427,20 +437,87 @@ def tile_registers(log):
         if m:
             bkt = re.search(r"(bkt_(?:step|chunk|node|corner)_kernel)I([fd])"
                             r"([fd]|13__nv_bfloat16)Lb([01])E", m.group(1))
-            brick = re.search(r"(brick_(?:step|chunk)_kernel)I([fd])E",
-                              m.group(1))
+            brick = re.search(r"(brick_(?:step|chunk)_kernel)I([fd])"
+                              r"((?:Li\d+E)*)E", m.group(1))
             entry = None
             if bkt:
                 k, t, ct, kappa = bkt.groups()
                 entry = f"{k}<{types[t]},{types[ct]},{kappa}>"
             elif brick:
-                k, t = brick.groups()
-                entry = f"{k}<{types[t]}>"
+                k, t, roles = brick.groups()
+                args = [types[t], *re.findall(r"\d+", roles)]
+                entry = f"{k}<{','.join(args)}>"
         m = re.search(r"Used (\d+) registers", ln)
         if m and entry:
             regs[entry] = int(m.group(1))
             entry = None
     return regs
+
+
+# Bricks the K1 and K5 phases step from seeded states: the node grid
+# (outer, mid, inner) in storage order and the storage axis of x, y and
+# z (corner index bits 0, 1, 2).
+SEEDED_BRICKS = {
+    # validation B1 at 1 Hz: 128^3 elements, LEN 2,147,328
+    "b1": ((129, 129, 129), (2, 1, 0)),
+    # the graded route's fine brick (GRADED_LAYERS at 3.90625 m): y the
+    # planes, z the mid axis
+    "graded_fine": ((257, 33, 257), (2, 0, 1)),
+    # a fragment of one element layer: two node planes
+    "two_planes": ((2, 40, 33), (2, 1, 0)),
+}
+# sha256 of one K1 step from seeded_brick(..., seed=21) by the K1 of the
+# synchronous march (the march before the staged pipeline), by brick
+# and type: the staged K1 must give the same bytes
+K1_SYNC_DIGESTS = {
+    "b1 float32":
+        "cd0f3a356bd0e993fb7e536d67b72c1d3c5a97fe0c7a4e9b734f3d607d66e7e3",
+    "b1 float64":
+        "d52013a1d25a6c5fceff056dd9c22213314ef74a60b603f2281bad36ad3044c8",
+    "graded_fine float32":
+        "ff4d0959b75ff8990c86c0c46d4b6d817ea7a4a3ca68724a32fcdeb4a8017f31",
+    "graded_fine float64":
+        "f93a50afcee65546238bdbdb3f08d1d9ac69febc7f1f7002ae4b9f3bf43762ec",
+    "two_planes float32":
+        "797aa4bc30f2d539d374b1cd8991ca28f6424b09d56d366b3c199c1d61069bd7",
+    "two_planes float64":
+        "43a5b8f8e1b1db9173df5edcaa7135978ad83fb734b00b36284f4f22a4459686",
+}
+
+
+def seeded_brick(shape, axes, dtype, seed, device):
+    """(S, K, offs) of a brick of node grid ``shape`` whose x, y and z
+    step storage axes ``axes``: u and u- ~ N(0, 1) and rows 6:8 ~ N(0, 1)
+    on its nodes, per-element (c1, c2, beta) where the element's corners
+    lie on the grid (2 % of them zero), K rows 3:7 per node; zero
+    padding to LEN (fused_brick.pallas_geometry)."""
+    import numpy as np
+    import torch
+    from hercules_tpu_torch.solver.fused_brick import pallas_geometry
+    n0, n1, n2 = shape
+    st = (n1 * n2, n2, 1)
+    sx, sy, sz = (st[a] for a in axes)
+    offs = tuple((j & 1) * sx + (j >> 1 & 1) * sy + (j >> 2 & 1) * sz
+                 for j in range(8))
+    nb = n0 * n1 * n2
+    LEN = pallas_geometry(nb)
+    rng = np.random.default_rng(seed)
+    S = np.zeros((8, LEN))
+    u = rng.standard_normal((3, nb))
+    S[0:3, :nb] = u
+    S[3:6, :nb] = u - 0.1 * rng.standard_normal((3, nb))
+    S[6:8, :nb] = rng.standard_normal((2, nb))
+    K = np.zeros((8, LEN))
+    i0, r = np.divmod(np.arange(nb), st[0])
+    i1, i2 = np.divmod(r, st[1])
+    ok = (i0 < n0 - 1) & (i1 < n1 - 1) & (i2 < n2 - 1)
+    c = rng.uniform(0.5, 2.0, (3, nb)) * np.array([[1e-2], [2e-2], [0.3]])
+    c[:, rng.random(nb) < 0.02] = 0.0
+    K[0:3, :nb] = np.where(ok, c, 0.0)
+    K[3:6, :nb] = rng.uniform(-1e-3, 1e-3, (3, nb))
+    K[6, :nb] = rng.uniform(0.5, 1.5, nb)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    return t(S), t(K), offs
 
 
 def count_launches(counters, fn):
@@ -2118,8 +2195,8 @@ def main():
                                                      bkt_step_plain)
     from hercules_tpu_torch.kernels.brick_chunk import (
         brick_chunk, brick_chunk_plain, sample_stations)
-    from hercules_tpu_torch.kernels.brick_step import (brick_step,
-                                                       brick_step_plain)
+    from hercules_tpu_torch.kernels.brick_step import (
+        brick_step, brick_step_plain, step_grid_of)
     from hercules_tpu_torch.kernels.stream_add import (stream_add,
                                                        stream_add_plain)
     from hercules_tpu_torch.convert import mesh_state_from_jax
@@ -2524,7 +2601,31 @@ def main():
             require(r <= bound, f"K1 vs plain {cases[-1]}")
             require(not Sk[:, pt.nb:].any(), "K1 moved the padding")
         kern["brick_step_err"] = cases[-1]["max_abs_err"]
-        emit({"phase": "k1", "cases": cases,
+        # the launch grid the library chooses against the host's mirror
+        # of its slab rule, one step on each seeded brick against the
+        # synchronous march's bytes, and the launches by configuration
+        brick_step.configs.clear()
+        grids, digests = {}, {}
+        for name, (shape, axes) in SEEDED_BRICKS.items():
+            for dname in ("float32", "float64"):
+                S, K, offs = seeded_brick(shape, axes, dts[dname], 21, dev)
+                LEN = S.shape[1]
+                got = step_grid_of(offs, LEN, dts[dname], dev.index)
+                grids[f"{name} {dname}"] = got
+                require(got[0] == tiles.STEP_STAGES
+                        and got[3:] == tiles.step_grid(offs, LEN, got[2]),
+                        f"K1 grid {name} {dname}: {got}")
+                out = brick_step(S, K, offs, None)
+                digests[f"{name} {dname}"] = hashlib.sha256(
+                    out.cpu().numpy().tobytes()).hexdigest()
+        require(digests == K1_SYNC_DIGESTS,
+                f"K1 against the synchronous march: {digests}")
+        b1 = grids["b1 float64"]
+        require(brick_step.configs.get((b1[0], b1[1], b1[3]), 0) >= 1,
+                f"K1 configurations {brick_step.configs}")
+        emit({"phase": "k1", "cases": cases, "grids": grids,
+              "digests_equal": True,
+              "configs": {str(k): v for k, v in brick_step.configs.items()},
               "launches": brick_step.launches})
 
         # ---- 3. K5 against the K1 step loop and its plain version ----
@@ -2571,6 +2672,39 @@ def main():
                       "samples_rel_err": srel, "bound": 1e-4})
         require(r <= 1e-4 and srel <= 1e-4, f"K5 vs plain {cases[-1]}")
         kern["brick_chunk_err"] = err
+        # K5 (its own march) against the staged K1 step loop on the
+        # seeded bricks: B1, the graded fine brick, two node planes
+        for name, (shape, axes) in SEEDED_BRICKS.items():
+            nb = int(np.prod(shape))
+            rs = np.random.default_rng(23)
+            for dname, sbound in (("float64", 1e-12), ("float32", 1e-5)):
+                dt_ = dts[dname]
+                S0, K, offs = seeded_brick(shape, axes, dt_, 22, dev)
+                src = torch.as_tensor(rs.choice(nb, 4, replace=False),
+                                      device=dev)
+                srcf = torch.as_tensor(1e-3 * rs.standard_normal((9, 3, 4)),
+                                       dtype=dt_, device=dev)
+                st_pos = torch.as_tensor(rs.choice(nb, (6, 8)), device=dev)
+                st_phi = torch.as_tensor(rs.uniform(0, 0.25, (6, 8)),
+                                         dtype=dt_, device=dev)
+                Sc, smp_c = brick_chunk(S0.clone(), torch.empty_like(S0), K,
+                                        offs, None, srcf, src, st_pos,
+                                        st_phi)
+                S, sp, smp = S0.clone(), torch.empty_like(S0), []
+                for t in range(srcf.shape[0]):
+                    smp.append(sample_stations(S, st_pos, st_phi))
+                    Sn = brick_step(S, K, offs, None, out=sp)
+                    Sn[0:3].index_add_(1, src, srcf[t])
+                    S, sp = Sn, S
+                smp = torch.stack(smp)
+                torch.cuda.synchronize()
+                srel = ((smp_c - smp).abs().max() / smp.abs().max()).item()
+                cases.append({"case": f"seeded {name}", "dtype": dname,
+                              "steps": srcf.shape[0],
+                              "bit_identical": torch.equal(Sc, S),
+                              "samples_rel_err": srel})
+                require(torch.equal(Sc, S) and srel <= sbound,
+                        f"K5 vs K1 loop {cases[-1]}")
         emit({"phase": "k5", "cases": cases,
               "launches": brick_chunk.launches})
 

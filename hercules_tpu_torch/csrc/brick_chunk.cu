@@ -13,11 +13,11 @@
 // What the launch removes is one launch per step, the separate source
 // and sampling kernels, and their host round trips.
 //
-// Design: K1's tiled step (brick_tile.cuh), with K1's launch bounds,
-// inside a grid that is exactly as large as the card holds at once,
-// launched with cudaLaunchCooperativeKernel so that grid.sync() is
-// legal, with slabs deepened until each resident block has at most one
-// work item where the card holds a block for every tile
+// Design: the synchronous tiled march (brick_tile.cuh:brick_tile_step)
+// with K1's launch bounds, inside a grid that is exactly as large as the
+// card holds at once, launched with cudaLaunchCooperativeKernel so that
+// grid.sync() is legal, with slabs deepened until each resident block
+// has at most one work item where the card holds a block for every tile
 // (bkt_tile.cuh:chunk_grid, K6's rule).  The state ping-pongs between
 // two buffers (no in-place update: GPU blocks run in no order).  Per
 // step t:

@@ -3,7 +3,9 @@
 ``brick_step`` launches the CUDA kernel of ``csrc/brick_step.cu`` on a
 CUDA tensor and runs ``brick_step_plain``, the same step in plain
 PyTorch, on a CPU tensor.  It counts its kernel launches in
-``brick_step.launches``.
+``brick_step.launches``, and in ``brick_step.configs`` by how each was
+configured: (ring stages, blocks per SM, slab depth), as the library
+chose them (``step_grid_of``; ``tiles.step_grid`` mirrors the slab).
 
 Layout (see ``solver/fused_brick.py``): S [8, LEN] = (u, u-, 0, 0),
 K [8, LEN] = (c1, c2, beta, mass_minusaM x 3, inv_mass, 0), ops
@@ -15,6 +17,8 @@ no operator.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -59,12 +63,28 @@ def check_args(name, S, K, offs, out):
                  ((out, S),), offs, LEN, 8)
 
 
+def step_grid_of(offs, LEN, dtype, device):
+    """(ring stages, blocks per SM, resident blocks, slab depth, work
+    items) of the kernel's launch on the brick of ``offs`` and LEN
+    columns in ``dtype`` on CUDA device index ``device``, as the library
+    computes them (loads the library)."""
+    sfx = "f32" if dtype == torch.float32 else "f64"
+    got = (ctypes.c_int * 5)()
+    build.check(build.entry(f"ht_brick_step_grid_{sfx}")(
+        build.offsets_arg(offs), int(LEN), int(device), got),
+        "ht_brick_step_grid")
+    return tuple(got)
+
+
 def _prepare(S, K, offs, out):
-    """check_args, then (C entry, LEN, offsets, device index)."""
+    """check_args, then (C entry, LEN, offsets, device index, the
+    launch's configuration key)."""
     check_args("brick_step", S, K, offs, out)
     sfx = "f32" if S.dtype == torch.float32 else "f64"
-    return (build.entry(f"ht_brick_step_{sfx}"), S.shape[1],
-            build.offsets_arg(offs), S.device.index)
+    LEN, dev = S.shape[1], S.device.index
+    stages, per_sm, _, slab, _ = step_grid_of(offs, LEN, S.dtype, dev)
+    return (build.entry(f"ht_brick_step_{sfx}"), LEN,
+            build.offsets_arg(offs), dev, (stages, per_sm, slab))
 
 
 _CHECKS = build.CheckCache(_prepare)
@@ -79,12 +99,15 @@ def brick_step(S, K, offs, ops, out=None):
         return res if out is None else out.copy_(res)
     if out is None:
         out = torch.empty_like(S)
-    fn, LEN, offs_arg, dev = _CHECKS(S, K, tuple(offs), out)
+    fn, LEN, offs_arg, dev, config = _CHECKS(S, K, tuple(offs), out)
     rc = fn(S.data_ptr(), K.data_ptr(), out.data_ptr(), LEN, offs_arg, dev,
             build.stream(S))
     build.check(rc, "brick_step launch")
     brick_step.launches += 1
+    configs = brick_step.configs
+    configs[config] = configs.get(config, 0) + 1
     return out
 
 
 brick_step.launches = 0
+brick_step.configs = {}

@@ -49,6 +49,8 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     "ht_brick_step_f32": [_P, _P, _P, _I, _P, _I, _P],
     "ht_brick_step_f64": [_P, _P, _P, _I, _P, _I, _P],
+    "ht_brick_step_grid_f32": [_P, _I, _I, _P],
+    "ht_brick_step_grid_f64": [_P, _I, _I, _P],
     "ht_brick_chunk_f32": [_P, _P, _P, _I, _P, _I, _P, _P, _I, _P, _P, _P,
                            _P, _I, _P, _I, _P],
     "ht_brick_chunk_f64": [_P, _P, _P, _I, _P, _I, _P, _P, _I, _P, _P, _P,

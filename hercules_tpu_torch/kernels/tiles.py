@@ -11,11 +11,14 @@ chunk kernels' host side lists each tile's sources (``tile_sources``,
 kept per ``src_pos`` tensor and version by ``source_lists``), so that
 the thread that updates a source node adds its increments.  The slab
 depths and the work items live in the kernels; ``corner_grid`` mirrors
-K4's rule (``csrc/bkt_corner.cu:corner_geom``), which the tests and the
-card's build check hold against the kernel's own count.
+K4's rule (``csrc/bkt_corner.cu:corner_geom``) and ``step_grid`` K1's
+(``csrc/brick_step.cu:step_slab``), which the tests and the card's
+phases hold against the kernels' own counts.
 """
 
 from __future__ import annotations
+
+import heapq
 
 import numpy as np
 import torch
@@ -63,6 +66,63 @@ def corner_grid(offs, LEN, resident):
     nplanes = -(-LEN // brick_strides(offs)[1])
     slab = max(1, min(CORNER_SLAB, tiles * nplanes // resident))
     return slab, tiles * -(-nplanes // slab)
+
+
+# K1's deepest slab and the state planes its ring holds
+# (brick_step.cu's kStepSlabMax, brick_tile.cuh's kStepStages)
+STEP_SLAB_MAX = 12
+STEP_STAGES = 3
+
+
+def step_makespan(tiles, nplanes, slab, resident):
+    """How long K1's work items of slabs of ``slab`` planes keep the
+    card, in half planes: ``resident`` blocks take the items in order
+    (every tile of slab 0, then of slab 1, ...), each the next as one
+    ends; an item of p planes takes 2 p + 1."""
+    ends, last = [], 0
+    for a0 in range(0, nplanes, slab):
+        d = 2 * min(slab, nplanes - a0) + 1
+        for _ in range(tiles):
+            start = heapq.heappop(ends) if len(ends) == resident else 0
+            heapq.heappush(ends, start + d)
+            last = max(last, start + d)
+    return last
+
+
+def step_grid(offs, LEN, resident):
+    """(slab depth, work items) of K1 on the brick of ``offs`` and LEN
+    columns with ``resident`` blocks on the card at once: of 1 ..
+    STEP_SLAB_MAX planes (at most the brick's), the slab whose items end
+    first (step_makespan), the deepest of equals
+    (brick_step.cu:step_slab); item i is tile i % tiles on slab i //
+    tiles."""
+    tiles = int(np.prod(tile_counts(offs)))
+    nplanes = -(-LEN // brick_strides(offs)[1])
+    best = None
+    for slab in range(1, min(STEP_SLAB_MAX, nplanes) + 1):
+        t = step_makespan(tiles, nplanes, slab, resident)
+        if best is None or t <= best[0]:
+            best = (t, slab)
+    return best[1], tiles * -(-nplanes // best[1])
+
+
+def step_items(offs, LEN, slab):
+    """K1's work items on slabs of ``slab`` planes, in launch order:
+    (the node columns each owns, its first plane, its end plane)."""
+    s_mid, s_out = brick_strides(offs)
+    ny = s_out // s_mid
+    tx, ty = tile_counts(offs)
+    nplanes = -(-LEN // s_out)
+    for a0 in range(0, nplanes, slab):
+        a1 = min(a0 + slab, nplanes)
+        for t in range(tx * ty):
+            x0, y0 = (t % tx) * OX, (t // tx) * OY
+            x = np.arange(x0, min(x0 + OX, s_mid))
+            y = np.arange(y0, min(y0 + OY, ny))
+            a = np.arange(a0, a1)
+            n = (a[:, None, None] * s_out + y[None, :, None] * s_mid
+                 + x[None, None, :]).ravel()
+            yield n[n < LEN], a0, a1
 
 
 def tile_of(offs, n):

@@ -145,7 +145,9 @@ class ChunkClock:
     (``device_s``).  It reads only events that came before the chunk's
     samples copy in the stream, complete once that copy has returned, so
     it never waits: a chunk's own end event is read at the next chunk's
-    end, and the last chunk's ``device_s`` stays as it was."""
+    end, and the last chunk's ``device_s`` stays as it was.  A chunk with
+    no samples to copy completes nothing; where its events are not yet
+    complete, ``end`` leaves both counts as they were."""
 
     def __init__(self, device):
         self.device = (torch.device(device) if device is not None
@@ -166,7 +168,7 @@ class ChunkClock:
         if self.device is None:
             return
         t1 = self._event()
-        if self.prev is not None:
+        if self.prev is not None and self.t0.query():
             p0, p1, prec = self.prev
             prec.counts["device_s"] = p0.elapsed_time(p1) * 1e-3
             rec.counts["gap_s"] = p1.elapsed_time(self.t0) * 1e-3

@@ -1,8 +1,9 @@
 """The port's single-brick solver (plain versions on the CPU) against
 the JAX package's brick solver and fused Pallas kernel, float64, on the
 homogeneous box and on the four-layer Rayleigh box (one brick with
-per-element c1, c2 and beta); and the elastic spectral header the K1 and
-K5 kernels form each element's force from."""
+per-element c1, c2 and beta); the elastic spectral header the K1 and
+K5 kernels form each element's force from; and K1's launch geometry as
+kernels/tiles.py mirrors it."""
 
 import os
 import re
@@ -22,6 +23,7 @@ from hercules_tpu.solver.pallas_brick import \
     run_pallas_solver as jax_run_pallas_solver
 from hercules_tpu_torch.fixtures import (FOUR_Q_LAYERS, box_simulation,
                                          four_q_freq)
+from hercules_tpu_torch.kernels import tiles
 from hercules_tpu_torch.kernels.brick_step import (brick_step,
                                                    brick_step_plain)
 from hercules_tpu_torch.solver.bricks import build_plan
@@ -229,3 +231,68 @@ def test_elastic_spectral_header_matches_factors():
         want = c1 * ops[:24] @ w + c2 * ops[24:] @ w
         np.testing.assert_allclose(got, want, rtol=0,
                                    atol=1e-14 * np.abs(want).max())
+
+
+# Bricks for K1's geometry mirror (kernels/tiles.py:step_grid,
+# step_items): corner offsets and LEN of validation B1 at 1 Hz (128^3
+# elements), a fragment of one element layer, and the graded route's
+# fine brick (GRADED_LAYERS at 3.90625 m: 257 x 33 x 257 nodes, y the
+# planes); the four-layer box comes from its fixture.
+_B1_OFFS = (0, 1, 129, 130, 16641, 16642, 16770, 16771)
+_K1_BRICKS = {
+    "b1": (_B1_OFFS, 2147328),
+    "two_planes": ((0, 1, 33, 34, 1320, 1321, 1353, 1354), 3072),
+    "graded_fine": ((0, 1, 8481, 8482, 257, 258, 8738, 8739), 2180096),
+}
+
+
+def _k1_brick(name, layered):
+    if name == "layered":
+        sim, plan, _, _ = layered
+        pt = PallasBrickTables(plan, sim.tables, dtype=torch.float64,
+                               device="cpu")
+        return tuple(pt.offs), pt.LEN
+    return _K1_BRICKS[name]
+
+
+@pytest.mark.parametrize("resident", [264, 396])
+@pytest.mark.parametrize("name", ["b1", "two_planes", "layered",
+                                  "graded_fine"])
+def test_step_items_own_every_column_once(name, resident, layered):
+    """K1's work items on the slab its rule chooses for an H100's
+    resident blocks (132 SMs x 2 in float64, x 3 in float32) own every
+    node column of [0, LEN) exactly once, and there are as many as the
+    rule counts."""
+    offs, LEN = _k1_brick(name, layered)
+    slab, items = tiles.step_grid(offs, LEN, resident)
+    got = list(tiles.step_items(offs, LEN, slab))
+    assert len(got) == items
+    owned = np.concatenate([n for n, _, _ in got])
+    assert len(owned) == LEN
+    np.testing.assert_array_equal(np.sort(owned), np.arange(LEN))
+
+
+@pytest.mark.parametrize("resident", [1, 264, 396, 100000])
+@pytest.mark.parametrize("name", ["b1", "two_planes", "layered",
+                                  "graded_fine"])
+def test_step_ring_within_item_planes(name, resident, layered):
+    """Every K1 work item reads at least as many node planes (its slab,
+    the halo plane below and the plane above) as the ring holds, on a
+    slab of 1 to STEP_SLAB_MAX planes."""
+    offs, LEN = _k1_brick(name, layered)
+    slab, _ = tiles.step_grid(offs, LEN, resident)
+    assert 1 <= slab <= tiles.STEP_SLAB_MAX
+    for _, a0, a1 in tiles.step_items(offs, LEN, slab):
+        assert 1 <= a1 - a0 <= slab
+        assert tiles.STEP_STAGES <= a1 - a0 + 2
+
+
+@pytest.mark.parametrize("resident, key", [(264, (3, 2, 12)),
+                                           (396, (3, 3, 8))])
+def test_step_config_key_of_b1(resident, key):
+    """The configuration ``brick_step.configs`` counts the B1 brick's
+    launches under on an H100 (132 SMs; two blocks an SM in float64,
+    three in float32): (ring stages, blocks per SM, slab depth)."""
+    slab, items = tiles.step_grid(_B1_OFFS, 2147328, resident)
+    assert (tiles.STEP_STAGES, resident // 132, slab) == key
+    assert items == 95 * -(-130 // slab)

@@ -10,7 +10,9 @@ cell's configuration (``configs/<config>.json``) and traffic mix
 The window drives the time loop of one long run through the program's
 route functions, the ones ``Simulation.run`` calls for ``solver="auto"``
 (``run_pallas_solver`` for a single brick, ``run_mesh_solver``
-otherwise), with the same arguments and two hooks of the benchmark's:
+otherwise; on a cell of several cards its multi-card pipeline,
+``Simulation._run_multichip``, a rank on each card), with the same
+arguments and two hooks of the benchmark's:
 ``on_samples`` keeps the receivers' samples of the chunks that are
 checked, ``on_chunk`` watches the chunk boundaries.  ``Simulation.run``
 itself takes no ``on_samples`` hook, so without it the samples of the
@@ -143,14 +145,15 @@ def draw_source(cfg, seed, rows):
 
 def run_steps(cfg, traffic, rows, seconds):
     """Steps of the loop: the window's seconds at the least time a step
-    can take on any route (``roofline.floor_step_seconds``), and two
-    chunks more (the set-up's and the one the window closes on), in
-    whole chunks; so no program, however fast, runs out of steps inside
-    the window.  Steps past the job's cost nothing in set-up
-    (``HeldForces``)."""
+    can take on any route on the configuration's cards
+    (``roofline.floor_step_seconds``), and two chunks more (the set-up's
+    and the one the window closes on), in whole chunks; so no program,
+    however fast, runs out of steps inside the window.  Steps past the
+    job's cost nothing in set-up (``HeldForces``)."""
     from .roofline import bricks, floor_step_seconds
     chunk = traffic["chunk_steps"]
-    least = floor_step_seconds(bricks(rows, extents(cfg)), cfg["precision"])
+    least = floor_step_seconds(bricks(rows, extents(cfg)), cfg["precision"],
+                               cfg["chips"])
     return chunk * (math.ceil(seconds / least / chunk) + 2)
 
 
@@ -161,6 +164,11 @@ class HeldForces:
 
     def __init__(self, forces):
         self.forces = np.asarray(forces)
+
+    @property
+    def shape(self):
+        """The job's [T, L, 3], as the multi-card loop reads it."""
+        return self.forces.shape
 
     def __getitem__(self, steps):
         f = self.forces

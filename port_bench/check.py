@@ -59,46 +59,56 @@ def node_map(prog_mesh, mesh: fem.Mesh):
 
 
 def readings(cfg, chunk, src, recv, job, first_samples, kept, prog_mesh,
-             device, run_dtype=None):
+             devices, run_dtype=None):
     """{name: gap} of the numbers above; ``job``: the steps of the job
     whose forces the source applies, held at their last value after it
     (as ``cell.HeldForces`` gives them to the program); ``kept`` =
     (start step, u, u-, samples [k, R, 3], u at the end), fields [N, 3]
-    in the program's node order.  ``run_dtype``: the type the reference computes in where it
-    stands in for the program (the control), float64 otherwise."""
+    in the program's node order.  The reference runs on ``devices[0]``;
+    where the run has a second device, the window's chunk runs there,
+    beside the set-up's chunk on the first.  ``run_dtype``: the type the
+    reference computes in where it stands in for the program (the
+    control), float64 otherwise."""
     mesh = fem.build_mesh(cfg)
     out = {"mesh_elements": abs(prog_mesh.lenum - mesh.E),
            "mesh_nodes": abs(prog_mesh.nnum - mesh.N),
            "mesh_dangling": abs(len(prog_mesh.dn_ids) - len(mesh.dn_ids))}
     if out["mesh_elements"] or out["mesh_nodes"] or out["mesh_dangling"]:
         return out
-    ref = fem.Solver(cfg, mesh, src, recv, job, torch.float64, device)
-    alt = (None if run_dtype is None else
-           fem.Solver(cfg, mesh, src, recv, job, run_dtype, device))
+    two = [d for d in devices if d != devices[0]][:1]
+
+    def solvers(dtype):
+        first = fem.Solver(cfg, mesh, src, recv, job, dtype, devices[0])
+        return first, (first.on(two[0]) if two else first)
+
+    ref, ref_w = solvers(torch.float64)
+    alt, alt_w = (None, None) if run_dtype is None else solvers(run_dtype)
     pm = node_map(prog_mesh, mesh)
 
     def field(x, solver):
-        u = torch.zeros((mesh.N, 3), dtype=solver.dtype, device=device)
-        u[torch.as_tensor(pm, device=device)] = torch.as_tensor(
-            np.asarray(x), device=device).to(solver.dtype)
+        u = torch.zeros((mesh.N, 3), dtype=solver.dtype,
+                        device=solver.device)
+        u[torch.as_tensor(pm, device=solver.device)] = torch.as_tensor(
+            np.asarray(x), device=solver.device).to(solver.dtype)
         return u
 
+    s0, u0, up0, samples, u_end = kept
+    k = len(samples)
     with torch.no_grad():
-        u, up = ref.zeros()
-        _, _, ys = ref.run(u, up, 0, chunk)
+        (_, _, ys), (ue, _, ys_w) = fem.run_legs([
+            (ref, *ref.zeros(), 0, chunk),
+            (ref_w, field(u0, ref_w), field(up0, ref_w), s0, k)])
         first = first_samples
-        if alt is not None:
-            first = alt.run(*alt.zeros(), 0, chunk)[2].double().cpu().numpy()
-        out["first_chunk"] = gap(first, ys.cpu().numpy())
-        s0, u0, up0, samples, u_end = kept
-        k = len(samples)
-        ue, _, ys = ref.run(field(u0, ref), field(up0, ref), s0, k)
         end = np.asarray(u_end)
         if alt is not None:
-            ae, _, samples = alt.run(field(u0, alt), field(up0, alt), s0, k)
+            (_, _, first), (ae, _, samples) = fem.run_legs([
+                (alt, *alt.zeros(), 0, chunk),
+                (alt_w, field(u0, alt_w), field(up0, alt_w), s0, k)])
+            first = first.double().cpu().numpy()
             samples = samples.double().cpu().numpy()
             end = ae.double().cpu().numpy()[pm]
-        out["window_chunk"] = gap(samples, ys.cpu().numpy())
+        out["first_chunk"] = gap(first, ys.cpu().numpy())
+        out["window_chunk"] = gap(samples, ys_w.cpu().numpy())
         out["window_field"] = gap(end, ue.cpu().numpy()[pm])
     return out
 

@@ -19,7 +19,8 @@ def tiny():
     """tiny(config, fmax, seed, **run_kw) -> (result, lines): one run of
     the harness on the CPU, on the port's plain versions, at a reduced
     frequency, with chunks of 20 steps, a run of 2000 steps and the
-    set-up of a job of 300 (so the window runs past the job's end)."""
+    set-up of a job of 300 (so the window runs past the job's end); on
+    as many CPU ranks as the configuration's cell has cards."""
     import torch
     from port_bench import cell as C
     from port_bench import run as R
@@ -37,7 +38,7 @@ def tiny():
         cellname = config + ".stations"
         man = C.manifest(C.os.path.dirname(C.HERE))
         entry = {"name": cellname, "config": config, "traffic": "stations",
-                 "chips": 1, "why": "a test"}
+                 "chips": cfg["chips"], "why": "a test"}
         if all(w["name"] != cellname for w in man["workloads"]):
             # a configuration with no cell (loh1_4hz): the first cell's
             # metrics and limits
@@ -59,7 +60,7 @@ def tiny():
         try:
             with tempfile.TemporaryDirectory() as work:
                 return R.run(args, man, entry, cfg, traffic, limits, work,
-                             torch.device("cpu"), **kw)[:2]
+                             [torch.device("cpu")] * cfg["chips"], **kw)[:2]
         finally:
             C.run_steps = real
 

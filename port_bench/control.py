@@ -39,9 +39,10 @@ def main(argv=None):
         args = types.SimpleNamespace(workload=a.workload, seed=seed,
                                      seconds=a.seconds, trace=0)
         with tempfile.TemporaryDirectory(prefix="port_bench_") as work:
-            result, _, _ = R.run(args, man, entry, cfg, traffic, limits, work,
-                              torch.device("cuda", 0),
-                              control=getattr(torch, a.control))
+            result, _, _ = R.run(
+                args, man, entry, cfg, traffic, limits, work,
+                [torch.device("cuda", i) for i in range(entry["chips"])],
+                control=getattr(torch, a.control))
         print(json.dumps({"seed": seed, "program": {
             k: v["value"] for k, v in result["checks"].items()},
             "control": result["control"]}), flush=True)

@@ -31,6 +31,7 @@ for the reference, a lower type for the control.
 
 from __future__ import annotations
 
+import copy
 import math
 from dataclasses import dataclass
 
@@ -167,9 +168,14 @@ def build_mesh(cfg) -> Mesh:
     z0 = np.concatenate(z0_all)
     s = np.round(edge / hmin).astype(np.int64)
     corners = lo[:, None, :] + CORNER_BITS[None] * s[:, None, None]
-    keys = node_keys(corners, dims)
-    ukeys, inv = np.unique(keys.ravel(), return_inverse=True)
-    lnid = inv.reshape(-1, 8).astype(np.int64)
+    keys = node_keys(corners, dims).ravel()
+    # the sorted distinct keys and each corner's index among them (what
+    # np.unique(keys, return_inverse=True) gives), by a mark on every
+    # key of the finest grid
+    marked = np.zeros((dims[0] + 1) * (dims[1] + 1) * (dims[2] + 1), bool)
+    marked[keys] = True
+    ukeys = np.flatnonzero(marked)
+    lnid = (np.cumsum(marked) - 1)[keys].reshape(-1, 8)
     n = len(ukeys)
     nodes = np.empty((n, 3), np.int64)
     nodes[:, 0] = ukeys % (dims[0] + 1)
@@ -335,21 +341,22 @@ def node_tables(cfg, mesh: Mesh):
     mass = np.bincount(mesh.lnid.ravel(), np.repeat(m, 8), minlength=N)
     s = np.round(mesh.edge / mesh.hmin).astype(np.int64)
     far = np.round(np.array(mesh.extents) / mesh.hmin).astype(np.int64)
-    dash = np.zeros((mesh.E, 8, 3))
+    # the elements on a damped face (the others add nothing)
+    lo, hi = mesh.elem_lo == 0, mesh.elem_lo + s[:, None] == far
+    lo[:, 2] = False                               # the free surface
+    b = np.flatnonzero((lo | hi).any(1))
+    dash = np.zeros((len(b), 8, 3))
+    vp, vs = mesh.vp[b], mesh.vs[b]
     for a in range(3):
-        lo_face = mesh.elem_lo[:, a] == 0
-        hi_face = mesh.elem_lo[:, a] + s == far[a]
-        if a == 2:
-            lo_face = np.zeros_like(lo_face)       # the free surface
-        on = ((lo_face[:, None] & (CORNER_BITS[None, :, a] == 0))
-              | (hi_face[:, None] & (CORNER_BITS[None, :, a] == 1)))
+        on = ((lo[b, a][:, None] & (CORNER_BITS[None, :, a] == 0))
+              | (hi[b, a][:, None] & (CORNER_BITS[None, :, a] == 1)))
         for c in range(3):
-            v = mesh.vp if c == a else mesh.vs
+            v = vp if c == a else vs
             dash[:, :, c] += on * v[:, None]
-    dash *= (mesh.rho * (mesh.edge / 2) ** 2)[:, None, None]
+    dash *= (mesh.rho[b] * (mesh.edge[b] / 2) ** 2)[:, None, None]
     damped = np.repeat(mass[:, None], 3, 1)
     for c in range(3):
-        damped[:, c] -= dt * np.bincount(mesh.lnid.ravel(),
+        damped[:, c] -= dt * np.bincount(mesh.lnid[b].ravel(),
                                          dash[:, :, c].ravel(), minlength=N)
     if len(mesh.dn_ids):
         w = mesh.dn_weights
@@ -448,8 +455,9 @@ class Solver:
                                       device=self.device)
         mu, lam = lame(cfg, mesh)
         # [48, 24]: [mu part of ue, lambda part of ue] @ K48 is K ue
-        # (both matrices are symmetric)
-        self.K48 = f(np.concatenate(unit_stiffness(), 0))
+        # (both matrices are symmetric); held negated, so that the product
+        # is the elements' force -K ue itself (a sign flip is exact)
+        self.minus_K48 = f(-np.concatenate(unit_stiffness(), 0))
         self.coef = f(np.stack([dt * dt * mesh.edge * mu,
                                 dt * dt * mesh.edge * lam], 1))   # [E, 2]
         self.lnid = i(mesh.lnid)
@@ -477,6 +485,15 @@ class Solver:
         self.rec_nodes = i(mesh.lnid[e])
         self.rec_phi = f(shape_values(loc))
 
+    def on(self, device):
+        """This solver with its tables on ``device``."""
+        other = copy.copy(self)
+        other.device = torch.device(device)
+        for k, v in vars(self).items():
+            if isinstance(v, torch.Tensor):
+                setattr(other, k, v.to(other.device))
+        return other
+
     def zeros(self):
         z = torch.zeros((self.mesh.N, 3), dtype=self.dtype,
                         device=self.device)
@@ -489,8 +506,11 @@ class Solver:
         E = self.mesh.E
         ue = u[self.lnid].reshape(E, 24)
         ab = (self.coef[:, :, None] * ue[:, None, :]).reshape(E, 48)
-        fe = -(ab @ self.K48)                                  # [E, 24]
-        fe = torch.cat([fe.reshape(-1, 3), fe.new_zeros((1, 3))])
+        # the element forces [E, 24] as [8 E, 3] rows, then the all-zero
+        # row that pads ``inc``
+        fe = ue.new_empty((8 * E + 1, 3))
+        torch.matmul(ab, self.minus_K48, out=fe[:8 * E].view(E, 24))
+        fe[8 * E] = 0.0
         F = fe[self.inc].sum(1)
         F.index_add_(0, self.src_nodes, self.src_w * float(
             self.decay[min(s, len(self.decay) - 1)]))
@@ -505,8 +525,17 @@ class Solver:
 
     def run(self, u, up, s0, k):
         """Steps [s0, s0 + k) from (u, u-): (u, u-, samples [k, R, 3])."""
-        out = []
-        for s in range(s0, s0 + k):
-            out.append(self.sample(u))
-            u, up = self.step(u, up, s)
-        return u, up, torch.stack(out)
+        return run_legs([(self, u, up, s0, k)])[0]
+
+
+def run_legs(legs):
+    """Runs of solvers [(solver, u, u-, s0, k)] stepped in turns, each
+    as ``Solver.run`` steps it; legs on different devices overlap.
+    Returns [(u, u-, samples [k, R, 3])] in the legs' order."""
+    state = [[u, up, []] for _, u, up, _, _ in legs]
+    for i in range(max(k for *_, k in legs)):
+        for (solver, _, _, s0, k), st in zip(legs, state):
+            if i < k:
+                st[2].append(solver.sample(st[0]))
+                st[0], st[1] = solver.step(st[0], st[1], s0 + i)
+    return [(u, up, torch.stack(ys)) for u, up, ys in state]

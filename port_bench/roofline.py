@@ -26,6 +26,10 @@ peak), the peak of the H100 SXM data sheet at 700 W without the tensor
 cores: 67 TFLOP/s in float32, 34 in float64.  So a launch of 1000 steps
 is bound by its operations, and a launch of one step by its bytes.
 
+On c cards that split the bricks between them, each card moves and
+computes a c-th of the bytes and operations at its own peaks, so the
+least time of a step is the one card's over c.
+
 The bricks are the runs of element rows of one edge in the reference
 mesh (``reference.fem.element_rows``).
 """
@@ -72,15 +76,17 @@ def least_seconds(elements, nodes, steps, precision):
                / PEAK_FLOP_PER_S[precision])
 
 
-def least_step_seconds(brick_sizes, steps_per_call, precision):
-    """The least time of one step of every brick, where each call runs
+def least_step_seconds(brick_sizes, steps_per_call, precision, chips=1):
+    """The least time of one step of every brick on ``chips`` cards
+    that share its bytes and operations, where each call runs
     ``steps_per_call`` steps."""
     return sum(least_seconds(e, n, steps_per_call, precision)
-               for e, n in brick_sizes) / steps_per_call
+               for e, n in brick_sizes) / steps_per_call / chips
 
 
-def floor_step_seconds(brick_sizes, precision):
-    """The least time of one step of every brick on any route: its
-    operations alone, as a call of ever more steps approaches it."""
+def floor_step_seconds(brick_sizes, precision, chips=1):
+    """The least time of one step of every brick on any route on
+    ``chips`` cards: its operations alone at their summed peak, as a
+    call of ever more steps approaches it."""
     return sum(call_flop(e, n, 1) for e, n in brick_sizes) \
-        / PEAK_FLOP_PER_S[precision]
+        / (PEAK_FLOP_PER_S[precision] * chips)

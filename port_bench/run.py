@@ -8,7 +8,9 @@ too).  The last line of standard output is one JSON object: ``correct``,
 ``attempted`` (the window's chunks), ``failed`` (checked chunks over
 their limits), ``metrics`` (the cell's end-to-end metrics with
 ``--trace 0``, its per-layer metrics with ``--trace 1``), ``device``,
-with ``--trace 1`` ``breakdown``, ``kernel_build_s`` (the seconds of
+with ``--trace 1`` ``breakdown``, ``route`` (the program's name of the
+route it took; ``mc:<path>`` on a cell of several cards, which runs a
+rank on each of cuda:0 ... cuda:chips-1), ``kernel_build_s`` (the seconds of
 ``setup_s`` in which the program compiled its CUDA kernels: 0 unless the
 checkout had not built them yet), and last ``checks``: each number
 compared beside its limit, which also end standard error.  The run
@@ -82,7 +84,7 @@ def main(argv=None):
         return 2
     with tempfile.TemporaryDirectory(prefix="port_bench_") as work:
         out = run(args, man, entry, cfg, traffic, limits, work,
-                  torch.device("cuda", 0))
+                  [torch.device("cuda", i) for i in range(entry["chips"])])
     if out is None:
         return 3
     result, lines, chunks = out
@@ -98,13 +100,23 @@ def main(argv=None):
     return 0
 
 
-def run(args, man, entry, cfg, traffic, limits, work, device,
+def _clone(tree):
+    """A copy of every tensor of a (nested) tuple or list of tensors."""
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_clone(x) for x in tree)
+    return tree.clone()
+
+
+def run(args, man, entry, cfg, traffic, limits, work, devices,
         breaker=None, control=None):
-    """One run; returns (result, check lines) or None where the import
-    guard fails.  ``breaker``, for the tests, wraps the route function
-    that the window drives.  ``control`` (a torch type), for
-    ``control.py`` alone, adds the readings of the reference computed in
-    that type in the program's place (``result["control"]``)."""
+    """One run on ``devices``, one rank on each (the cell's cards; a
+    single device takes the single-device routes, several the program's
+    multi-card pipeline); returns (result, check lines, the window's
+    chunk seconds) or None where the import guard fails.  ``breaker``,
+    for the tests, wraps the route function that the window drives.
+    ``control`` (a torch type), for ``control.py`` alone, adds the
+    readings of the reference computed in that type in the program's
+    place (``result["control"]``)."""
     import torch
     from hercules_tpu_torch.kernels import build as kernel_build
     from hercules_tpu_torch.sim import Simulation
@@ -117,6 +129,9 @@ def run(args, man, entry, cfg, traffic, limits, work, device,
     from port_bench import check, roofline
     from port_bench.reference import fem
     from port_bench.trace import Tracer
+
+    device = devices[0]
+    cards = sorted({d.index or 0 for d in devices})
 
     marks = [("imports", time.perf_counter())]
     rows = fem.element_rows(cfg)
@@ -132,9 +147,28 @@ def run(args, man, entry, cfg, traffic, limits, work, device,
 
     sim = Simulation.setup(physics, numerical, cvmdb)
     marks.append(("Simulation.setup", time.perf_counter()))
-    route, plan, _ = sim.route("auto")
+    route, plan = ("multichip", None) if len(devices) > 1 else \
+        sim.route("auto")[:2]
     marks.append(("plan", time.perf_counter()))
-    if route == "pallas":
+    if route == "multichip":
+        # the program's pipeline on several cards (Simulation.run with
+        # ndev > 1, the CLI's --ndev): its path chosen and its stations
+        # attached under the "Solver tables" span, then its loop
+        def fn(*_, on_chunk, on_samples, on_route, **__):
+            sim.src_forces = held
+            try:
+                return sim._run_multichip(
+                    len(devices), devices, device, dtype, chunk, steps,
+                    on_chunk, lambda: None, work, (0, None), st.nodes,
+                    st.phi, None, None, on_samples, None, None)
+            finally:
+                on_route(getattr(sim, "solver_path_name", None))
+
+        snapshot = _clone
+
+        def fields(snap):
+            return [sim.mc_path.u_global(snap), sim.mc_path.up_global(snap)]
+    elif route == "pallas":
         fn = run_pallas_solver
 
         def snapshot(state):
@@ -160,13 +194,15 @@ def run(args, man, entry, cfg, traffic, limits, work, device,
         cfg["precision"]]
     seconds = traffic["trace_seconds"] if args.trace else args.seconds
     win = C.Window(seconds, chunk, args.seed, snapshot,
-                   tracer=(lambda: Tracer(work)) if args.trace else None,
+                   tracer=(lambda: Tracer(work, cards)) if args.trace
+                   else None,
                    rate_seconds=traffic["rate_seconds"] if args.trace
                    else 0.0)
     st = sim.stations
+    held = C.HeldForces(sim.src_forces)
     taken = []
     try:
-        fn(plan, sim.tables, sim.src_ids, C.HeldForces(sim.src_forces),
+        fn(plan, sim.tables, sim.src_ids, held,
            steps, sim.params.delta_t, st_nodes=st.nodes, st_phi=st.phi,
            dtype=dtype, device=device, chunk=chunk, on_chunk=win.on_chunk,
            on_samples=win.on_samples, on_route=taken.append)
@@ -186,8 +222,10 @@ def run(args, man, entry, cfg, traffic, limits, work, device,
     # steps a kernel launch advances on the route the program took (its
     # names: cuda_chunk and cuda_bkt_chunk launch once a chunk)
     launch_steps = chunk if route_name.endswith("_chunk") else 1
-    memory_peak = (torch.cuda.max_memory_allocated(device)
-                   if device.type == "cuda" else 0)
+    peaks = ([torch.cuda.max_memory_allocated(i) for i in cards]
+             if device.type == "cuda" else [0])
+    memory_peak = max(peaks)
+    print(f"memory peak bytes by card: {peaks}", file=sys.stderr)
 
     kept_start = fields(win.kept[1])
     kept_end = fields(win.kept_end)[0]
@@ -197,11 +235,13 @@ def run(args, man, entry, cfg, traffic, limits, work, device,
     elements = prog_mesh.lenum
     timers = dict(GLOBAL_TIMERS.acc)
     trace = win.trace
-    del sim, plan, fn, snapshot, fields
+    del sim, plan, fn, snapshot, fields, held
     win.kept = win.kept_end = win.candidate = None
     gc.collect()
     if device.type == "cuda":
-        torch.cuda.empty_cache()
+        for i in cards:
+            with torch.cuda.device(i):
+                torch.cuda.empty_cache()
 
     bad = C.forbidden_modules()
     if bad:
@@ -209,12 +249,15 @@ def run(args, man, entry, cfg, traffic, limits, work, device,
               file=sys.stderr)
         return None
 
+    t_check = time.perf_counter()
     values = check.readings(cfg, chunk, src, recv, job,
-                            win.first_samples, kept, prog_mesh, device)
+                            win.first_samples, kept, prog_mesh, devices)
+    print(f"reference seconds: {time.perf_counter() - t_check:.3f}",
+          file=sys.stderr)
     correct, lines = check.judge(values, limits)
     control_values = None if control is None else check.readings(
         cfg, chunk, src, recv, job, win.first_samples, kept, prog_mesh,
-        device, run_dtype=control)
+        devices, run_dtype=control)
     failed = sum(1 for group in (("first_chunk",),
                                  ("window_chunk", "window_field"))
                  if any(not g for n, _, _, g in lines if n in group))
@@ -238,8 +281,9 @@ def run(args, man, entry, cfg, traffic, limits, work, device,
             "kernels"]
         ctx = types.SimpleNamespace(
             timers=timers, trace=trace, steps=win.steps, chunk=chunk,
-            untraced=win.untraced, bricks=bricks,
-            precision=cfg["precision"], launch_steps=launch_steps,
+            untraced=win.untraced, bricks=bricks, ranks=len(devices),
+            cards=len(cards), precision=cfg["precision"],
+            launch_steps=launch_steps,
             kernel_of=lambda n: next((k for k in kernels if k in n), None))
         for m in per:
             v = C.reader(m["name"])(ctx)

@@ -103,3 +103,26 @@ def test_same_seed_same_inputs():
     c = C.draw_source(cfg, 2 ** 33 + 2, rows)
     assert a == b and a != c
     assert json.dumps(a)
+
+
+@pytest.mark.parametrize("name,fmax", [("b1_1hz", 0.25), ("loh1_4hz", 1.0)])
+def test_legs_in_turns_are_the_runs_alone(name, fmax):
+    """Two legs stepped in turns (``run_legs``, the check's set-up chunk
+    and window chunk), one of them on a copy of the solver
+    (``Solver.on``, a second card in a run that has one), give the bits
+    of each leg run alone."""
+    import torch
+    cfg = _cfg(name, fmax)
+    rows = fem.element_rows(cfg)
+    mesh = fem.build_mesh(cfg)
+    ref = fem.Solver(cfg, mesh, C.draw_source(cfg, 3, rows),
+                     C.receivers(cfg), 50, torch.float64, "cpu")
+    u, up, ys = ref.run(*ref.zeros(), 0, 40)
+    other = ref.on("cpu")
+    assert other is not ref and other.device == torch.device("cpu")
+    legs = fem.run_legs([(ref, *ref.zeros(), 0, 40),
+                         (other, u, up, 40, 25)])
+    alone = ref.run(u, up, 40, 25)
+    for got, want in zip(legs, [(u, up, ys), alone]):
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert ys.abs().max() > 0

@@ -41,7 +41,9 @@ def test_traced_result_line_shape(tiny):
     # on the CPU the trace has no device operation: the device metrics
     # find nothing to read and are left out, the program's spans are read
     assert set(result["metrics"]) == {"setup.mesh_s",
-                                      "setup.plan_tables_s"}
+                                      "setup.plan_tables_s",
+                                      "setup.assemble_s",
+                                      "setup.source_forces_s"}
 
 
 def test_no_card_no_result():

@@ -1,5 +1,5 @@
 """The traced window: ``torch.profiler`` over CPU and CUDA, and the
-reduction of its trace to the device's busy time, operations by name,
+reduction of its trace to each card's busy time, operations by name,
 launches and the longest idle gaps by what the host was doing.
 
 The profiler starts at a chunk boundary, and from the next one a user
@@ -21,11 +21,12 @@ HOST_CATS = ("cpu_op", "cuda_runtime", "cuda_driver", "user_annotation")
 class Tracer:
     """Starts the profiler; ``open`` starts the window's annotation, once
     the profiler has warmed up; ``stop`` ends both and returns the
-    reduced trace (``reduce``)."""
+    reduced trace (``reduce`` over the run's ``cards``)."""
 
-    def __init__(self, workdir):
+    def __init__(self, workdir, cards=(0,)):
         import torch
         from torch.profiler import ProfilerActivity, profile
+        self.cards = cards
         self.path = os.path.join(workdir, "trace.json")
         self.prof = profile(activities=[ProfilerActivity.CPU,
                                         ProfilerActivity.CUDA])
@@ -47,7 +48,7 @@ class Tracer:
         with open(self.path) as f:
             events = json.load(f)["traceEvents"]
         os.remove(self.path)
-        return reduce(events)
+        return reduce(events, self.cards)
 
 
 def _union(intervals):
@@ -61,16 +62,26 @@ def _union(intervals):
     return out
 
 
-def reduce(events):
-    """{window_s, busy_s, device: [(name, cat, start, dur)] in seconds
-    from the window's start, device_ops: [[name, s]] top 10, idle_gaps:
-    [[host activity, s]] top 10}."""
+def card_of(event):
+    """The index of the card a device operation ran on: the trace's
+    ``device`` argument, else its process id, which the profiler sets
+    to the same (a run on one card counts every operation as its)."""
+    return int(event.get("args", {}).get("device", event.get("pid", 0)))
+
+
+def reduce(events, cards=(0,)):
+    """{window_s, busy_s: the mean over ``cards`` (the indices of the
+    run's cards) of each card's busy seconds, busy_by_card: [s] in the
+    order of ``cards``, device: [(name, cat, start, dur)] in seconds
+    from the window's start, every card's, device_ops: [[name, s]] top
+    10 over the cards, idle_gaps: [[host activity, s]] top 10, the
+    stretches in which no card was busy}."""
     win = [e for e in events if e.get("ph") == "X" and e.get("name") == WINDOW]
     if not win:
         raise RuntimeError("the trace holds no window annotation")
     w0 = float(win[0]["ts"])
     w1 = w0 + float(win[0]["dur"])
-    dev, host = [], []
+    dev, host, on = [], [], []
     for e in events:
         if e.get("ph") != "X" or "dur" not in e:
             continue
@@ -82,10 +93,13 @@ def reduce(events):
         cat = e.get("cat", "")
         if cat in DEVICE_CATS:
             dev.append((e["name"], cat, a, b))
+            on.append(cards[0] if len(cards) == 1 else card_of(e))
         elif cat in HOST_CATS and e["name"] != WINDOW:
             host.append((e["name"], a, b))
+    busy_us = [sum(b - a for a, b in _union(
+        [(a, b) for (_, _, a, b), c in zip(dev, on) if c == card]))
+        for card in cards]
     busy = _union([(a, b) for _, _, a, b in dev])
-    busy_us = sum(b - a for a, b in busy)
     by_name = {}
     for name, _, a, b in dev:
         by_name[name] = by_name.get(name, 0.0) + (b - a) * 1e-6
@@ -113,7 +127,8 @@ def reduce(events):
         named.append([best, (b - a) * 1e-6])
     return {
         "window_s": (w1 - w0) * 1e-6,
-        "busy_s": busy_us * 1e-6,
+        "busy_s": sum(b * 1e-6 for b in busy_us) / len(cards),
+        "busy_by_card": [b * 1e-6 for b in busy_us],
         "device": [(n, c, (a - w0) * 1e-6, (b - a) * 1e-6)
                    for n, c, a, b in dev],
         "device_ops": [[n, s] for n, s in ops],

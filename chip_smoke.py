@@ -187,7 +187,11 @@ JSON line {"phase": ...}:
               (stages, blocks per SM, resident blocks, slab, items)
               equal to kernels/tiles.py's step_grid, one step's bytes
               equal to the synchronous march's (K1_SYNC_DIGESTS), and
-              brick_step.configs counting the B1 launch under its key.
+              brick_step.configs counting the B1 launch under its key;
+              K1's lean and canonical forms against its carry form
+              (k1_forms: u+ byte for byte, K1_LEAN_DIGESTS, the rows
+              they must not write left alone), and the three forms
+              timed at 2^21 in both types with the rows each moves.
 3. k5      -- brick_chunk (K5) against the K1 step loop on the
               2048-element box and the four-layer Rayleigh box, chunks
               of 16 steps, 37 steps, float64 and float32: states
@@ -443,9 +447,9 @@ def require(cond, msg):
 
 def tile_registers(log):
     """{kernel<T[,CT,kappa]>: registers} of the tiled kernels (K5:
-    kernel<T>; K1: kernel<T,BX,BY,BA>, one a set of corner roles; K2,
-    K3, K4, K6: kernel<T,CT,kappa>) from the ptxas -v output in the
-    build log."""
+    kernel<T>; K1: kernel<T,BX,BY,BA>, one a set of corner roles, and
+    kernel<T,BX,BY,BA,lean> its lean form; K2, K3, K4, K6:
+    kernel<T,CT,kappa>) from the ptxas -v output in the build log."""
     types = {"f": "float", "d": "double", "13__nv_bfloat16": "bf16"}
     regs, entry = {}, None
     for ln in log.splitlines():
@@ -454,14 +458,15 @@ def tile_registers(log):
             bkt = re.search(r"(bkt_(?:step|chunk|node|corner)_kernel)I([fd])"
                             r"([fd]|13__nv_bfloat16)Lb([01])E", m.group(1))
             brick = re.search(r"(brick_(?:step|chunk)_kernel)I([fd])"
-                              r"((?:Li\d+E)*)E", m.group(1))
+                              r"((?:Li\d+E)*)(?:Lb([01])E)?E", m.group(1))
             entry = None
             if bkt:
                 k, t, ct, kappa = bkt.groups()
                 entry = f"{k}<{types[t]},{types[ct]},{kappa}>"
             elif brick:
-                k, t, roles = brick.groups()
+                k, t, roles, lean = brick.groups()
                 args = [types[t], *re.findall(r"\d+", roles)]
+                args += ["lean"] if lean == "1" else []
                 entry = f"{k}<{','.join(args)}>"
         m = re.search(r"Used (\d+) registers", ln)
         if m and entry:
@@ -499,6 +504,98 @@ K1_SYNC_DIGESTS = {
     "two_planes float64":
         "43a5b8f8e1b1db9173df5edcaa7135978ad83fb734b00b36284f4f22a4459686",
 }
+
+
+# sha256 of rows 0:3 (u+) of the step of K1_SYNC_DIGESTS, by brick and
+# type: K1's lean form writes these bytes alone, its canonical form and
+# its carry form write them in rows 0:3
+K1_LEAN_DIGESTS = {
+    "b1 float32":
+        "8265683187a293d950ead90134631953b540f4d44f176cce6d756c2d13112f39",
+    "b1 float64":
+        "269bdfa2056650d2e76b209a073842aa82616b803672746e5c472930ab60168b",
+    "graded_fine float32":
+        "3de3836a24e2e6eb9dc6d1e9b863364214ef5c735c2975b7538697d3df44ec25",
+    "graded_fine float64":
+        "0d495146277c9f39f271d83c3f69421e576b8f01ab6e09ecfda2c5f432f16b32",
+    "two_planes float32":
+        "c8b0e0ba6965ef524eb8e83802e88d906fd282fce48150272c2fff0037a41d0e",
+    "two_planes float64":
+        "53cce297fbc42caf541f7904aa3acf947cf837458cb39a2407e242ab0e612a5d",
+}
+
+# rows of [LEN] values each form of K1 moves a step (csrc/brick_tile.cuh)
+K1_FORM_ROWS = {"carry": 23, "lean": 16, "canonical": 21}
+
+
+def k1_forms(dev, reps=15, n=40):
+    """K1's lean and canonical forms against its carry form on the
+    seeded bricks (SEEDED_BRICKS, seed 21), both types: the lean form,
+    from u and u- in tensors of their own, writes the carry form's rows
+    0:3 (u+) byte for byte, their digest K1_LEAN_DIGESTS, and leaves a
+    NaN in rows 3:8 of its out's buffer; the canonical form writes the
+    carry form's rows 0:6 and zeros in rows 6:8; both forms take the
+    same launch grid (step_grid_of).  At B1's 2^21 elements
+    each form timed with CUDA events (the median over ``reps`` runs of
+    ``n`` launches back to back, ms a launch), with the rows it moves
+    and their rate.  Returns {"digests", "timing"}."""
+    import statistics
+    import torch
+    from hercules_tpu_torch.kernels.brick_step import (brick_step,
+                                                       brick_step_lean,
+                                                       step_grid_of)
+    digest = lambda t: hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+    digests, timing = {}, {}
+    for name, (shape, axes) in SEEDED_BRICKS.items():
+        for dtype in (torch.float32, torch.float64):
+            key = f"{name} {str(dtype)[6:]}"
+            S, K, offs = seeded_brick(shape, axes, dtype, 21, dev)
+            grid = step_grid_of(offs, S.shape[1], dtype, dev.index)
+            require(step_grid_of(offs, S.shape[1], dtype, dev.index,
+                                 lean=True) == grid, f"K1 lean grid {key}")
+            carry = brick_step(S, K, offs, None)
+            U, Um = S[0:3].clone(), S[3:6].clone()
+            lean = torch.full_like(S, float("nan"))
+            brick_step_lean(U, Um, K, offs, None, lean[0:3])
+            canon = torch.full_like(S, float("nan"))
+            brick_step_lean(U, Um, K, offs, None, canon, canonical=True)
+            digests[key] = digest(lean[0:3])
+            require(digest(carry[0:3]) == digests[key] == digest(canon[0:3])
+                    and lean[3:8].isnan().all().item()
+                    and torch.equal(canon[3:6], carry[3:6])
+                    and not canon[6:8].any().item(),
+                    f"K1 forms on {key}")
+            if name != "b1":
+                continue
+            T = torch.empty_like(S)
+            Tu = T[0:3]
+            calls = {"carry": lambda: brick_step(S, K, offs, None, out=T),
+                     "lean": lambda: brick_step_lean(U, Um, K, offs, None,
+                                                     Tu),
+                     "canonical": lambda: brick_step_lean(
+                         U, Um, K, offs, None, T, canonical=True)}
+            for form, fn in calls.items():
+                for _ in range(3):
+                    fn()
+                ts = []
+                for _ in range(reps):
+                    a = torch.cuda.Event(enable_timing=True)
+                    b = torch.cuda.Event(enable_timing=True)
+                    a.record()
+                    for _ in range(n):
+                        fn()
+                    b.record()
+                    b.synchronize()
+                    ts.append(a.elapsed_time(b) / n)
+                ms = statistics.median(ts)
+                rows = K1_FORM_ROWS[form]
+                timing[f"{form} {str(dtype)[6:]}"] = {
+                    "ms": ms, "rows": rows,
+                    "GB_per_s": rows * S.shape[1] * S.element_size()
+                    / (ms * 1e-3) / 1e9}
+    require(digests == K1_LEAN_DIGESTS, f"K1 lean digests {digests}")
+    return {"digests": digests, "timing": timing,
+            "card": torch.cuda.get_device_name(dev)}
 
 
 def seeded_brick(shape, axes, dtype, seed, device):
@@ -2761,8 +2858,9 @@ def main():
         b1 = grids["b1 float64"]
         require(brick_step.configs.get((b1[0], b1[1], b1[3]), 0) >= 1,
                 f"K1 configurations {brick_step.configs}")
+        forms = k1_forms(dev)
         emit({"phase": "k1", "cases": cases, "grids": grids,
-              "digests_equal": True,
+              "digests_equal": True, "forms": forms,
               "configs": {str(k): v for k, v in brick_step.configs.items()},
               "launches": brick_step.launches})
 

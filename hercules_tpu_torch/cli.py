@@ -42,7 +42,10 @@ than rayleigh, mass, none or bkt, which runs undamped, or
 stiffness_calculation_method = conventional); unstructured for a mesh
 that does not decompose into bricks, fixed-base buildings, or nonlinear
 soil or DRM part 2 on a plan the mesh route's rules refuse; a
-"solver path reason:" line then says why.  Stations in nonlinear
+"solver path reason:" line then says why.  Where K1 ran, a "K1
+launches:" line gives its launches and the share of them in its lean
+form (u+ alone; the step route's steps but each chunk's last).
+Stations in nonlinear
 elements carry 17 more columns (strain, stress, plastic multiplier,
 yield value, hardened strength).
 
@@ -132,6 +135,7 @@ def main(argv=None):
     from .physics.consts import critical_dt
     from .utils.stats import mesh_stats
 
+    from .kernels.brick_step import brick_step
     from .sim import (SimOutputs, Simulation, read_restart,
                       write_station_files)
     from .utils.timers import GLOBAL_TIMERS, measure, print_timing_stat
@@ -253,6 +257,7 @@ def main(argv=None):
     # does once the route is chosen; then the 4-D volume, plane and
     # checkpoint taps (closed by sim.run)
     restart = read_restart(p, rundir)
+    k1_before = brick_step.launches, brick_step.lean_launches
     with measure("Solver", device):
         state, samples = sim.run(
             device=device, on_chunk=on_chunk,
@@ -267,6 +272,11 @@ def main(argv=None):
               f"({done_steps / max(el, 1e-9):.1f} steps/s)\n")
     if sim.solver_path_reason:
         mon.print(f"solver path reason: {sim.solver_path_reason}\n")
+    k1, k1_lean = (brick_step.launches - k1_before[0],
+                   brick_step.lean_launches - k1_before[1])
+    if k1:
+        mon.print(f"K1 launches: {k1}, lean {k1_lean} "
+                  f"({k1_lean / k1:.3f})\n")
     mon.print(f"solver_run done: {el:.1f} s\n")
 
     if sim.stations is not None:

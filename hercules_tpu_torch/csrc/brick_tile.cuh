@@ -7,7 +7,9 @@
 //
 // Layout (hercules_tpu_torch/solver/fused_brick.py):
 //   S [8, len]: rows 0:3 = u (this step), 3:6 = u- (previous step),
-//               6:8 = zero rows carried through.
+//               6:8 = zero rows carried through.  K1's lean form reads
+//               u and u- from two separate blocks of 3 rows and writes
+//               u+ alone (brick_tile_step_staged's forms).
 //   K [8, len]: rows 0:3 = (c1, c2, beta) of the element whose lowest
 //               corner is this column (zero for padding and invalid
 //               elements), 3:6 = mass_minusaM, 6 = inv_mass, 7 = 0.
@@ -338,15 +340,36 @@ struct Corners {
   }
 };
 
-// One step of work item `item` by the calling block: S -> out at the
-// item's owned nodes, as brick_tile_step without sources, on a brick
-// whose corner roles are (BX, BY, BA).  smem holds step_smem_bytes<T>()
-// bytes.  One work item per block: a call's last shared-memory reads
-// are not separated from a next call's writes.
-template <typename T, int BX, int BY, int BA>
+// The rows the staged march moves, by form (Lean a template argument,
+// canon a run-time flag of the lean form; each row len values):
+//   carry (Lean false): reads u = U rows 0:3, u- = Um rows 0:3 and
+//        rows 6:8 of U, which it stores again; writes out rows 0:3 =
+//        u+, 3:6 = u (the next step's u-), 6:8 = those rows: S's 8 rows
+//        and K's 7 in, 8 out, 23 in all.  Um = U + 3 len: S (u, u-, 0,
+//        0) in, out the same layout, as every route but the step
+//        route's single brick takes it (mesh, slab and multi-process
+//        fragments).
+//   lean (canon false): reads u and u- from two separate blocks of 3
+//        rows and K's 7, writes out rows 0:3 = u+ alone: 13 in, 3 out,
+//        16 in all.  The step route keeps its displacement levels in a
+//        ring of such blocks, so the next step's u- is this step's u
+//        where it lies: neither the copy of u nor the zero rows move.
+//   canonical (canon true): the lean reads; writes out rows 0:3 = u+,
+//        3:6 = u and 6:8 = 0, the layout S again (13 in, 8 out, 21):
+//        the step route's last step of a chunk.
+// u+ is the same in every form, bit for bit.
+
+// One step of work item `item` by the calling block: (U, Um) -> out at
+// the item's owned nodes, as brick_tile_step without sources, on a
+// brick whose corner roles are (BX, BY, BA), in the form Lean / canon
+// (above).  smem holds step_smem_bytes<T>() bytes.  One work item per
+// block: a call's last shared-memory reads are not separated from a
+// next call's writes.
+template <typename T, int BX, int BY, int BA, bool Lean>
 __device__ __forceinline__ void brick_tile_step_staged(
-    const T* __restrict__ S, const T* __restrict__ K, T* __restrict__ out,
-    int len, const Geom& g, int item, T* smem) {
+    const T* __restrict__ U, const T* __restrict__ Um,
+    const T* __restrict__ K, T* __restrict__ out, int len, const Geom& g,
+    int item, T* smem, bool canon) {
   using C = Corners<BX, BY, BA>;
   constexpr bool kStaged = sizeof(T) == 4;
   T* lo = smem;                           // [kF]
@@ -387,8 +410,8 @@ __device__ __forceinline__ void brick_tile_step_staged(
         const bool ok =
             a >= 0 && x <= g.nx && y <= g.ny && n >= 0 && n < len;
         const int m = ok ? n : 0;
-        cp_async(d + c * NN + q, S + c * len + m, ok);
-        cp_async(d + (3 + c) * NN + q, S + (3 + c) * len + m, ok);
+        cp_async(d + c * NN + q, U + c * len + m, ok);
+        cp_async(d + (3 + c) * NN + q, Um + c * len + m, ok);
       }
     }
   };
@@ -466,12 +489,13 @@ __device__ __forceinline__ void brick_tile_step_staged(
                      u[c]);
     }
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      out[c * len + n] = un[c];
-      out[(3 + c) * len + n] = u[c];
+    for (int c = 0; c < 3; ++c) out[c * len + n] = un[c];
+    if (!Lean || canon) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) out[(3 + c) * len + n] = u[c];
+      out[6 * len + n] = Lean ? T(0) : z[0];
+      out[7 * len + n] = Lean ? T(0) : z[1];
     }
-    out[6 * len + n] = z[0];
-    out[7 * len + n] = z[1];
   };
 
   // the march: one copy group a plane (the state ahead; in float32 a
@@ -509,8 +533,10 @@ __device__ __forceinline__ void brick_tile_step_staged(
     cp_async_commit();
     T kv[4], z[2];
     if (upd) {
-      z[0] = S[6 * len + n];
-      z[1] = S[7 * len + n];
+      if (!Lean) {
+        z[0] = U[6 * len + n];
+        z[1] = U[7 * len + n];
+      }
       if (!kStaged)
 #pragma unroll
         for (int r = 0; r < 4; ++r) kv[r] = K[(3 + r) * len + n];

@@ -55,6 +55,10 @@ SIGNATURES = {
     "ht_brick_step_f64": [_P, _P, _P, _I, _P, _I, _P],
     "ht_brick_step_grid_f32": [_P, _I, _I, _P],
     "ht_brick_step_grid_f64": [_P, _I, _I, _P],
+    "ht_brick_step_lean_f32": [_P, _P, _P, _P, _I, _P, _I, _P, _I],
+    "ht_brick_step_lean_f64": [_P, _P, _P, _P, _I, _P, _I, _P, _I],
+    "ht_brick_step_lean_grid_f32": [_P, _I, _I, _P],
+    "ht_brick_step_lean_grid_f64": [_P, _I, _I, _P],
     "ht_brick_chunk_f32": [_P, _P, _P, _I, _P, _I, _P, _P, _I, _P, _P, _P,
                            _P, _I, _P, _I, _P],
     "ht_brick_chunk_f64": [_P, _P, _P, _I, _P, _I, _P, _P, _I, _P, _P, _P,
@@ -221,22 +225,25 @@ def capture_nodes(stream) -> int:
 
 
 # the launches counted while a CUDA graph is captured, {(counter,
-# config): n}; None when no capture is in progress (tally)
+# config, *also): n}; None when no capture is in progress (tally)
 _TALLY = None
 
 
-def launched(counter, config=None, n=1):
+def launched(counter, config=None, n=1, *also):
     """Count n launches of the kernel wrapper ``counter`` in its
     ``launches`` (and in ``counter.configs[config]`` where a config is
-    given), or, while a capture is tallied, in the tally alone: a
+    given, and in each integer attribute of ``counter`` named in
+    ``also``), or, while a capture is tallied, in the tally alone: a
     captured launch runs only when its graph is replayed."""
     if _TALLY is not None:
-        key = (counter, config)
+        key = (counter, config, *also)
         _TALLY[key] = _TALLY.get(key, 0) + n
         return
     counter.launches += n
     if config is not None:
         counter.configs[config] = counter.configs.get(config, 0) + n
+    for name in also:
+        setattr(counter, name, getattr(counter, name) + n)
 
 
 @contextmanager
@@ -255,8 +262,8 @@ def tally():
 def replayed(held):
     """Count the launches of a graph's capture (``tally``) once more:
     the graph has been replayed."""
-    for (counter, config), n in held.items():
-        launched(counter, config, n)
+    for (counter, config, *also), n in held.items():
+        launched(counter, config, n, *also)
 
 
 def signature(args) -> tuple:

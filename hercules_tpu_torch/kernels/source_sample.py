@@ -7,9 +7,12 @@ launches of its step kernel.
 layout.  Called with (S, inc, samples) it adds the increments inc [3,
 L] to S's displacement at the sources, then writes the stations'
 samples of S into samples [ns, 3]; inc or samples None leaves that half
-out.  Both are rows of a chunk's buffers (``solver/chunking.py:
-ChunkBuffers``), which the checks do not tell apart: they are kept by
-the rows' shapes, strides, type and device, not by their addresses.
+out.  S is a state [8, LEN] or a displacement alone, a contiguous [3,
+LEN] block (the step route's ring, ``solver/fused_brick.py``): only its
+rows 0:3 are read and written.  inc and samples are rows of a chunk's
+buffers (``solver/chunking.py:ChunkBuffers``), which the checks do not
+tell apart: they are kept by the rows' shapes, strides, type and
+device, not by their addresses.
 CUDA tensors launch the kernel; CPU tensors run ``source_sample_plain``,
 the step route's torch operations (``index_add_``, ``sample_stations``).
 It counts its kernel launches in ``SourceSample.launches``
@@ -76,9 +79,9 @@ def _prepare(S, inc, samples, io):
         raise ValueError(f"source_sample: no kernel for device {dev}")
     if dt not in (torch.float32, torch.float64):
         raise TypeError(f"source_sample: dtype {dt} (float32 or float64)")
-    if S.dim() != 2 or S.shape[0] != 8 or not S.is_contiguous():
+    if S.dim() != 2 or S.shape[0] not in (3, 8) or not S.is_contiguous():
         raise ValueError(f"source_sample: S must be a contiguous [8, LEN] "
-                         f"tensor, got {tuple(S.shape)}")
+                         f"or [3, LEN] tensor, got {tuple(S.shape)}")
     for arg, spec, shape in (("inc", inc, (3, io.L)),
                              ("samples", samples, (io.ns, 3))):
         if spec is not None and spec != (shape, (shape[1], 1), dt, dev):

@@ -124,11 +124,13 @@ class ChunkGraphs:
 
     ``graphs(state, k, run)`` advances ``state`` by k steps, where
     ``run(state)`` issues the k steps and returns the state: it calls
-    ``run`` uncaptured, and where the graphs are ``enabled`` and k is the
-    loop's ``chunk`` and even it then captures ``run`` once more from
-    the state that came back (k even brings the state back to its own
-    buffers), so that the uncaptured chunk has checked every call
-    signature of the kernel wrappers before the capture.  From the next
+    ``run`` uncaptured, and where the graphs are ``enabled``, k is the
+    loop's ``chunk`` and the state came back in the tensors it was given
+    (as after an even k of steps between two buffers in turn, or a ring
+    of blocks that ends where it began) it then captures ``run`` once
+    more from that state, which brings it back there again, so that the
+    uncaptured chunk has checked every call signature of the kernel
+    wrappers before the capture.  From the next
     chunk of that k it copies a state given in other tensors into the
     captured buffers (``tensors(state)`` lists a state's tensors) and
     replays.  Replays run after the work already queued on each
@@ -162,12 +164,14 @@ class ChunkGraphs:
             self._replay(graph)
             build.replayed(launches)
             return ring
-        state = run(state)
-        if self.enabled and k == self.chunk and k % 2 == 0:
+        new = run(state)
+        if self.enabled and k == self.chunk and all(
+                x is y for x, y in zip(self.tensors(new),
+                                       self.tensors(state))):
             with build.tally() as launches:
-                graph = self._capture(lambda: run(state), k)
-            self.held[k] = (graph, state, launches)
-        return state
+                graph = self._capture(lambda: run(new), k)
+            self.held[k] = (graph, new, launches)
+        return new
 
     def _capture(self, body, k):
         rest = self.devices[1:]

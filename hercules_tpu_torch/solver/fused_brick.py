@@ -48,7 +48,7 @@ from torch import nn
 from ..physics.kmats import stiffness_matrices_24
 
 from ..kernels.brick_chunk import brick_chunk
-from ..kernels.brick_step import brick_step
+from ..kernels.brick_step import brick_step, brick_step_lean
 from ..kernels.source_sample import SourceSample, increments
 from ..utils.timers import GLOBAL_TIMERS, measure
 from .chunking import ChunkBuffers, ChunkGraphs, run_chunked
@@ -147,6 +147,12 @@ class BrickStep(nn.Module):
     def forward(self, S, out=None):
         """One step (K1)."""
         return brick_step(S, self.K, self.offs, self.ops, out=out)
+
+    def lean(self, U, Um, out, canonical=False):
+        """One step from u = U and u- = Um into out (K1's lean form,
+        brick_step_lean)."""
+        return brick_step_lean(U, Um, self.K, self.offs, self.ops, out,
+                               canonical)
 
     def chunk(self, S, srcf, src_pos=None, st_pos=None, st_phi=None):
         """srcf.shape[0] steps in one launch (K5); see brick_chunk.
@@ -319,6 +325,46 @@ def _step_once(pt, state, spare):
     return pt.step(*state, **outs)
 
 
+@lru_cache(maxsize=None)
+def ring_plan(k, lean=True):
+    """The k steps of a chunk of the step route, each (u, u-, out,
+    canonical) in numbers of 3-row blocks: 0 and 1 are rows 0:3 and 3:6
+    of the state's S [8, LEN], where the chunk finds u and u-, and 2 and
+    3 those of its spare.  A lean step reads u and u- from their blocks
+    and writes u+ alone into a block that holds neither (K1's lean
+    form), so the next step's u- stays where it lies; a canonical step
+    writes the layout S (u+, u, 0, 0) into the buffer of first block
+    ``out``, which holds neither (K1's lean form with ``canonical``, or
+    every other step kernel).  The last step is canonical, so that each
+    chunk ends on the layout every reader of the state takes.  Of the
+    plans that do, the one with the fewest canonical steps, and of
+    those one that ends in the state's own buffer: at k = 3 and from k
+    = 5 a single canonical step does both; k = 2 takes two, and k = 1
+    and 4 end in the spare.  Without ``lean`` every step is canonical:
+    S and its spare in turn."""
+    layer = {(0, 1): 0}               # (u, u-) blocks -> canonical steps
+    back = []                         # per step: (u, u-) -> its step
+    for i in range(k):
+        nxt, came = {}, {}
+        for (u, um), n in layer.items():
+            free = [x for x in range(4) if x not in (u, um)]
+            moves = [((x, u), False) for x in free if lean and i < k - 1]
+            moves += [((b, b + 1), True) for b in (0, 2)
+                      if b in free and b + 1 in free]
+            for to, canon in moves:
+                if to not in nxt or n + canon < nxt[to]:
+                    nxt[to] = n + canon
+                    came[to] = (u, um, to[0], canon)
+        back.append(came)
+        layer = nxt
+    at = min(layer, key=lambda b: (layer[b], b[0] != 0))
+    steps = []
+    for came in reversed(back):
+        steps.append(came[at])
+        at = came[at][:2]
+    return tuple(reversed(steps))
+
+
 def source_increments(pt, src_forces, dt2, s, k):
     """[k, 3, L] source increments of steps [s, s+k) on the tables'
     device, as brick_chunk takes them (``source_sample.increments``)."""
@@ -329,34 +375,48 @@ def source_increments(pt, src_forces, dt2, s, k):
 
 
 def chunk_steps(pt, io, state, spare, bufs, k):
-    """k steps of the step kernel from ``state``, the stations sampled
-    before each (row i of bufs.samples) and the sources added after it
-    (row i of bufs.inc): the first step's samples before it, then after
-    each step one ``io`` call that adds its increments and samples the
-    next step's state.  Returns (the state, its spare): the state's
-    tensors when k is even."""
-    io(state[0], samples=bufs.samples[0])
-    for i in range(k):
-        new = _step_once(pt, state, spare)
-        io(new[0], bufs.inc[i], bufs.samples[i + 1] if i + 1 < k else None)
-        state, spare = new, state
-    return state, spare
+    """k steps of the step kernel from ``state`` as ``ring_plan`` lays
+    them over the displacement blocks of the state and its spare (lean
+    steps on an elastic brick, every step canonical on BKT), the
+    stations sampled before each (row i of bufs.samples) and the sources
+    added after it (row i of bufs.inc): the first step's samples before
+    it, then after each step one ``io`` call that adds its increments to
+    the u+ it wrote and samples the next step's state.  Returns (the
+    state, its spare): the state's tensors where the plan ends there."""
+    elastic = len(state) == 1
+    plan = ring_plan(k, elastic)
+    pair = (state, spare)
+    blocks = [x[0][r:r + 3] for x in pair for r in (0, 3)]
+    io(blocks[0], samples=bufs.samples[0])
+    for i, (u, um, out, canon) in enumerate(plan):
+        if not canon:
+            pt.step.lean(blocks[u], blocks[um], blocks[out])
+        elif elastic:
+            pt.step.lean(blocks[u], blocks[um], pair[out // 2][0], True)
+        else:
+            _step_once(pt, pair[u // 2], pair[out // 2])
+        io(blocks[out], bufs.inc[i], bufs.samples[i + 1] if i + 1 < k
+           else None)
+    end = plan[-1][2] // 2
+    return pair[end], pair[1 - end]
 
 
 def step_advance(pt, src_forces, dt2, chunk):
     """advance(state, s, k) for the step route: k steps of K1, K2, K3
     or K4, with the station sampling before and the source add after
     each (pallas_brick.py:3435-3460), both in one ``SourceSample`` call
-    between two steps (chunk_steps).
+    between two steps (chunk_steps).  An elastic brick's steps take
+    K1's lean form over the displacement blocks of the state and its
+    spare (``ring_plan``), the chunk's last step the layout S.
 
-    On a CUDA device an elastic brick's full chunks (k = ``chunk``, when
-    even) replay from a CUDA graph (``ChunkGraphs``): the first runs
+    On a CUDA device an elastic brick's full chunks (k = ``chunk``,
+    where its plan ends in the state's own buffer: every k but 1 and 4)
+    replay from a CUDA graph (``ChunkGraphs``): the first runs
     uncaptured, which checks every call signature, then its k steps are
-    captured once, into the state's buffers and their spare (k even
-    brings the state back to its own), and each later one uploads its
-    increments and replays.  A run's short last chunk, an odd ``chunk``,
-    the BKT tiers and the CPU run uncaptured through the same
-    chunk_steps."""
+    captured once, into the state's buffers and their spare, and each
+    later one uploads its increments and replays.  A run's short last
+    chunk, a ``chunk`` whose plan ends in the spare, the BKT tiers and
+    the CPU run uncaptured through the same chunk_steps."""
     io = SourceSample(pt.src_pos, pt.st_pos, pt.st_phi)
     graphs = ChunkGraphs([pt.device], chunk, pt.device.type == "cuda"
                          and pt.damping != "bkt")

@@ -25,6 +25,8 @@ from hercules_tpu_torch.fixtures import (FOUR_Q_LAYERS, box_simulation,
                                          four_q_freq)
 from hercules_tpu_torch.kernels import tiles
 from hercules_tpu_torch.kernels.brick_step import (brick_step,
+                                                   brick_step_lean,
+                                                   brick_step_lean_plain,
                                                    brick_step_plain)
 from hercules_tpu_torch.solver.bricks import build_plan
 from hercules_tpu_torch.physics.kmats import (hadamard8_stages,
@@ -174,6 +176,34 @@ def test_wrapper_on_cpu_runs_plain(box, dtype):
     assert torch.equal(pt.step(S), ref)
     assert brick_step.launches == before
     assert not ref[:, pt.nb:].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_lean_plain_is_the_step_rows(layered, dtype):
+    """K1's lean form on CPU tensors (brick_step_lean_plain, through
+    brick_step_lean) gives brick_step_plain's rows 0:3 bit for bit from
+    u and u- in blocks of their own, writing nothing else of its out;
+    with ``canonical`` the layout (u+, u, 0, 0); on the four-layer
+    Rayleigh box (beta != 0) and counting no launch."""
+    sim, plan, _, _ = layered
+    pt = PallasBrickTables(plan, sim.tables, dtype=dtype, device="cpu")
+    rng = np.random.default_rng(4)
+    S = torch.zeros((8, pt.LEN), dtype=dtype)
+    S[0:6, :pt.nb] = torch.as_tensor(rng.standard_normal((6, pt.nb)))
+    ref = brick_step_plain(S, pt.K, pt.offs, pt.step.ops)
+    U, Um = S[0:3].clone(), S[3:6].clone()
+    assert torch.equal(brick_step_lean_plain(U, Um, pt.K, pt.offs,
+                                             pt.step.ops), ref[0:3])
+    before = brick_step.launches, brick_step.lean_launches
+    buf = torch.full((8, pt.LEN), float("nan"), dtype=dtype)
+    assert brick_step_lean(U, Um, pt.K, pt.offs, pt.step.ops,
+                           buf[0:3]) is not None
+    assert torch.equal(buf[0:3], ref[0:3])
+    assert buf[3:8].isnan().all()
+    out = torch.full((8, pt.LEN), float("nan"), dtype=dtype)
+    pt.step.lean(U, Um, out, canonical=True)
+    assert torch.equal(out, ref)
+    assert (brick_step.launches, brick_step.lean_launches) == before
 
 
 def _elastic_header():

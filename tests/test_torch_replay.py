@@ -2,11 +2,14 @@
 ``SourceSample`` call a step and replayed from CUDA graphs: on the CPU
 the plain version against the torch operations it replaces, the
 chunks' buffers through the uncaptured path (short last chunks, an odd
-k, the samples of each chunk), the allocation-free halo against its
-expression, the multi-card ``advance`` returning a tensor bit for bit
-the numpy sum of the rank loop; on a card (marker ``card``) the kernel
-against the torch operations and the replayed chunks bit for bit the
-uncaptured ones, in both types, on one card and on two.
+k, the samples of each chunk), the step route's ring of displacement
+blocks (``ring_plan``: K1's lean form, the layout S at every chunk
+boundary), the allocation-free halo against its expression, the
+multi-card ``advance`` returning a tensor bit for bit the numpy sum of
+the rank loop; on a card (marker ``card``) the kernel against the torch
+operations, K1's lean and canonical forms against its carry form, and
+the replayed chunks bit for bit the uncaptured ones, in both types, on
+one card and on two.
 
 On a card: ``python -m pytest --noconftest -m card
 tests/test_torch_replay.py`` (this file imports no JAX)."""
@@ -15,10 +18,12 @@ import numpy as np
 import pytest
 import torch
 
-from hercules_tpu_torch.fixtures import box_simulation, one_torch_thread
-from hercules_tpu_torch.kernels import build
+from hercules_tpu_torch.fixtures import (FOUR_Q_LAYERS, box_simulation,
+                                         four_q_freq, one_torch_thread)
+from hercules_tpu_torch.kernels import build, tiles
 from hercules_tpu_torch.kernels.brick_chunk import sample_stations
-from hercules_tpu_torch.kernels.brick_step import brick_step
+from hercules_tpu_torch.kernels.brick_step import (brick_step,
+                                                   brick_step_lean)
 from hercules_tpu_torch.kernels.source_sample import (SourceSample,
                                                       increments,
                                                       source_groups)
@@ -27,9 +32,13 @@ from hercules_tpu_torch.parallel.driver import choose_path, run_multichip
 from hercules_tpu_torch.parallel.ranks import RankGroup
 from hercules_tpu_torch.parallel.slab import HaloWork, halo_exchange
 from hercules_tpu_torch.solver.bricks import build_plan
+from hercules_tpu_torch.solver.chunking import run_chunked
 from hercules_tpu_torch.solver.fused_brick import (PallasBrickTables,
                                                    init_packed_state,
-                                                   run_pallas_solver)
+                                                   pallas_geometry,
+                                                   ring_plan,
+                                                   run_pallas_solver,
+                                                   step_advance)
 from hercules_tpu_torch.utils import timers as TM
 
 _one_torch_thread = one_torch_thread()
@@ -140,17 +149,70 @@ def test_source_groups_add_as_index_add():
 
 
 @pytest.mark.parametrize("dtype", TYPES)
-@pytest.mark.parametrize("chunk", [8, 7, STEPS])
+@pytest.mark.parametrize("chunk", [8, 7, STEPS, 1, 2, 3, 4])
 def test_step_route_chunks_are_the_step_loop(box, dtype, chunk):
-    """The step route in chunks of 8 (a short last chunk of 6), 7 (odd,
-    the state ending in the spare buffer, and a last chunk of 2) and
-    30: the state and every chunk's samples bit for bit the torch
-    route's one loop."""
+    """The step route over its ring of displacement blocks in chunks of
+    8 (a short last chunk of 6), 7 (odd, a last chunk of 2), 30, 1 and
+    2 (every step canonical), 3 and 4 (a last chunk of 2; chunks of 4
+    end in the spare buffer): the state and every chunk's samples bit
+    for bit the torch route's one loop, the ping-pong of two [8, LEN]
+    states."""
     S, samples = _torch_route(box, dtype)
     got, got_samples = _run(box, dtype, chunk)
     assert torch.equal(got, S[0:6])
     assert got_samples.shape == tuple(samples.shape)
     assert np.array_equal(got_samples, samples.numpy())
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 7, 8, 1000])
+@pytest.mark.parametrize("lean", [True, False])
+def test_ring_plan_reads_and_writes_apart(k, lean):
+    """Every step of ``ring_plan`` reads the blocks the steps before it
+    left u and u- in (the chunk's first, blocks 0 and 1) and writes
+    into blocks that hold neither; the last step is canonical.  With
+    ``lean`` all but the last are lean (k - 1 lean launches a chunk)
+    except at k = 2, two canonical steps, and the chunk ends in the
+    state's own buffer at every k but 1 and 4; without, every step is
+    canonical, the state and its spare in turn."""
+    plan = ring_plan(k, lean)
+    assert len(plan) == k
+    at = (0, 1)
+    for u, um, out, canon in plan:
+        assert (u, um) == at
+        wrote = (out, out + 1) if canon else (out,)
+        assert out in (0, 2) or not canon
+        assert not set(wrote) & {u, um}
+        at = (out, out + 1) if canon else (out, u)
+    assert plan[-1][3]
+    lean_steps = sum(not c for *_, c in plan)
+    if not lean:
+        assert lean_steps == 0
+        assert [p[2] for p in plan] == [2, 0] * (k // 2) + [2] * (k % 2)
+    else:
+        assert lean_steps == (0 if k == 2 else k - 1)
+        assert (plan[-1][2] == 0) == (k not in (1, 4))
+
+
+@pytest.mark.parametrize("dtype", TYPES)
+@pytest.mark.parametrize("chunk", [1, 4, 7])
+def test_step_route_boundaries_are_canonical(box, dtype, chunk):
+    """At every chunk boundary the step route's state is the layout S:
+    rows 0:3 u and 3:6 u- bit for bit the torch route's at that step,
+    rows 6:8 zero, whichever buffer the chunk ended in."""
+    sim, _ = box
+    pt = _tables(box, dtype)
+    seen = []
+    advance = step_advance(pt, sim.src_forces, sim.params.delta_t ** 2,
+                           chunk)
+    run_chunked(advance, init_packed_state(pt), STEPS, chunk=chunk,
+                on_chunk=lambda done, st: seen.append((done,
+                                                       st[0].clone())))
+    assert [d for d, _ in seen] == list(range(chunk, STEPS, chunk)) + [
+        STEPS]
+    for done, S in seen:
+        want, _ = _torch_route(box, dtype, steps=done)
+        assert torch.equal(S[0:6], want[0:6])
+        assert not S[6:8].any()
 
 
 def _slab(box, dtype, devices):
@@ -360,12 +422,104 @@ def test_card_source_sample_kernel(box, dtype):
     assert torch.equal(got.cpu(), want)
 
 
+# K1's forms on bricks whose node grids are stored in each of the six
+# orders (corner roles): the box and the four-layer Rayleigh box of
+# 2048 elements, and validation B1 at 1 Hz (128^3 elements, seeded)
+ROLES = [(0, 1, 2), (0, 2, 1), (1, 0, 2), (1, 2, 0), (2, 0, 1), (2, 1, 0)]
+
+
+@pytest.fixture(scope="module")
+def layered(tmp_path_factory):
+    sim = box_simulation(str(tmp_path_factory.mktemp("layered")),
+                         steps=STEPS, damping="rayleigh",
+                         layers=FOUR_Q_LAYERS, freq=four_q_freq(62.5))
+    return sim, build_plan(sim.mesh)
+
+
+def _seeded_b1(gen):
+    """K [8, LEN] and nb of a 129^3-node brick: (c1, c2, beta) per
+    element whose corners lie on the grid (2 % of them zero), K rows 3:7
+    per node, seeded."""
+    n = 129
+    nb = n ** 3
+    K = torch.zeros((8, pallas_geometry(nb)), dtype=torch.float64)
+    i = torch.arange(nb)
+    ok = (i // (n * n) < n - 1) & (i // n % n < n - 1) & (i % n < n - 1)
+    c = (0.5 + 1.5 * torch.rand((3, nb), generator=gen, dtype=torch.float64)
+         ) * torch.tensor([[1e-2], [2e-2], [0.3]], dtype=torch.float64)
+    c[:, torch.rand(nb, generator=gen) < 0.02] = 0.0
+    K[0:3, :nb] = torch.where(ok, c, 0.0)
+    K[3:6, :nb] = 2e-3 * torch.rand((3, nb), generator=gen,
+                                    dtype=torch.float64) - 1e-3
+    K[6, :nb] = 0.5 + torch.rand(nb, generator=gen, dtype=torch.float64)
+    return K, (0, 1, n, n + 1, n * n, n * n + 1, n * n + n, n * n + n + 1), nb
+
+
+def _roles_case(name, roles, dtype, request):
+    """(S, K, offs) on the card: the brick ``name`` with its node grid
+    (planes, mid, inner) stored in the order ``roles``; S's u and u- ~
+    N(0, 1) (u- within 0.1 of u) and its rows 6:8 ~ N(0, 1) on the
+    nodes."""
+    gen = torch.Generator().manual_seed(7)
+    if name == "b1":
+        K, offs, nb = _seeded_b1(gen)
+    else:
+        sim, plan = request.getfixturevalue(name)
+        pt = PallasBrickTables(plan, sim.tables, dtype=torch.float64,
+                               device="cpu")
+        K, offs, nb = pt.K.clone(), pt.offs, pt.nb
+    s_mid, s_out = tiles.brick_strides(offs)
+    dims = (nb // s_out, s_out // s_mid, s_mid)
+    order = torch.arange(nb).reshape(dims).permute(roles).reshape(-1)
+    col = torch.empty_like(order)
+    col[order] = torch.arange(nb)
+    offs = tuple(int(col[o]) for o in offs)
+    K[:, :nb] = K[:, order]
+    S = torch.zeros_like(K)
+    S[0:3, :nb] = torch.randn((3, nb), generator=gen, dtype=torch.float64)
+    S[3:6, :nb] = S[0:3, :nb] - 0.1 * torch.randn(
+        (3, nb), generator=gen, dtype=torch.float64)
+    S[6:8, :nb] = torch.randn((2, nb), generator=gen, dtype=torch.float64)
+    return S.to(dtype).cuda(), K.to(dtype).cuda(), offs
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("roles", ROLES)
+@pytest.mark.parametrize("dtype", TYPES)
+@pytest.mark.parametrize("name", ["box", "layered", "b1"])
+def test_card_lean_forms_are_the_carry_form(name, dtype, roles, request):
+    """K1's lean form, from u and u- in tensors of their own, writes
+    u+ bit for bit the carry form's rows 0:3 and nothing else (a NaN in
+    rows 3:8 of its out's buffer stays); the canonical form writes the
+    carry form's rows 0:6 and zeros in rows 6:8; each counts one launch,
+    the lean one also in ``lean_launches``."""
+    _cuda()
+    S, K, offs = _roles_case(name, roles, dtype, request)
+    want = brick_step(S, K, offs, None)
+    before = brick_step.launches, brick_step.lean_launches
+    buf = torch.full_like(S, float("nan"))
+    brick_step_lean(S[0:3].clone(), S[3:6].clone(), K, offs, None,
+                    buf[0:3])
+    canon = torch.full_like(S, float("nan"))
+    brick_step_lean(S[0:3].clone(), S[3:6].clone(), K, offs, None, canon,
+                    canonical=True)
+    torch.cuda.synchronize()
+    assert torch.equal(buf[0:3], want[0:3])
+    assert buf[3:8].isnan().all()
+    assert torch.equal(canon[0:6], want[0:6])
+    assert not canon[6:8].any()
+    assert want[6:8].any()
+    assert (brick_step.launches - before[0],
+            brick_step.lean_launches - before[1]) == (2, 1)
+
+
 @pytest.mark.card
 @pytest.mark.parametrize("dtype", TYPES)
 def test_card_replay_is_the_uncaptured_route(box, dtype):
     """On a card the step route's chunks of 8 replay from a CUDA graph
-    (captured after the first chunk, 17 nodes: 8 K1 launches and 9
-    SourceSample launches) and give the bits of chunks of 7, which never
+    over the ring of displacement blocks (captured after the first
+    chunk, 17 nodes: 8 K1 launches and 9 SourceSample launches) and give
+    the bits of chunks of 4, which end in the spare buffer and never
     replay; the samples within rounding of the torch route's."""
     _cuda()
     TM.GLOBAL_TIMERS.log.clear()
@@ -375,7 +529,10 @@ def test_card_replay_is_the_uncaptured_route(box, dtype):
     assert [(r.counts["k"], r.counts["nodes"]) for r in caps] == [(8, 17)]
     assert [r.counts["replays"] for r in log if r.name == TM.CHUNK] == \
         [0, 1, 1, 0]
-    want, want_samples = _run(box, dtype, 7, "cuda")
+    TM.GLOBAL_TIMERS.log.clear()
+    want, want_samples = _run(box, dtype, 4, "cuda")
+    assert not any(r.name == "Solver graph capture"
+                   for r in TM.GLOBAL_TIMERS.log)
     assert torch.equal(got, want)
     assert np.array_equal(got_samples, want_samples)
     S, samples = _torch_route(box, dtype, "cuda")
@@ -418,21 +575,25 @@ def test_card_replay_counts_every_launch(box, dtype):
     configuration, and 34 SourceSample launches (k + 1 a chunk); the
     kernel slab path on four ranks of one card counts 4 x 30 K1
     launches and one SourceSample launch a step for each rank with
-    sources and each with stations."""
+    sources and each with stations.  Of the step route's K1 launches all
+    but each chunk's last are lean (7 + 7 + 7 + 5), the slab path's
+    none."""
     _cuda()
     before = (brick_step.launches, sum(brick_step.configs.values()),
-              SourceSample.launches)
+              SourceSample.launches, brick_step.lean_launches)
     _run(box, dtype, 8, "cuda")
     after = (brick_step.launches, sum(brick_step.configs.values()),
-             SourceSample.launches)
+             SourceSample.launches, brick_step.lean_launches)
     assert [b - a for a, b in zip(before, after)] == [STEPS, STEPS,
-                                                      STEPS + 4]
+                                                      STEPS + 4, STEPS - 4]
     path = _slab(box, dtype, ["cuda:0"] * 4)
     users = (sum(io.L > 0 for io in path.step.io)
              + sum(got is not None for got in path._st))
     before = brick_step.launches, SourceSample.launches
     sim, _ = box
+    lean = brick_step.lean_launches
     run_multichip(path, sim.src_forces, STEPS, sim.params.delta_t, chunk=8)
     assert (brick_step.launches - before[0],
             SourceSample.launches - before[1]) == (4 * STEPS,
                                                    users * STEPS)
+    assert brick_step.lean_launches == lean

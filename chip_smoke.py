@@ -185,13 +185,15 @@ JSON line {"phase": ...}:
               the seeded bricks (SEEDED_BRICKS: B1, the graded fine
               brick, two node planes), both types: the library's grid
               (stages, blocks per SM, resident blocks, slab, items)
-              equal to kernels/tiles.py's step_grid, one step's bytes
-              equal to the synchronous march's (K1_SYNC_DIGESTS), and
-              brick_step.configs counting the B1 launch under its key;
-              K1's lean and canonical forms against its carry form
-              (k1_forms: u+ byte for byte, K1_LEAN_DIGESTS, the rows
-              they must not write left alone), and the three forms
-              timed at 2^21 in both types with the rows each moves.
+              equal to kernels/tiles.py's step_grid, one step of the
+              layout S whose u+ has the synchronous march's bytes
+              (K1_LEAN_DIGESTS), whose rows 3:6 are its input's u and
+              whose rows 6:8 are zero (the seeded rows 6:8 are not),
+              and brick_step.configs counting the B1 launch under its
+              key; K1's lean form against its canonical form (k1_forms:
+              u+ byte for byte, K1_LEAN_DIGESTS, the rows the lean form
+              must not write left alone), and both forms timed at 2^21
+              in both types with the rows each moves.
 3. k5      -- brick_chunk (K5) against the K1 step loop on the
               2048-element box and the four-layer Rayleigh box, chunks
               of 16 steps, 37 steps, float64 and float32: states
@@ -199,7 +201,8 @@ JSON line {"phase": ...}:
               (float32) relative; K5 against brick_chunk_plain at
               2^20 elements, 10 steps in float32 (1e-4 max|u|); and K5
               against the K1 loop on the seeded bricks, 9 steps with 4
-              sources and 6 stations, both types, bit for bit.
+              sources and 6 stations, both types: u and u- bit for bit,
+              K5's rows 6:8 the seeded ones it carries, K1's zeros.
    source_sample -- SourceSample (csrc/source_sample.cu) at B1's
               shapes (b1_source_sample: the seeded B1 brick, the point
               source's 8 nodes, 256 stations), float32 and float64, 4
@@ -447,9 +450,9 @@ def require(cond, msg):
 
 def tile_registers(log):
     """{kernel<T[,CT,kappa]>: registers} of the tiled kernels (K5:
-    kernel<T>; K1: kernel<T,BX,BY,BA>, one a set of corner roles, and
-    kernel<T,BX,BY,BA,lean> its lean form; K2, K3, K4, K6:
-    kernel<T,CT,kappa>) from the ptxas -v output in the build log."""
+    kernel<T>; K1: kernel<T,BX,BY,BA>, one a set of corner roles; K2,
+    K3, K4, K6: kernel<T,CT,kappa>) from the ptxas -v output in the
+    build log."""
     types = {"f": "float", "d": "double", "13__nv_bfloat16": "bf16"}
     regs, entry = {}, None
     for ln in log.splitlines():
@@ -458,15 +461,14 @@ def tile_registers(log):
             bkt = re.search(r"(bkt_(?:step|chunk|node|corner)_kernel)I([fd])"
                             r"([fd]|13__nv_bfloat16)Lb([01])E", m.group(1))
             brick = re.search(r"(brick_(?:step|chunk)_kernel)I([fd])"
-                              r"((?:Li\d+E)*)(?:Lb([01])E)?E", m.group(1))
+                              r"((?:Li\d+E)*)E", m.group(1))
             entry = None
             if bkt:
                 k, t, ct, kappa = bkt.groups()
                 entry = f"{k}<{types[t]},{types[ct]},{kappa}>"
             elif brick:
-                k, t, roles, lean = brick.groups()
+                k, t, roles = brick.groups()
                 args = [types[t], *re.findall(r"\d+", roles)]
-                args += ["lean"] if lean == "1" else []
                 entry = f"{k}<{','.join(args)}>"
         m = re.search(r"Used (\d+) registers", ln)
         if m and entry:
@@ -487,28 +489,10 @@ SEEDED_BRICKS = {
     # a fragment of one element layer: two node planes
     "two_planes": ((2, 40, 33), (2, 1, 0)),
 }
-# sha256 of one K1 step from seeded_brick(..., seed=21) by the K1 of the
-# synchronous march (the march before the staged pipeline), by brick
-# and type: the staged K1 must give the same bytes
-K1_SYNC_DIGESTS = {
-    "b1 float32":
-        "cd0f3a356bd0e993fb7e536d67b72c1d3c5a97fe0c7a4e9b734f3d607d66e7e3",
-    "b1 float64":
-        "d52013a1d25a6c5fceff056dd9c22213314ef74a60b603f2281bad36ad3044c8",
-    "graded_fine float32":
-        "ff4d0959b75ff8990c86c0c46d4b6d817ea7a4a3ca68724a32fcdeb4a8017f31",
-    "graded_fine float64":
-        "f93a50afcee65546238bdbdb3f08d1d9ac69febc7f1f7002ae4b9f3bf43762ec",
-    "two_planes float32":
-        "797aa4bc30f2d539d374b1cd8991ca28f6424b09d56d366b3c199c1d61069bd7",
-    "two_planes float64":
-        "43a5b8f8e1b1db9173df5edcaa7135978ad83fb734b00b36284f4f22a4459686",
-}
-
-
-# sha256 of rows 0:3 (u+) of the step of K1_SYNC_DIGESTS, by brick and
-# type: K1's lean form writes these bytes alone, its canonical form and
-# its carry form write them in rows 0:3
+# sha256 of rows 0:3 (u+) of one K1 step from seeded_brick(..., seed=21)
+# by the synchronous march (K1 before the staged pipeline), by brick and
+# type: K1's lean form writes these bytes alone, its canonical form in
+# rows 0:3
 K1_LEAN_DIGESTS = {
     "b1 float32":
         "8265683187a293d950ead90134631953b540f4d44f176cce6d756c2d13112f39",
@@ -525,52 +509,44 @@ K1_LEAN_DIGESTS = {
 }
 
 # rows of [LEN] values each form of K1 moves a step (csrc/brick_tile.cuh)
-K1_FORM_ROWS = {"carry": 23, "lean": 16, "canonical": 21}
+K1_FORM_ROWS = {"lean": 16, "canonical": 21}
 
 
 def k1_forms(dev, reps=15, n=40):
-    """K1's lean and canonical forms against its carry form on the
-    seeded bricks (SEEDED_BRICKS, seed 21), both types: the lean form,
-    from u and u- in tensors of their own, writes the carry form's rows
-    0:3 (u+) byte for byte, their digest K1_LEAN_DIGESTS, and leaves a
-    NaN in rows 3:8 of its out's buffer; the canonical form writes the
-    carry form's rows 0:6 and zeros in rows 6:8; both forms take the
-    same launch grid (step_grid_of).  At B1's 2^21 elements
-    each form timed with CUDA events (the median over ``reps`` runs of
-    ``n`` launches back to back, ms a launch), with the rows it moves
-    and their rate.  Returns {"digests", "timing"}."""
+    """K1's lean form against its canonical form on the seeded bricks
+    (SEEDED_BRICKS, seed 21), both types: the lean form, from u and u-
+    in tensors of their own, writes the canonical form's rows 0:3 (u+)
+    byte for byte, their digest K1_LEAN_DIGESTS, and leaves a NaN in
+    rows 3:8 of its out's buffer; the canonical form writes u in rows
+    3:6 and zeros in rows 6:8.  At B1's 2^21 elements each form timed
+    with CUDA events (the median over ``reps`` runs of ``n`` launches
+    back to back, ms a launch), with the rows it moves and their rate.
+    Returns {"digests", "timing"}."""
     import statistics
     import torch
-    from hercules_tpu_torch.kernels.brick_step import (brick_step,
-                                                       brick_step_lean,
-                                                       step_grid_of)
+    from hercules_tpu_torch.kernels.brick_step import brick_step_lean
     digest = lambda t: hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
     digests, timing = {}, {}
     for name, (shape, axes) in SEEDED_BRICKS.items():
         for dtype in (torch.float32, torch.float64):
             key = f"{name} {str(dtype)[6:]}"
             S, K, offs = seeded_brick(shape, axes, dtype, 21, dev)
-            grid = step_grid_of(offs, S.shape[1], dtype, dev.index)
-            require(step_grid_of(offs, S.shape[1], dtype, dev.index,
-                                 lean=True) == grid, f"K1 lean grid {key}")
-            carry = brick_step(S, K, offs, None)
             U, Um = S[0:3].clone(), S[3:6].clone()
             lean = torch.full_like(S, float("nan"))
             brick_step_lean(U, Um, K, offs, None, lean[0:3])
             canon = torch.full_like(S, float("nan"))
             brick_step_lean(U, Um, K, offs, None, canon, canonical=True)
             digests[key] = digest(lean[0:3])
-            require(digest(carry[0:3]) == digests[key] == digest(canon[0:3])
+            require(digests[key] == digest(canon[0:3])
                     and lean[3:8].isnan().all().item()
-                    and torch.equal(canon[3:6], carry[3:6])
+                    and torch.equal(canon[3:6], U)
                     and not canon[6:8].any().item(),
                     f"K1 forms on {key}")
             if name != "b1":
                 continue
             T = torch.empty_like(S)
             Tu = T[0:3]
-            calls = {"carry": lambda: brick_step(S, K, offs, None, out=T),
-                     "lean": lambda: brick_step_lean(U, Um, K, offs, None,
+            calls = {"lean": lambda: brick_step_lean(U, Um, K, offs, None,
                                                      Tu),
                      "canonical": lambda: brick_step_lean(
                          U, Um, K, offs, None, T, canonical=True)}
@@ -2837,8 +2813,10 @@ def main():
             require(not Sk[:, pt.nb:].any(), "K1 moved the padding")
         kern["brick_step_err"] = cases[-1]["max_abs_err"]
         # the launch grid the library chooses against the host's mirror
-        # of its slab rule, one step on each seeded brick against the
-        # synchronous march's bytes, and the launches by configuration
+        # of its slab rule, one step of the layout S on each seeded brick:
+        # u+ the synchronous march's bytes, u copied, zeros in rows 6:8
+        # (the seeded rows 6:8 are not zero); the launches by
+        # configuration
         brick_step.configs.clear()
         grids, digests = {}, {}
         for name, (shape, axes) in SEEDED_BRICKS.items():
@@ -2852,8 +2830,12 @@ def main():
                         f"K1 grid {name} {dname}: {got}")
                 out = brick_step(S, K, offs, None)
                 digests[f"{name} {dname}"] = hashlib.sha256(
-                    out.cpu().numpy().tobytes()).hexdigest()
-        require(digests == K1_SYNC_DIGESTS,
+                    out[0:3].cpu().numpy().tobytes()).hexdigest()
+                require(torch.equal(out[3:6], S[0:3])
+                        and not out[6:8].any().item()
+                        and S[6:8].any().item(),
+                        f"K1 layout S rows 3:8 on {name} {dname}")
+        require(digests == K1_LEAN_DIGESTS,
                 f"K1 against the synchronous march: {digests}")
         b1 = grids["b1 float64"]
         require(brick_step.configs.get((b1[0], b1[1], b1[3]), 0) >= 1,
@@ -2909,7 +2891,9 @@ def main():
         require(r <= 1e-4 and srel <= 1e-4, f"K5 vs plain {cases[-1]}")
         kern["brick_chunk_err"] = err
         # K5 (its own march) against the staged K1 step loop on the
-        # seeded bricks: B1, the graded fine brick, two node planes
+        # seeded bricks: B1, the graded fine brick, two node planes; u
+        # and u- bit for bit, and rows 6:8 each kernel's own: K5 carries
+        # the seeded ones through, K1 writes zeros
         for name, (shape, axes) in SEEDED_BRICKS.items():
             nb = int(np.prod(shape))
             rs = np.random.default_rng(23)
@@ -2935,11 +2919,14 @@ def main():
                 smp = torch.stack(smp)
                 torch.cuda.synchronize()
                 srel = ((smp_c - smp).abs().max() / smp.abs().max()).item()
+                same = (torch.equal(Sc[0:6], S[0:6])
+                        and torch.equal(Sc[6:8], S0[6:8])
+                        and not S[6:8].any().item())
                 cases.append({"case": f"seeded {name}", "dtype": dname,
                               "steps": srcf.shape[0],
-                              "bit_identical": torch.equal(Sc, S),
+                              "bit_identical": same,
                               "samples_rel_err": srel})
-                require(torch.equal(Sc, S) and srel <= sbound,
+                require(same and srel <= sbound,
                         f"K5 vs K1 loop {cases[-1]}")
         emit({"phase": "k5", "cases": cases,
               "launches": brick_chunk.launches})

@@ -21,21 +21,20 @@
 // items end first when the card's resident blocks take them in order
 // (step_slab); a shorter last slab shortens the launch's tail.
 //
-// Two forms (a template argument, brick_tile.cuh).  The carry form
-// takes S and writes S' = (u+, u, 0, 0): it streams 23 rows (S 8 in and
-// out, K 7), 395 MB at 2^21 in float64, of which 7 rows carry nothing
-// new (the zero rows in and out, the copy of u).  The mesh route and
-// the multi-card fragments step their S that way.  The lean form reads
-// u and u- from two blocks of 3 rows and writes u+ alone, 16 rows (275
-// MB): the step route of a single brick keeps its displacement levels
-// in a ring of such blocks (solver/fused_brick.py:ring_plan), so the
-// next step's u- is this step's u where it already lies, and writes the
-// layout S (a flag, 21 rows) only on a chunk's last step.
+// Two forms (a run-time flag, brick_tile.cuh), one kernel: u and u-
+// from two blocks of 3 rows in, and u+ alone out, 16 rows (275 MB at
+// 2^21 in float64), or with `canon` the layout S = (u+, u, 0, 0), 21
+// rows (361 MB).  The step route of a single brick keeps its
+// displacement levels in a ring of such blocks
+// (solver/fused_brick.py:ring_plan), so the next step's u- is this
+// step's u where it already lies, and writes the layout S only on a
+// chunk's last step; the mesh route and the multi-card fragments step
+// their S [8, len] in the layout S, its rows 0:3 and 3:6 the two blocks.
 //
 // What bounds it.  Device memory: the step needs u, u- and K's 7 rows
 // in and u+ out, 13 rows a node and the 2 element rows of the roofline's
 // count (port_bench/roofline.py), 256.8 MB at 2^21 in float64 (0.077 ms
-// at 3.35 TB/s); the lean form moves 16 rows.  And shared memory: an
+// at 3.35 TB/s); u+ alone moves 16 rows.  And shared memory: an
 // element takes about 100 accesses (its corners' u and u-, the force
 // exchange, the copies), each two wavefronts a warp in float64; with
 // no device-memory traffic the march still took 0.141 ms
@@ -43,10 +42,10 @@
 // coefficients into registers and the float32 march, where registers
 // bind, copies them into shared memory.  The 402 operations per element
 // are 0.013 ms of the float64 peak at 2^20.  Measured at 2^21 (H100,
-// 700 W; PERF.md): the carry form 0.180 ms in float64 (2.19 TB/s of its
-// 23 rows) and 0.108 ms in float32, against the synchronous march's
-// 0.225 and 0.118; the lean form 0.157 ms (1.76 TB/s of its 16 rows)
-// and 0.0995 ms, now nearer the shared-memory floor than the bytes'.
+// 700 W; PERF.md): u+ alone 0.157 ms in float64 (1.76 TB/s of its 16
+// rows) and 0.0995 ms in float32, the layout S 0.175 and 0.105, against
+// the synchronous march's 0.225 and 0.118: nearer the shared-memory
+// floor than the bytes'.
 //
 // K5 (brick_chunk.cu) keeps the synchronous march, brick_tile_step: the
 // copies of 4 and 8 bytes go through the L1 cache (cp.async.ca), which
@@ -60,27 +59,26 @@
 
 namespace {
 
-// Lean: the form (brick_tile.cuh): false the carry form, S -> S';
-// true the lean form, (U, Um) -> u+, or with canon the layout S.
-template <typename T, int BX, int BY, int BA, bool Lean>
+// (U, Um) -> u+, or with canon the layout S (brick_tile.cuh).
+template <typename T, int BX, int BY, int BA>
 __global__ void __launch_bounds__(ht::kThreads, sizeof(T) == 4 ? 3 : 2)
     brick_step_kernel(const T* __restrict__ U, const T* __restrict__ Um,
                       const T* __restrict__ K, T* __restrict__ out, int len,
                       ht::Geom g, bool canon) {
   extern __shared__ __align__(16) unsigned char smem[];
-  ht::brick_tile_step_staged<T, BX, BY, BA, Lean>(
+  ht::brick_tile_step_staged<T, BX, BY, BA>(
       U, Um, K, out, len, g, blockIdx.x, reinterpret_cast<T*>(smem), canon);
 }
 
 // The kernel's blocks an SM holds at its registers and shared memory,
 // and the SMs, asked once per device; opts the kernel into its shared
 // memory first.
-template <typename T, int BX, int BY, int BA, bool Lean>
+template <typename T, int BX, int BY, int BA>
 cudaError_t step_resident(int device, int* per_sm, int* sms) {
   static int held[32][2];
   static unsigned opted = 0;
   if (held[device][0] == 0) {
-    auto kernel = brick_step_kernel<T, BX, BY, BA, Lean>;
+    auto kernel = brick_step_kernel<T, BX, BY, BA>;
     const int smem = ht::step_smem_bytes<T>();
     cudaError_t err = ht::opt_in_smem(kernel, smem, device, &opted);
     if (err != cudaSuccess) return err;
@@ -167,22 +165,21 @@ struct Launch {
                      int, bool, cudaStream_t);
 };
 
-template <typename T, int BX, int BY, int BA, bool Lean>
+template <typename T, int BX, int BY, int BA>
 cudaError_t run_roles(const T* U, const T* Um, const T* K, T* out, int len,
                       const ht::Geom& g, int items, bool canon,
                       cudaStream_t stream) {
-  brick_step_kernel<T, BX, BY, BA, Lean><<<items, ht::kThreads,
-                                           ht::step_smem_bytes<T>(),
-                                           stream>>>(U, Um, K, out, len, g,
-                                                     canon);
+  brick_step_kernel<T, BX, BY, BA><<<items, ht::kThreads,
+                                     ht::step_smem_bytes<T>(), stream>>>(
+      U, Um, K, out, len, g, canon);
   return cudaGetLastError();
 }
 
-template <typename T, int BX, int BY, int BA, bool Lean>
+template <typename T, int BX, int BY, int BA>
 cudaError_t plan_roles(int device, Launch<T>* L) {
   int per_sm = 0, sms = 0;
   const cudaError_t err =
-      step_resident<T, BX, BY, BA, Lean>(device, &per_sm, &sms);
+      step_resident<T, BX, BY, BA>(device, &per_sm, &sms);
   if (err != cudaSuccess) return err;
   step_slab(&L->g, per_sm * sms);
   L->got[0] = ht::kStepStages;
@@ -190,15 +187,14 @@ cudaError_t plan_roles(int device, Launch<T>* L) {
   L->got[2] = per_sm * sms;
   L->got[3] = L->g.slab;
   L->got[4] = ht::tile_items(L->g);
-  L->run = run_roles<T, BX, BY, BA, Lean>;
+  L->run = run_roles<T, BX, BY, BA>;
   return cudaSuccess;
 }
 
 // make_geom on the brick, then the plan of the kernel of its corner
-// roles in the form Lean: the bit of the corner index whose offset is 1
-// steps the inner axis, the mid stride's the mid axis, the plane
-// stride's the planes.
-template <typename T, bool Lean>
+// roles: the bit of the corner index whose offset is 1 steps the inner
+// axis, the mid stride's the mid axis, the plane stride's the planes.
+template <typename T>
 cudaError_t plan(const int* offs, int len, int device, Launch<T>* L) {
   if (device < 0 || device >= 32 || !ht::make_geom(offs, len, &L->g))
     return cudaErrorInvalidValue;
@@ -210,31 +206,31 @@ cudaError_t plan(const int* offs, int len, int device, Launch<T>* L) {
     if (offs[1 << b] == L->g.s_mid) by = b;
   }
   switch (bx * 3 + by) {
-    case 0 * 3 + 1: return plan_roles<T, 0, 1, 2, Lean>(device, L);
-    case 0 * 3 + 2: return plan_roles<T, 0, 2, 1, Lean>(device, L);
-    case 1 * 3 + 0: return plan_roles<T, 1, 0, 2, Lean>(device, L);
-    case 1 * 3 + 2: return plan_roles<T, 1, 2, 0, Lean>(device, L);
-    case 2 * 3 + 0: return plan_roles<T, 2, 0, 1, Lean>(device, L);
-    case 2 * 3 + 1: return plan_roles<T, 2, 1, 0, Lean>(device, L);
+    case 0 * 3 + 1: return plan_roles<T, 0, 1, 2>(device, L);
+    case 0 * 3 + 2: return plan_roles<T, 0, 2, 1>(device, L);
+    case 1 * 3 + 0: return plan_roles<T, 1, 0, 2>(device, L);
+    case 1 * 3 + 2: return plan_roles<T, 1, 2, 0>(device, L);
+    case 2 * 3 + 0: return plan_roles<T, 2, 0, 1>(device, L);
+    case 2 * 3 + 1: return plan_roles<T, 2, 1, 0>(device, L);
   }
   return cudaErrorInvalidValue;
 }
 
-template <typename T, bool Lean>
+template <typename T>
 int launch(const T* U, const T* Um, const T* K, T* out, int len,
            const int* offs, int device, void* stream, bool canon) {
   Launch<T> L;
-  cudaError_t err = plan<T, Lean>(offs, len, device, &L);
+  cudaError_t err = plan<T>(offs, len, device, &L);
   if (err == cudaSuccess)
     err = L.run(U, Um, K, out, len, L.g, L.got[4], canon,
                 static_cast<cudaStream_t>(stream));
   return static_cast<int>(err);
 }
 
-template <typename T, bool Lean>
+template <typename T>
 int grid(const int* offs, int len, int device, int* got) {
   Launch<T> L;
-  const cudaError_t err = plan<T, Lean>(offs, len, device, &L);
+  const cudaError_t err = plan<T>(offs, len, device, &L);
   if (err == cudaSuccess)
     for (int i = 0; i < 5; ++i) got[i] = L.got[i];
   return static_cast<int>(err);
@@ -247,49 +243,28 @@ int grid(const int* offs, int len, int device, int* got) {
 // cudaErrorInvalidValue for offsets that are not a brick's).
 extern "C" {
 
-// The carry form: S [8, len] -> out [8, len].
-int ht_brick_step_f32(const float* S, const float* K, float* out, int len,
-                      const int* offs, int device, void* stream) {
-  return launch<float, false>(S, S + 3 * len, K, out, len, offs, device,
-                              stream, false);
+// u = U [3, len] and u- = Um [3, len] -> out [3, len] (u+), or with
+// canon != 0 out [8, len] = (u+, u, 0, 0).
+int ht_brick_step_f32(const float* U, const float* Um, const float* K,
+                      float* out, int len, const int* offs, int device,
+                      void* stream, int canon) {
+  return launch<float>(U, Um, K, out, len, offs, device, stream,
+                       canon != 0);
 }
-int ht_brick_step_f64(const double* S, const double* K, double* out,
-                      int len, const int* offs, int device, void* stream) {
-  return launch<double, false>(S, S + 3 * len, K, out, len, offs, device,
-                               stream, false);
-}
-
-// The lean form: u = U [3, len] and u- = Um [3, len] -> out [3, len]
-// (u+), or with canon != 0 out [8, len] = (u+, u, 0, 0).
-int ht_brick_step_lean_f32(const float* U, const float* Um, const float* K,
-                           float* out, int len, const int* offs, int device,
-                           void* stream, int canon) {
-  return launch<float, true>(U, Um, K, out, len, offs, device, stream,
-                             canon != 0);
-}
-int ht_brick_step_lean_f64(const double* U, const double* Um,
-                           const double* K, double* out, int len,
-                           const int* offs, int device, void* stream,
-                           int canon) {
-  return launch<double, true>(U, Um, K, out, len, offs, device, stream,
-                              canon != 0);
+int ht_brick_step_f64(const double* U, const double* Um, const double* K,
+                      double* out, int len, const int* offs, int device,
+                      void* stream, int canon) {
+  return launch<double>(U, Um, K, out, len, offs, device, stream,
+                        canon != 0);
 }
 
 // got [5] = (stages, blocks per SM, resident blocks, slab depth, work
-// items) of the launch on this brick and device, by type and form.
+// items) of the launch on this brick and device, by type.
 int ht_brick_step_grid_f32(const int* offs, int len, int device, int* got) {
-  return grid<float, false>(offs, len, device, got);
+  return grid<float>(offs, len, device, got);
 }
 int ht_brick_step_grid_f64(const int* offs, int len, int device, int* got) {
-  return grid<double, false>(offs, len, device, got);
-}
-int ht_brick_step_lean_grid_f32(const int* offs, int len, int device,
-                                int* got) {
-  return grid<float, true>(offs, len, device, got);
-}
-int ht_brick_step_lean_grid_f64(const int* offs, int len, int device,
-                                int* got) {
-  return grid<double, true>(offs, len, device, got);
+  return grid<double>(offs, len, device, got);
 }
 
 }  // extern "C"

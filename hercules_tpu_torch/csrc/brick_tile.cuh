@@ -7,9 +7,10 @@
 //
 // Layout (hercules_tpu_torch/solver/fused_brick.py):
 //   S [8, len]: rows 0:3 = u (this step), 3:6 = u- (previous step),
-//               6:8 = zero rows carried through.  K1's lean form reads
-//               u and u- from two separate blocks of 3 rows and writes
-//               u+ alone (brick_tile_step_staged's forms).
+//               6:8 = zero rows (K5 carries them through, K1 writes
+//               zeros).  K1 reads u and u- from two separate blocks of
+//               3 rows and writes u+ alone or the layout S
+//               (brick_tile_step_staged's forms).
 //   K [8, len]: rows 0:3 = (c1, c2, beta) of the element whose lowest
 //               corner is this column (zero for padding and invalid
 //               elements), 3:6 = mass_minusaM, 6 = inv_mass, 7 = 0.
@@ -340,32 +341,27 @@ struct Corners {
   }
 };
 
-// The rows the staged march moves, by form (Lean a template argument,
-// canon a run-time flag of the lean form; each row len values):
-//   carry (Lean false): reads u = U rows 0:3, u- = Um rows 0:3 and
-//        rows 6:8 of U, which it stores again; writes out rows 0:3 =
-//        u+, 3:6 = u (the next step's u-), 6:8 = those rows: S's 8 rows
-//        and K's 7 in, 8 out, 23 in all.  Um = U + 3 len: S (u, u-, 0,
-//        0) in, out the same layout, as every route but the step
-//        route's single brick takes it (mesh, slab and multi-process
-//        fragments).
+// The rows the staged march moves, by form (canon a run-time flag; each
+// row len values):
 //   lean (canon false): reads u and u- from two separate blocks of 3
 //        rows and K's 7, writes out rows 0:3 = u+ alone: 13 in, 3 out,
 //        16 in all.  The step route keeps its displacement levels in a
 //        ring of such blocks, so the next step's u- is this step's u
 //        where it lies: neither the copy of u nor the zero rows move.
-//   canonical (canon true): the lean reads; writes out rows 0:3 = u+,
+//   canonical (canon true): the same reads; writes out rows 0:3 = u+,
 //        3:6 = u and 6:8 = 0, the layout S again (13 in, 8 out, 21):
-//        the step route's last step of a chunk.
-// u+ is the same in every form, bit for bit.
+//        the step route's last step of a chunk, and every step of the
+//        routes that keep S (mesh, slab and multi-process fragments),
+//        which pass U = S rows 0:3 and Um = S rows 3:6.
+// u+ is the same in both forms, bit for bit.
 
 // One step of work item `item` by the calling block: (U, Um) -> out at
 // the item's owned nodes, as brick_tile_step without sources, on a
-// brick whose corner roles are (BX, BY, BA), in the form Lean / canon
-// (above).  smem holds step_smem_bytes<T>() bytes.  One work item per
-// block: a call's last shared-memory reads are not separated from a
-// next call's writes.
-template <typename T, int BX, int BY, int BA, bool Lean>
+// brick whose corner roles are (BX, BY, BA), in the form canon (above).
+// smem holds step_smem_bytes<T>() bytes.  One work item per block: a
+// call's last shared-memory reads are not separated from a next call's
+// writes.
+template <typename T, int BX, int BY, int BA>
 __device__ __forceinline__ void brick_tile_step_staged(
     const T* __restrict__ U, const T* __restrict__ Um,
     const T* __restrict__ K, T* __restrict__ out, int len, const Geom& g,
@@ -470,8 +466,7 @@ __device__ __forceinline__ void brick_tile_step_staged(
   // 3. the owned node of plane q (column n): its force from f (its own
   // element's lower corner), lo (element plane q) and hi (q - 1), u and
   // du from its own slot, then the update with kv = K rows 3:7
-  auto update_plane = [&](int q, int n, const T* f, const T* kv,
-                          const T* z) {
+  auto update_plane = [&](int q, int n, const T* f, const T* kv) {
     T fn[3] = {T(0), T(0), T(0)};
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -490,11 +485,11 @@ __device__ __forceinline__ void brick_tile_step_staged(
     }
 #pragma unroll
     for (int c = 0; c < 3; ++c) out[c * len + n] = un[c];
-    if (!Lean || canon) {
+    if (canon) {
 #pragma unroll
       for (int c = 0; c < 3; ++c) out[(3 + c) * len + n] = u[c];
-      out[6 * len + n] = Lean ? T(0) : z[0];
-      out[7 * len + n] = Lean ? T(0) : z[1];
+      out[6 * len + n] = T(0);
+      out[7 * len + n] = T(0);
     }
   };
 
@@ -531,16 +526,10 @@ __device__ __forceinline__ void brick_tile_step_staged(
     if (p + 2 <= a1) copy_state(p + 2);
     if (kStaged && p + 1 < a1) copy_coef(p + 1);
     cp_async_commit();
-    T kv[4], z[2];
-    if (upd) {
-      if (!Lean) {
-        z[0] = U[6 * len + n];
-        z[1] = U[7 * len + n];
-      }
-      if (!kStaged)
+    T kv[4];
+    if (upd && !kStaged)
 #pragma unroll
-        for (int r = 0; r < 4; ++r) kv[r] = K[(3 + r) * len + n];
-    }
+      for (int r = 0; r < 4; ++r) kv[r] = K[(3 + r) * len + n];
     if (on_grid) {
       if (kStaged) {
         const T* kc = coef + (p & 1) * 3 * kThreads + tid;
@@ -556,7 +545,7 @@ __device__ __forceinline__ void brick_tile_step_staged(
       if (kStaged)
 #pragma unroll
         for (int r = 0; r < 4; ++r) kv[r] = kn[r * kThreads + tid];
-      update_plane(p, n, f, kv, z);
+      update_plane(p, n, f, kv);
     }
   }
 }

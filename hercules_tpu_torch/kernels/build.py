@@ -51,14 +51,10 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry points and their ctypes argument types (pointers and the
 # stream as c_void_p, so 64-bit values are not cut to an int)
 SIGNATURES = {
-    "ht_brick_step_f32": [_P, _P, _P, _I, _P, _I, _P],
-    "ht_brick_step_f64": [_P, _P, _P, _I, _P, _I, _P],
+    "ht_brick_step_f32": [_P, _P, _P, _P, _I, _P, _I, _P, _I],
+    "ht_brick_step_f64": [_P, _P, _P, _P, _I, _P, _I, _P, _I],
     "ht_brick_step_grid_f32": [_P, _I, _I, _P],
     "ht_brick_step_grid_f64": [_P, _I, _I, _P],
-    "ht_brick_step_lean_f32": [_P, _P, _P, _P, _I, _P, _I, _P, _I],
-    "ht_brick_step_lean_f64": [_P, _P, _P, _P, _I, _P, _I, _P, _I],
-    "ht_brick_step_lean_grid_f32": [_P, _I, _I, _P],
-    "ht_brick_step_lean_grid_f64": [_P, _I, _I, _P],
     "ht_brick_chunk_f32": [_P, _P, _P, _I, _P, _I, _P, _P, _I, _P, _P, _P,
                            _P, _I, _P, _I, _P],
     "ht_brick_chunk_f64": [_P, _P, _P, _I, _P, _I, _P, _P, _I, _P, _P, _P,

@@ -145,7 +145,8 @@ class BrickStep(nn.Module):
         self.register_buffer("ops", operators(K.dtype, K.device))
 
     def forward(self, S, out=None):
-        """One step (K1)."""
+        """One step of the layout S (K1's canonical form, brick_step):
+        the step of the mesh route and of the multi-card fragments."""
         return brick_step(S, self.K, self.offs, self.ops, out=out)
 
     def lean(self, U, Um, out, canonical=False):
@@ -317,10 +318,8 @@ def packed_snap_of(state):
 
 
 def _step_once(pt, state, spare):
-    """One step of the step kernel from ``state`` into ``spare`` (S,
+    """One step of a BKT step kernel from ``state`` into ``spare`` (S,
     then conv, then the node tier's conv_mix)."""
-    if len(state) == 1:
-        return (pt.step(state[0], out=spare[0]),)
     outs = dict(zip(("out", "conv_out", "conv_mix_out"), spare))
     return pt.step(*state, **outs)
 

@@ -1,9 +1,10 @@
 """The port's single-brick solver (plain versions on the CPU) against
 the JAX package's brick solver and fused Pallas kernel, float64, on the
 homogeneous box and on the four-layer Rayleigh box (one brick with
-per-element c1, c2 and beta); the elastic spectral header the K1 and
-K5 kernels form each element's force from; and K1's launch geometry as
-kernels/tiles.py mirrors it."""
+per-element c1, c2 and beta); the zero rows 6:8 of every [8, LEN] state
+the routes that step the layout S are given; the elastic spectral
+header the K1 and K5 kernels form each element's force from; and K1's
+launch geometry as kernels/tiles.py mirrors it."""
 
 import os
 import re
@@ -18,22 +19,34 @@ from hercules_tpu.solver.assemble import assemble as jax_assemble
 from hercules_tpu.solver.bricks import build_plan as jax_build_plan
 from hercules_tpu.solver.brickstep import brick_u_global, run_brick_solver
 from hercules_tpu.solver.pallas_brick import \
+    PallasBrickTables as JaxPallasBrickTables
+from hercules_tpu.solver.pallas_brick import \
+    init_packed_state as jax_init_packed_state
+from hercules_tpu.solver.pallas_brick import make_packed_pallas_step
+from hercules_tpu.solver.pallas_brick import \
     pallas_u_global as jax_pallas_u_global
 from hercules_tpu.solver.pallas_brick import \
     run_pallas_solver as jax_run_pallas_solver
-from hercules_tpu_torch.fixtures import (FOUR_Q_LAYERS, box_simulation,
-                                         four_q_freq)
+from hercules_tpu_torch.convert import state_from_jax
+from hercules_tpu_torch.fixtures import (FOUR_Q_LAYERS, GRADED_LAYERS,
+                                         box_simulation, four_q_freq)
 from hercules_tpu_torch.kernels import tiles
 from hercules_tpu_torch.kernels.brick_step import (brick_step,
                                                    brick_step_lean,
                                                    brick_step_lean_plain,
                                                    brick_step_plain)
+from hercules_tpu_torch.parallel.driver import choose_path
+from hercules_tpu_torch.parallel.ranks import RankGroup
 from hercules_tpu_torch.solver.bricks import build_plan
+from hercules_tpu_torch.solver.fused_mesh import (MeshPallasTables,
+                                                  restore_mesh_state)
+from hercules_tpu_torch.solver.restart import Checkpoint
 from hercules_tpu_torch.physics.kmats import (hadamard8_stages,
                                               spectral_factors)
 from hercules_tpu_torch.solver.fused_brick import (PallasBrickTables,
                                                    operators,
                                                    pallas_u_global,
+                                                   restore_packed_state,
                                                    run_pallas_solver)
 
 T = 40
@@ -204,6 +217,80 @@ def test_lean_plain_is_the_step_rows(layered, dtype):
     pt.step.lean(U, Um, out, canonical=True)
     assert torch.equal(out, ref)
     assert (brick_step.launches, brick_step.lean_launches) == before
+
+
+@pytest.fixture(scope="module")
+def graded(tmp_path_factory):
+    """GRADED_LAYERS at 62.5 m: three bricks, 592 elements."""
+    sim = box_simulation(str(tmp_path_factory.mktemp("graded")), steps=T,
+                         layers=GRADED_LAYERS, freq=four_q_freq(62.5))
+    return sim, build_plan(sim.mesh)
+
+
+def _fields(sim):
+    """Seeded global fields u and u- [N, 3]."""
+    g = np.random.default_rng(5)
+    u = g.standard_normal((sim.mesh.nnum, 3))
+    return u, u - 0.1 * g.standard_normal(u.shape)
+
+
+def _layout_s_states(maker, dtype, box, graded, monkeypatch):
+    """(states, modules): [8, LEN] states from ``maker``'s constructor
+    of a route that steps the layout S, and the BrickStep modules that
+    step the first of them (the mesh's loose section has none)."""
+    if maker == "mesh":
+        sim, plan = graded
+        mt = MeshPallasTables(plan, sim.tables, dtype=dtype, device="cpu")
+        Ss, _, _ = restore_mesh_state(mt, Checkpoint(*_fields(sim)))
+        return Ss, mt.steps
+    sim, plan, jtab, jplan = box
+    if maker == "slab":
+        path, _ = choose_path(sim.mesh, sim.tables, RankGroup(["cpu"] * 2),
+                              src_ids=sim.src_ids, dtype=dtype,
+                              prefer="slab_pallas")
+        states = path.state_from_global(*_fields(sim), ())
+        return [s[0] for s in states], [m[0] for m in path.step.mods]
+    pt = PallasBrickTables(plan, sim.tables, dtype=dtype, device="cpu")
+    if maker == "packed":
+        return restore_packed_state(pt, plan, Checkpoint(*_fields(sim))), \
+            [pt.step]
+    # convert.state_from_jax: a packed state written by the JAX
+    # package's step (interpret mode) from its zero state given seeded
+    # u and u-, and a pair of global fields
+    monkeypatch.setenv("HT_PALLAS_TILE", "1024")
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.float64
+    jpt = JaxPallasBrickTables(jplan, jtab, sim.src_ids, dtype=jdt)
+    (S0,) = jax_init_packed_state(jpt)
+    nb = jplan.bricks[0].nb
+    for r, x in zip((0, 3), _fields(sim)):
+        S0 = S0.at[r:r + 3, :nb].set(
+            jnp.asarray(x[jplan.gnid_cat[:nb]].T, jdt))
+    step, consts = make_packed_pallas_step(jpt, interpret=True)
+    (S_jax,), _ = step(consts, (S0,),
+                       (jnp.zeros((len(sim.src_ids), 3), jdt), 0))
+    states = [torch.as_tensor(state_from_jax(x, plan)).to(dtype)
+              for x in (np.asarray(S_jax), _fields(sim))]
+    return states, [pt.step, pt.step]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("maker", ["packed", "mesh", "slab", "jax"])
+def test_layout_s_states_have_zero_rows(maker, dtype, box, graded,
+                                        monkeypatch):
+    """Every constructor of an [8, LEN] state on the routes that step
+    the layout S (fused_brick's packed state and its restore, the mesh
+    route's restore, the slab ranks', convert.state_from_jax) leaves
+    rows 6:8 zero, so K1's canonical form, which writes zeros there, is
+    brick_step_plain, which carries them: BrickStep on the CPU equals it
+    bit for bit."""
+    states, mods = _layout_s_states(maker, dtype, box, graded, monkeypatch)
+    for S in states:
+        assert S.dtype == dtype and S.shape[0] == 8
+        assert not S[6:8].any()
+    for S, mod in zip(states, mods):
+        assert S[0:6].any()
+        assert torch.equal(mod(S), brick_step_plain(S, mod.K, mod.offs,
+                                                    mod.ops))
 
 
 def _elastic_header():

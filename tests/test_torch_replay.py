@@ -7,8 +7,8 @@ blocks (``ring_plan``: K1's lean form, the layout S at every chunk
 boundary), the allocation-free halo against its expression, the
 multi-card ``advance`` returning a tensor bit for bit the numpy sum of
 the rank loop; on a card (marker ``card``) the kernel against the torch
-operations, K1's lean and canonical forms against its carry form, and
-the replayed chunks bit for bit the uncaptured ones, in both types, on
+operations, K1's lean form against its canonical form, and the replayed
+chunks bit for bit the uncaptured ones, in both types, on
 one card and on two.
 
 On a card: ``python -m pytest --noconftest -m card
@@ -487,12 +487,13 @@ def _roles_case(name, roles, dtype, request):
 @pytest.mark.parametrize("roles", ROLES)
 @pytest.mark.parametrize("dtype", TYPES)
 @pytest.mark.parametrize("name", ["box", "layered", "b1"])
-def test_card_lean_forms_are_the_carry_form(name, dtype, roles, request):
+def test_card_lean_form_is_the_canonical_form(name, dtype, roles, request):
     """K1's lean form, from u and u- in tensors of their own, writes
-    u+ bit for bit the carry form's rows 0:3 and nothing else (a NaN in
-    rows 3:8 of its out's buffer stays); the canonical form writes the
-    carry form's rows 0:6 and zeros in rows 6:8; each counts one launch,
-    the lean one also in ``lean_launches``."""
+    u+ bit for bit the canonical form's rows 0:3 and nothing else (a NaN
+    in rows 3:8 of its out's buffer stays); the canonical form writes u
+    in rows 3:6 and zeros in rows 6:8 (the seeded S's are not zero), and
+    brick_step on S gives it; each counts one launch, the lean one also
+    in ``lean_launches``."""
     _cuda()
     S, K, offs = _roles_case(name, roles, dtype, request)
     want = brick_step(S, K, offs, None)
@@ -504,11 +505,12 @@ def test_card_lean_forms_are_the_carry_form(name, dtype, roles, request):
     brick_step_lean(S[0:3].clone(), S[3:6].clone(), K, offs, None, canon,
                     canonical=True)
     torch.cuda.synchronize()
-    assert torch.equal(buf[0:3], want[0:3])
+    assert torch.equal(buf[0:3], canon[0:3])
     assert buf[3:8].isnan().all()
-    assert torch.equal(canon[0:6], want[0:6])
+    assert torch.equal(canon[3:6], S[0:3])
     assert not canon[6:8].any()
-    assert want[6:8].any()
+    assert S[6:8].any()
+    assert torch.equal(want, canon)
     assert (brick_step.launches - before[0],
             brick_step.lean_launches - before[1]) == (2, 1)
 

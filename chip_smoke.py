@@ -183,17 +183,20 @@ JSON line {"phase": ...}:
               2e-13 max|u|) and 20 in float32 (1e-4 max|u|) each; the
               2^20-element box, 10 steps in float32 (1e-4 max|u|).  On
               the seeded bricks (SEEDED_BRICKS: B1, the graded fine
-              brick, two node planes), both types: the library's grid
-              (stages, blocks per SM, resident blocks, slab, items)
-              equal to kernels/tiles.py's step_grid, one step of the
-              layout S whose u+ has the synchronous march's bytes
+              brick, two node planes, rows of 49 nodes), both types:
+              the library's grid (stages, blocks per SM, resident
+              blocks, slab, items, tile width: 44 in float32 on B1
+              and two planes, else 32) equal to kernels/tiles.py's
+              step_grid, one step of the layout S whose u+ has the
+              synchronous march's bytes
               (K1_LEAN_DIGESTS), whose rows 3:6 are its input's u and
               whose rows 6:8 are zero (the seeded rows 6:8 are not),
               and brick_step.configs counting the B1 launch under its
               key; K1's lean form against its canonical form (k1_forms:
               u+ byte for byte, K1_LEAN_DIGESTS, the rows the lean form
-              must not write left alone), and both forms timed at 2^21
-              in both types with the rows each moves.
+              must not write left alone), both forms timed at 2^21
+              in both types with the rows each moves, and the lean
+              form on rows49 (32-wide tiles in float32 too).
 3. k5      -- brick_chunk (K5) against the K1 step loop on the
               2048-element box and the four-layer Rayleigh box, chunks
               of 16 steps, 37 steps, float64 and float32: states
@@ -488,11 +491,15 @@ SEEDED_BRICKS = {
     "graded_fine": ((257, 33, 257), (2, 0, 1)),
     # a fragment of one element layer: two node planes
     "two_planes": ((2, 40, 33), (2, 1, 0)),
+    # rows of 49 nodes, which keep float32's tile 32 wide (tiles.py:
+    # step_width), at 2,095,104 elements: y the inner axis, x the mid
+    "rows49": ((342, 129, 49), (1, 2, 0)),
 }
 # sha256 of rows 0:3 (u+) of one K1 step from seeded_brick(..., seed=21)
-# by the synchronous march (K1 before the staged pipeline), by brick and
-# type: K1's lean form writes these bytes alone, its canonical form in
-# rows 0:3
+# by the synchronous march (K1 before the staged pipeline; rows49's by
+# the staged march on 32-wide tiles alone), by brick and type: K1's lean
+# form writes these bytes alone, its canonical form in rows 0:3, on
+# tiles of either width
 K1_LEAN_DIGESTS = {
     "b1 float32":
         "8265683187a293d950ead90134631953b540f4d44f176cce6d756c2d13112f39",
@@ -506,6 +513,10 @@ K1_LEAN_DIGESTS = {
         "c8b0e0ba6965ef524eb8e83802e88d906fd282fce48150272c2fff0037a41d0e",
     "two_planes float64":
         "53cce297fbc42caf541f7904aa3acf947cf837458cb39a2407e242ab0e612a5d",
+    "rows49 float32":
+        "8ed1ac1ee97f2c36346b2d9ddb151d1de6e5dad950d0600548ef35a63092002b",
+    "rows49 float64":
+        "cff1c3088b227c5c5c25cf0be1754499ec8d78a57908ae02b10ffb05a5426fa6",
 }
 
 # rows of [LEN] values each form of K1 moves a step (csrc/brick_tile.cuh)
@@ -518,13 +529,17 @@ def k1_forms(dev, reps=15, n=40):
     in tensors of their own, writes the canonical form's rows 0:3 (u+)
     byte for byte, their digest K1_LEAN_DIGESTS, and leaves a NaN in
     rows 3:8 of its out's buffer; the canonical form writes u in rows
-    3:6 and zeros in rows 6:8.  At B1's 2^21 elements each form timed
-    with CUDA events (the median over ``reps`` runs of ``n`` launches
-    back to back, ms a launch), with the rows it moves and their rate.
-    Returns {"digests", "timing"}."""
+    3:6 and zeros in rows 6:8.  Timed with CUDA events (the median over
+    ``reps`` runs of ``n`` launches back to back, ms a launch), with the
+    rows each moves, their rate and the tile width: both forms at B1's
+    2^21 elements (44-wide tiles in float32), and the lean form on
+    rows49's 2,095,104 (32-wide tiles in both types).  Returns
+    {"digests", "timing"}."""
     import statistics
+    import numpy as np
     import torch
-    from hercules_tpu_torch.kernels.brick_step import brick_step_lean
+    from hercules_tpu_torch.kernels.brick_step import (brick_step_lean,
+                                                       step_grid_of)
     digest = lambda t: hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
     digests, timing = {}, {}
     for name, (shape, axes) in SEEDED_BRICKS.items():
@@ -542,7 +557,7 @@ def k1_forms(dev, reps=15, n=40):
                     and torch.equal(canon[3:6], U)
                     and not canon[6:8].any().item(),
                     f"K1 forms on {key}")
-            if name != "b1":
+            if name not in ("b1", "rows49"):
                 continue
             T = torch.empty_like(S)
             Tu = T[0:3]
@@ -550,6 +565,8 @@ def k1_forms(dev, reps=15, n=40):
                                                      Tu),
                      "canonical": lambda: brick_step_lean(
                          U, Um, K, offs, None, T, canonical=True)}
+            if name == "rows49":
+                del calls["canonical"]
             for form, fn in calls.items():
                 for _ in range(3):
                     fn()
@@ -565,8 +582,12 @@ def k1_forms(dev, reps=15, n=40):
                     ts.append(a.elapsed_time(b) / n)
                 ms = statistics.median(ts)
                 rows = K1_FORM_ROWS[form]
-                timing[f"{form} {str(dtype)[6:]}"] = {
+                timing[f"{form} {str(dtype)[6:]}"
+                       + ("" if name == "b1" else f" {name}")] = {
                     "ms": ms, "rows": rows,
+                    "elements": int(np.prod([d - 1 for d in shape])),
+                    "width": step_grid_of(offs, S.shape[1], dtype,
+                                          dev.index)[5],
                     "GB_per_s": rows * S.shape[1] * S.element_size()
                     / (ms * 1e-3) / 1e9}
     require(digests == K1_LEAN_DIGESTS, f"K1 lean digests {digests}")
@@ -2826,7 +2847,8 @@ def main():
                 got = step_grid_of(offs, LEN, dts[dname], dev.index)
                 grids[f"{name} {dname}"] = got
                 require(got[0] == tiles.STEP_STAGES
-                        and got[3:] == tiles.step_grid(offs, LEN, got[2]),
+                        and got[3:] == tiles.step_grid(offs, LEN, got[2],
+                                                       dts[dname]),
                         f"K1 grid {name} {dname}: {got}")
                 out = brick_step(S, K, offs, None)
                 digests[f"{name} {dname}"] = hashlib.sha256(
@@ -2837,8 +2859,15 @@ def main():
                         f"K1 layout S rows 3:8 on {name} {dname}")
         require(digests == K1_LEAN_DIGESTS,
                 f"K1 against the synchronous march: {digests}")
-        b1 = grids["b1 float64"]
-        require(brick_step.configs.get((b1[0], b1[1], b1[3]), 0) >= 1,
+        # float32's tiles 44 wide on B1 and two planes, 32 on the graded
+        # fine brick and rows49; float64's 32 everywhere
+        require([g[5] for g in grids.values()]
+                == [44, 32, 32, 32, 44, 32, 32, 32],
+                f"K1 tile widths {grids}")
+        for dname in ("float32", "float64"):
+            b1 = grids[f"b1 {dname}"]
+            require(brick_step.configs.get(
+                (b1[0], b1[1], b1[3], b1[5]), 0) >= 1,
                 f"K1 configurations {brick_step.configs}")
         forms = k1_forms(dev)
         emit({"phase": "k1", "cases": cases, "grids": grids,
@@ -2890,10 +2919,11 @@ def main():
                       "samples_rel_err": srel, "bound": 1e-4})
         require(r <= 1e-4 and srel <= 1e-4, f"K5 vs plain {cases[-1]}")
         kern["brick_chunk_err"] = err
-        # K5 (its own march) against the staged K1 step loop on the
-        # seeded bricks: B1, the graded fine brick, two node planes; u
-        # and u- bit for bit, and rows 6:8 each kernel's own: K5 carries
-        # the seeded ones through, K1 writes zeros
+        # K5 (its own march, 32-wide tiles) against the staged K1 step
+        # loop (44-wide tiles in float32 on B1 and two planes) on the
+        # seeded bricks: B1, the graded fine brick, two node planes, rows
+        # of 49 nodes; u and u- bit for bit, and rows 6:8 each kernel's
+        # own: K5 carries the seeded ones through, K1 writes zeros
         for name, (shape, axes) in SEEDED_BRICKS.items():
             nb = int(np.prod(shape))
             rs = np.random.default_rng(23)

@@ -118,7 +118,8 @@ __device__ __forceinline__ void element_force_spectral(T* xs, T* xk, T mu,
 // are the (TX - 1) x (TY - 1) lowest corners of all but the first
 // column and row; the damping vectors cover (TX + 1) x (TY + 1) nodes.
 // kernels/tiles.py mirrors TX, TY and make_geom's tile numbering (K6's
-// per-tile source lists).
+// per-tile source lists).  K1 may take a wider tile (brick_tile.cuh's
+// StepTile) and counts its tiles_x itself (brick_step.cu:plan).
 constexpr int TX = 32;
 constexpr int TY = 8;
 constexpr int kThreads = TX * TY;

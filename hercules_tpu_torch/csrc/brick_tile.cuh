@@ -266,12 +266,13 @@ __device__ __forceinline__ void brick_tile_step(const T* S, const T* K,
 // The same step as brick_tile_step, bit for bit: du = u - u- per node
 // slot, W = fma(beta, du, u), elastic_force_spectral, the gather over j
 // ascending and fma(fma(mm, du, F), inv_mass, u) compute the same values
-// in the same order; only the data movement and the bookkeeping differ.
-//   ring [kStepStages][6][NN]: the raw rows u and u- of node planes p and
-//        p + 1 (read by the force of element plane p) and p + 2 (in
-//        flight), copied asynchronously (cp.async, 4 or 8 bytes a
-//        thread, zeros off the state) while plane p's forces are formed;
-//        du = u - u- is formed where it is read.
+// in the same order; only the data movement, the bookkeeping and the
+// tile's width differ.
+//   ring [kStepStages][6][kRing]: the raw rows u and u- of node
+//        planes p and p + 1 (read by the force of element plane p) and
+//        p + 2 (in flight), copied asynchronously (cp.async, 4 or 8
+//        bytes a thread, zeros off the state) while plane p's forces are
+//        formed; du = u - u- is formed where it is read.
 //   lo, hi [kF] each: the forces of element plane p's lower corners and
 //        of plane p - 1's upper corners.  Node plane p is updated in the
 //        iteration that forms element plane p; the thread keeps plane
@@ -287,21 +288,47 @@ __device__ __forceinline__ void brick_tile_step(const T* S, const T* K,
 //        barrier, K rows 3:7 before its forces), where shared-memory
 //        bandwidth binds (8-byte accesses, two wavefronts a warp).
 // The corner roles (which bit of the corner index steps the inner, mid
-// and plane axis) are template arguments (BX, BY, BA), so the force and
-// gather addresses are compile-time offsets.  Per iteration: wait for
-// the copies, barrier; write hi, issue the copies of plane p + 2 (and
-// the coefficients of p + 1 and K rows of p in float32); form the forces
-// into lo; barrier; update.  Two barriers per plane, as before.
-// Shared memory: 91,920 B in float64 (two blocks an SM), 56,200 B in
-// float32 (three).
+// and plane axis) and the tile's width are template arguments (BX, BY,
+// BA, W), so the force and gather addresses are compile-time offsets.
+// Per iteration: wait for the copies, barrier; write hi, issue the
+// copies of plane p + 2 (and the coefficients of p + 1 and K rows of p
+// in float32); form the forces into lo; barrier; update.  Two barriers
+// per plane, as before.
+//
+// The tile (StepTile<W>): W x TY elements, one a thread, owning (W - 1)
+// x (TY - 1) node columns.  A warp forms 32 elements whether or not
+// they lie on the brick, so a row of n nodes costs the warps of
+// ceil(n / (W - 1)) tiles: at n = 129 (B1) the 32-wide tile's fifth
+// tile owns 5 of its 31 columns, where 44 wide covers the row in 3
+// (brick_step.cu:step_width weighs the two widths' heavy warps by the
+// warps an SM holds of each).  A 44-wide tile's warps straddle its rows: its
+// ring rows lie W + 32 = 76 words apart, the same as W modulo 32, so
+// the two row pieces of a warp's corner read cover the 32 banks once.
+// Shared memory: 91,920 B in float64 (32 wide, two blocks an SM);
+// in float32 56,200 B 32 wide (three) and 97,120 B 44 wide (two).
 constexpr int kStepStages = 3;
+
+template <int W>
+struct StepTile {
+  static constexpr int TX = W;
+  static constexpr int kThreads = W * TY;
+  static constexpr int OX = W - 1;
+  static constexpr int NX = W + 1;  // node slots of a ring row
+  // a ring row's pitch: a warp of a 44-wide tile reads the end of one
+  // row and the start of the next
+  static constexpr int kPitch = W % 32 == 0 ? NX : W + 32;
+  static constexpr int kSlots = NX * (TY + 1);    // node slots a plane
+  static constexpr int kRing = kPitch * (TY + 1);  // a component's rows
+  static constexpr int kF = 12 * kThreads;        // 4 corners' forces
+};
 
 // the march's shared memory: lo, hi, the ring and, in float32 alone,
 // coef and kn
-template <typename T>
+template <typename T, int W>
 constexpr int step_smem_bytes() {
-  return (2 * kF + kStepStages * 6 * NN +
-          (sizeof(T) == 4 ? (2 * 3 + 4) * kThreads : 0)) *
+  using P = StepTile<W>;
+  return (2 * P::kF + kStepStages * 6 * P::kRing +
+          (sizeof(T) == 4 ? (2 * 3 + 4) * P::kThreads : 0)) *
          static_cast<int>(sizeof(T));
 }
 
@@ -325,19 +352,21 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Corner j's roles with bit BX of j stepping the inner axis, BY the mid
-// axis and BA the plane axis (make_geom's cda, nof, gof, fdst).
-template <int BX, int BY, int BA>
+// axis and BA the plane axis, on tile P (make_geom's cda, nof, gof,
+// fdst).
+template <int BX, int BY, int BA, typename P>
 struct Corners {
   __host__ __device__ static constexpr int da(int j) { return j >> BA & 1; }
   __host__ __device__ static constexpr int nof(int j) {
-    return (j >> BY & 1) * NX + (j >> BX & 1);
+    return (j >> BY & 1) * P::kPitch + (j >> BX & 1);
   }
   __host__ __device__ static constexpr int gof(int j) {
-    return (j >> BY & 1) * TX + (j >> BX & 1);
+    return (j >> BY & 1) * P::TX + (j >> BX & 1);
   }
   // j's rank among the corners of its plane, bit BA dropped from j
   __host__ __device__ static constexpr int fdst(int j) {
-    return ((j >> (BA + 1) << BA) | (j & ((1 << BA) - 1))) * 3 * kThreads;
+    return ((j >> (BA + 1) << BA) | (j & ((1 << BA) - 1))) * 3 *
+           P::kThreads;
   }
 };
 
@@ -357,27 +386,30 @@ struct Corners {
 
 // One step of work item `item` by the calling block: (U, Um) -> out at
 // the item's owned nodes, as brick_tile_step without sources, on a
-// brick whose corner roles are (BX, BY, BA), in the form canon (above).
-// smem holds step_smem_bytes<T>() bytes.  One work item per block: a
-// call's last shared-memory reads are not separated from a next call's
+// brick whose corner roles are (BX, BY, BA), with tiles W wide (g's
+// tiles_x counts them), in the form canon (above).  smem holds
+// step_smem_bytes<T, W>() bytes.  One work item per block: a call's
+// last shared-memory reads are not separated from a next call's
 // writes.
-template <typename T, int BX, int BY, int BA>
+template <typename T, int BX, int BY, int BA, int W>
 __device__ __forceinline__ void brick_tile_step_staged(
     const T* __restrict__ U, const T* __restrict__ Um,
     const T* __restrict__ K, T* __restrict__ out, int len, const Geom& g,
     int item, T* smem, bool canon) {
-  using C = Corners<BX, BY, BA>;
+  using P = StepTile<W>;
+  using C = Corners<BX, BY, BA, P>;
+  constexpr int kThreads = P::kThreads, kRing = P::kRing;
   constexpr bool kStaged = sizeof(T) == 4;
-  T* lo = smem;                           // [kF]
-  T* hi = lo + kF;                        // [kF]
-  T* ring = hi + kF;                      // [kStepStages][6][NN]
-  T* coef = ring + kStepStages * 6 * NN;  // [2][3][kThreads] (float32)
-  T* kn = coef + 2 * 3 * kThreads;        // [4][kThreads] (float32)
+  T* lo = smem;                              // [kF]
+  T* hi = lo + P::kF;                        // [kF]
+  T* ring = hi + P::kF;                      // [kStepStages][6][kRing]
+  T* coef = ring + kStepStages * 6 * kRing;  // [2][3][kThreads] (float32)
+  T* kn = coef + 2 * 3 * kThreads;           // [4][kThreads] (float32)
   const int tid = threadIdx.x;
-  const int lx = tid % TX, ly = tid / TX;
+  const int lx = tid % W, ly = tid / W;
   const int tiles = g.tiles_x * g.tiles_y;
   const int tile = item % tiles;
-  const int x0 = (tile % g.tiles_x) * OX, y0 = (tile / g.tiles_x) * OY;
+  const int x0 = (tile % g.tiles_x) * P::OX, y0 = (tile / g.tiles_x) * OY;
   const int a0 = (item / tiles) * g.slab;
   const int a1 = min(a0 + g.slab, g.nplanes);
   // this thread's element (force) and node (update): its lowest corner
@@ -385,29 +417,32 @@ __device__ __forceinline__ void brick_tile_step_staged(
   const int exy = ey * g.s_mid + ex;
   const bool on_grid = ex < g.nx && ey < g.ny;
   const bool own_xy = lx >= 1 && ly >= 1 && on_grid;
-  const int mine = ly * NX + lx;
+  const int mine = ly * P::kPitch + lx;
 
   // the ring slot of node plane a >= -1
   auto slot = [&](int a) {
-    return ring + (a + kStepStages) % kStepStages * 6 * NN;
+    return ring + (a + kStepStages) % kStepStages * 6 * kRing;
   };
   // 1. the rows u and u- of node plane a: thread tid copies the pairs of
-  // slots i = tid + k kThreads < 3 NN (component i / NN), zero off the
-  // state as brick_tile_step's load_node
+  // node slots i = tid + k kThreads < 3 kSlots (component i / kSlots),
+  // zero off the state as brick_tile_step's load_node
   auto copy_state = [&](int a) {
     T* d = slot(a);
+    constexpr int kCopies = 3 * P::kSlots;
 #pragma unroll
-    for (int k = 0; k < (3 * NN + kThreads - 1) / kThreads; ++k) {
+    for (int k = 0; k < (kCopies + kThreads - 1) / kThreads; ++k) {
       const int i = tid + k * kThreads;
-      if (i < 3 * NN) {
-        const int c = i / NN, q = i % NN;
-        const int x = x0 - 1 + q % NX, y = y0 - 1 + q / NX;
+      if (i < kCopies) {
+        const int c = i / P::kSlots, q = i % P::kSlots;
+        const int qx = q % P::NX, qy = q / P::NX;
+        const int x = x0 - 1 + qx, y = y0 - 1 + qy;
         const int n = a * g.s_out + y * g.s_mid + x;
         const bool ok =
             a >= 0 && x <= g.nx && y <= g.ny && n >= 0 && n < len;
         const int m = ok ? n : 0;
-        cp_async(d + c * NN + q, U + c * len + m, ok);
-        cp_async(d + (3 + c) * NN + q, Um + c * len + m, ok);
+        T* ds = d + c * kRing + qy * P::kPitch + qx;
+        cp_async(ds, U + c * len + m, ok);
+        cp_async(ds + 3 * kRing, Um + c * len + m, ok);
       }
     }
   };
@@ -446,8 +481,8 @@ __device__ __forceinline__ void brick_tile_step_staged(
         const T* s = (C::da(i) ? d1 : d0) + C::nof(i);
 #pragma unroll
         for (int c = 0; c < 3; ++c) {
-          const T u = s[c * NN];
-          w[3 * i + c] = fma_rn(k[2], u - s[(3 + c) * NN], u);
+          const T u = s[c * kRing];
+          w[3 * i + c] = fma_rn(k[2], u - s[(3 + c) * kRing], u);
         }
       }
       elastic_force_spectral<T>(w, k[0], k[1], f);
@@ -479,9 +514,9 @@ __device__ __forceinline__ void brick_tile_step_staged(
     T u[3], un[3];
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      u[c] = d[c * NN];
-      un[c] = fma_rn(fma_rn(kv[c], u[c] - d[(3 + c) * NN], fn[c]), kv[3],
-                     u[c]);
+      u[c] = d[c * kRing];
+      un[c] = fma_rn(fma_rn(kv[c], u[c] - d[(3 + c) * kRing], fn[c]),
+                     kv[3], u[c]);
     }
 #pragma unroll
     for (int c = 0; c < 3; ++c) out[c * len + n] = un[c];

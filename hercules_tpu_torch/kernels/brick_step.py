@@ -7,9 +7,9 @@ lean form) or, with ``canonical``, the layout S; on CPU tensors it runs
 ``brick_step`` is the step of the layout S: the canonical form on S's
 rows 0:3 and 3:6.  Each launch counts in ``brick_step.launches``, and
 in ``brick_step.configs`` by how it was configured: (ring stages,
-blocks per SM, slab depth), as the library chose them
-(``step_grid_of``; ``tiles.step_grid`` mirrors the slab); the launches
-that write u+ alone also in ``brick_step.lean_launches``.
+blocks per SM, slab depth, tile width), as the library chose them
+(``step_grid_of``; ``tiles.step_grid`` mirrors the slab and the width);
+the launches that write u+ alone also in ``brick_step.lean_launches``.
 
 Layout (see ``solver/fused_brick.py``): S [8, LEN] = (u, u-, 0, 0),
 K [8, LEN] = (c1, c2, beta, mass_minusaM x 3, inv_mass, 0), ops
@@ -75,11 +75,11 @@ def check_args(name, S, K, offs, out):
 
 def step_grid_of(offs, LEN, dtype, device):
     """(ring stages, blocks per SM, resident blocks, slab depth, work
-    items) of the kernel's launch on the brick of ``offs`` and LEN
-    columns in ``dtype`` on CUDA device index ``device``, as the library
-    computes them (loads the library)."""
+    items, tile width) of the kernel's launch on the brick of ``offs``
+    and LEN columns in ``dtype`` on CUDA device index ``device``, as the
+    library computes them (loads the library)."""
     sfx = "f32" if dtype == torch.float32 else "f64"
-    got = (ctypes.c_int * 5)()
+    got = (ctypes.c_int * 6)()
     build.check(build.entry(f"ht_brick_step_grid_{sfx}")(
         build.offsets_arg(offs), int(LEN), int(device), got),
         "ht_brick_step_grid")
@@ -110,9 +110,9 @@ def _prepare(U, Um, K, offs, out, canonical):
                          "Um")
     sfx = "f32" if dt == torch.float32 else "f64"
     dev = dev.index
-    stages, per_sm, _, slab, _ = step_grid_of(offs, LEN, dt, dev)
+    stages, per_sm, _, slab, _, width = step_grid_of(offs, LEN, dt, dev)
     return (build.entry(f"ht_brick_step_{sfx}"), LEN,
-            build.offsets_arg(offs), dev, (stages, per_sm, slab))
+            build.offsets_arg(offs), dev, (stages, per_sm, slab, width))
 
 
 _CHECKS = build.CheckCache(_prepare)

@@ -44,11 +44,11 @@ def brick_strides(offs):
     return s[1], s[2]
 
 
-def tile_counts(offs):
+def tile_counts(offs, width=TX):
     """(tiles along the inner axis, tiles along the mid axis) of a
-    plane."""
+    plane, for tiles ``width`` elements wide."""
     s_mid, s_out = brick_strides(offs)
-    return -(-s_mid // OX), -(-(s_out // s_mid) // OY)
+    return -(-s_mid // (width - 1)), -(-(s_out // s_mid) // OY)
 
 
 # K4's deepest slab (bkt_corner.cu's kCornerSlab)
@@ -72,6 +72,58 @@ def corner_grid(offs, LEN, resident):
 # (brick_step.cu's kStepSlabMax, brick_tile.cuh's kStepStages)
 STEP_SLAB_MAX = 12
 STEP_STAGES = 3
+# K1's float32 tile width besides TX (brick_tile.cuh's StepTile<44>),
+# and the warps an SM holds at once of each float32 width on an H100
+# (three blocks of 8 warps at 32 wide, two of 11 at 44)
+STEP_WIDE = 44
+STEP_SM_WARPS = {TX: 24, STEP_WIDE: 22}
+
+
+def heavy_warps(n_in, n_mid, width):
+    """The warps of a plane of K1's ``width`` x TY tiles that form at
+    least one element of a brick of n_in x n_mid nodes a plane (inner x
+    mid): thread t of a tile forms element (x0 - 1 + t % width, y0 - 1 +
+    t // width), which lies on the brick where both are >= 0 and at most
+    n_in - 2, n_mid - 2 (brick_step.cu:step_heavy_warps).  A warp covers
+    one row of a 32-wide tile and two of a 44-wide one."""
+    ox, threads = width - 1, width * TY
+    x0 = np.arange(-(-n_in // ox)) * ox - 1      # each tile's lane 0
+    y0 = np.arange(-(-n_mid // OY)) * OY - 1
+    heavy = 0
+    for t0 in range(0, threads, 32):
+        t1 = min(t0 + 32, threads) - 1
+        hit = np.zeros((len(y0), len(x0)), bool)
+        for ly in range(t0 // width, t1 // width + 1):
+            # the warp's lanes in row ly: elements x0 + lo .. x0 + hi
+            lo, hi = max(t0 - ly * width, 0), min(t1 - ly * width, width - 1)
+            on_x = (x0 + hi >= 0) & (x0 + lo <= n_in - 2)
+            on_y = (y0 + ly >= 0) & (y0 + ly <= n_mid - 2)
+            hit |= on_y[:, None] & on_x[None, :]
+        heavy += int(hit.sum())
+    return heavy
+
+
+def step_width(offs, dtype):
+    """K1's tile width on the brick of ``offs`` in ``dtype``: in float32
+    STEP_WIDE where a plane's heavy warps (heavy_warps) over the warps an
+    SM holds at once (STEP_SM_WARPS) are fewer than at TX wide, TX on a
+    tie; in float64 TX (brick_step.cu:step_width)."""
+    if dtype != torch.float32:
+        return TX
+    s_mid, s_out = brick_strides(offs)
+    n_mid = s_out // s_mid
+    wide = heavy_warps(s_mid, n_mid, STEP_WIDE) * STEP_SM_WARPS[TX]
+    narrow = heavy_warps(s_mid, n_mid, TX) * STEP_SM_WARPS[STEP_WIDE]
+    return STEP_WIDE if wide < narrow else TX
+
+
+def heavy_warp_share(offs, width):
+    """The warps a plane of the brick of ``offs`` needs at 32 elements
+    each over the heavy warps of K1's ``width``-wide tiles (heavy_warps):
+    the share of the force's warps that does work."""
+    s_mid, s_out = brick_strides(offs)
+    n_mid = s_out // s_mid
+    return (s_mid - 1) * (n_mid - 1) / 32 / heavy_warps(s_mid, n_mid, width)
 
 
 def step_makespan(tiles, nplanes, slab, resident):
@@ -89,35 +141,45 @@ def step_makespan(tiles, nplanes, slab, resident):
     return last
 
 
-def step_grid(offs, LEN, resident):
-    """(slab depth, work items) of K1 on the brick of ``offs`` and LEN
-    columns with ``resident`` blocks on the card at once: of 1 ..
-    STEP_SLAB_MAX planes (at most the brick's), the slab whose items end
-    first (step_makespan), the deepest of equals
-    (brick_step.cu:step_slab); item i is tile i % tiles on slab i //
-    tiles."""
-    tiles = int(np.prod(tile_counts(offs)))
-    nplanes = -(-LEN // brick_strides(offs)[1])
+def step_slab(tiles, nplanes, resident):
+    """K1's slab depth for ``tiles`` tiles a plane on ``nplanes`` planes
+    with ``resident`` blocks on the card at once: of 1 .. STEP_SLAB_MAX
+    planes (at most the brick's), the slab whose items end first
+    (step_makespan), the deepest of equals (brick_step.cu:step_slab)."""
     best = None
     for slab in range(1, min(STEP_SLAB_MAX, nplanes) + 1):
         t = step_makespan(tiles, nplanes, slab, resident)
         if best is None or t <= best[0]:
             best = (t, slab)
-    return best[1], tiles * -(-nplanes // best[1])
+    return best[1]
 
 
-def step_items(offs, LEN, slab):
-    """K1's work items on slabs of ``slab`` planes, in launch order:
-    (the node columns each owns, its first plane, its end plane)."""
+def step_grid(offs, LEN, resident, dtype):
+    """(slab depth, work items, tile width) of K1 on the brick of
+    ``offs`` and LEN columns in ``dtype`` with ``resident`` blocks on the
+    card at once: the width step_width's, the slab step_slab's for the
+    tiles of that width; item i is tile i % tiles on slab i // tiles."""
+    width = step_width(offs, dtype)
+    tiles = int(np.prod(tile_counts(offs, width)))
+    nplanes = -(-LEN // brick_strides(offs)[1])
+    slab = step_slab(tiles, nplanes, resident)
+    return slab, tiles * -(-nplanes // slab), width
+
+
+def step_items(offs, LEN, slab, width=TX):
+    """K1's work items on slabs of ``slab`` planes and tiles ``width``
+    elements wide, in launch order: (the node columns each owns, its
+    first plane, its end plane)."""
     s_mid, s_out = brick_strides(offs)
     ny = s_out // s_mid
-    tx, ty = tile_counts(offs)
+    ox = width - 1
+    tx, ty = tile_counts(offs, width)
     nplanes = -(-LEN // s_out)
     for a0 in range(0, nplanes, slab):
         a1 = min(a0 + slab, nplanes)
         for t in range(tx * ty):
-            x0, y0 = (t % tx) * OX, (t // tx) * OY
-            x = np.arange(x0, min(x0 + OX, s_mid))
+            x0, y0 = (t % tx) * ox, (t // tx) * OY
+            x = np.arange(x0, min(x0 + ox, s_mid))
             y = np.arange(y0, min(y0 + OY, ny))
             a = np.arange(a0, a1)
             n = (a[:, None, None] * s_out + y[None, :, None] * s_mid

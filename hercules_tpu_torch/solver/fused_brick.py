@@ -48,8 +48,9 @@ from torch import nn
 from ..physics.kmats import stiffness_matrices_24
 
 from ..kernels.brick_chunk import brick_chunk
-from ..kernels.brick_step import brick_step, brick_step_lean
+from ..kernels.brick_step import brick_step, brick_step_lean, step_grid_of
 from ..kernels.source_sample import SourceSample, increments
+from ..kernels.tiles import heavy_warp_share
 from ..utils.timers import GLOBAL_TIMERS, measure
 from .chunking import ChunkBuffers, ChunkGraphs, run_chunked
 from .fused_bktq import bkt_step_module
@@ -459,6 +460,17 @@ def chunk_advance(pt, src_forces, dt2):
     return advance
 
 
+def note_k1_tile(pt):
+    """Count K1's tile width on the brick of ``pt`` (as the library
+    chooses it, step_grid_of) and its heavy-warp share
+    (tiles.heavy_warp_share) on the open "Solver tables" span, as
+    ``k1_tile_width`` and ``k1_heavy_warp_share``."""
+    width = step_grid_of(pt.offs, pt.LEN, pt.dtype, pt.K.device.index)[5]
+    GLOBAL_TIMERS.add("Solver tables", "k1_tile_width", width)
+    GLOBAL_TIMERS.add("Solver tables", "k1_heavy_warp_share",
+                      heavy_warp_share(pt.offs, width))
+
+
 def run_pallas_solver(plan, tables, src_ids, src_forces, total_steps, dt,
                       st_nodes=None, st_phi=None, dtype=torch.float32,
                       device="cuda", chunk=None, state=None, on_chunk=None,
@@ -473,15 +485,24 @@ def run_pallas_solver(plan, tables, src_ids, src_forces, total_steps, dt,
     kernel of the damping and BKT tier); None picks by chunk_applies.
     ``bkt_tier`` forces a BKT tier (PallasBrickTables).  ``on_route``,
     if given, is called with the route's name (route_name) before the
-    loop.  Returns ((u, up) as [3, LEN] views, then the memory variables
-    for BKT: conv [R, LEN][, conv_mix [R, 8, M]]; samples [T, ns, 3]
-    numpy).  Runs on the CUDA device unless ``device`` is the CPU."""
+    loop.  The "Solver tables" span of K1's route on the card counts
+    K1's tile (note_k1_tile).  Returns ((u, up) as [3, LEN] views, then
+    the memory variables for BKT: conv [R, LEN][, conv_mix [R, 8, M]];
+    samples [T, ns, 3] numpy).  Runs on the CUDA device unless ``device`` is the CPU."""
     device = solver_device(device)
     with measure("Solver tables", device):
         pt = PallasBrickTables(plan, tables, src_ids=src_ids,
                                st_nodes=st_nodes, st_phi=st_phi,
                                dtype=dtype, device=device,
                                bkt_tier=bkt_tier)
+        if route is None:
+            route = ("chunk" if chunk_applies(dtype, pt.n_src, pt.n_st,
+                                              pt.bkt_tier) else "step")
+        if (route == "step" and isinstance(pt.step, BrickStep)
+                and pt.device.type == "cuda"):
+            note_k1_tile(pt)
+    if route == "chunk" and pt.bkt_tier not in (None, "uniform"):
+        raise ValueError(f"no chunk kernel for the {pt.bkt_tier} BKT tier")
     if state is None:
         state = init_packed_state(pt)
     elif isinstance(state, Checkpoint):
@@ -490,11 +511,6 @@ def run_pallas_solver(plan, tables, src_ids, src_forces, total_steps, dt,
         state = fit_packed_state(pt, state)
     if chunk is None:
         chunk = min(total_steps, 1000)
-    if route is None:
-        route = ("chunk" if chunk_applies(dtype, pt.n_src, pt.n_st,
-                                          pt.bkt_tier) else "step")
-    elif route == "chunk" and pt.bkt_tier not in (None, "uniform"):
-        raise ValueError(f"no chunk kernel for the {pt.bkt_tier} BKT tier")
     if on_route is not None:
         on_route(route_name(pt, route))
     advance = (chunk_advance(pt, src_forces, dt * dt) if route == "chunk"

@@ -372,21 +372,33 @@ def _k1_brick(name, layered):
     return _K1_BRICKS[name]
 
 
+def _slab_of(offs, LEN, resident, width):
+    """K1's slab (tiles.step_slab) for tiles ``width`` wide."""
+    nplanes = -(-LEN // tiles.brick_strides(offs)[1])
+    return tiles.step_slab(int(np.prod(tiles.tile_counts(offs, width))),
+                           nplanes, resident)
+
+
 @pytest.mark.parametrize("resident", [264, 396])
 @pytest.mark.parametrize("name", ["b1", "two_planes", "layered",
                                   "graded_fine"])
 def test_step_items_own_every_column_once(name, resident, layered):
     """K1's work items on the slab its rule chooses for an H100's
-    resident blocks (132 SMs x 2 in float64, x 3 in float32) own every
-    node column of [0, LEN) exactly once, and there are as many as the
-    rule counts."""
+    resident blocks (132 SMs x 2, or x 3 for float32's 32-wide tile),
+    with tiles of either width, own every node column of [0, LEN)
+    exactly once, and there are as many as the rule counts where the
+    brick's own width is taken."""
     offs, LEN = _k1_brick(name, layered)
-    slab, items = tiles.step_grid(offs, LEN, resident)
-    got = list(tiles.step_items(offs, LEN, slab))
-    assert len(got) == items
-    owned = np.concatenate([n for n, _, _ in got])
-    assert len(owned) == LEN
-    np.testing.assert_array_equal(np.sort(owned), np.arange(LEN))
+    for width in (tiles.TX, tiles.STEP_WIDE):
+        slab = _slab_of(offs, LEN, resident, width)
+        got = list(tiles.step_items(offs, LEN, slab, width))
+        for dtype in (torch.float32, torch.float64):
+            grid = tiles.step_grid(offs, LEN, resident, dtype)
+            if grid[2] == width:
+                assert grid[:2] == (slab, len(got))
+        owned = np.concatenate([n for n, _, _ in got])
+        assert len(owned) == LEN
+        np.testing.assert_array_equal(np.sort(owned), np.arange(LEN))
 
 
 @pytest.mark.parametrize("resident", [1, 264, 396, 100000])
@@ -395,21 +407,110 @@ def test_step_items_own_every_column_once(name, resident, layered):
 def test_step_ring_within_item_planes(name, resident, layered):
     """Every K1 work item reads at least as many node planes (its slab,
     the halo plane below and the plane above) as the ring holds, on a
-    slab of 1 to STEP_SLAB_MAX planes."""
+    slab of 1 to STEP_SLAB_MAX planes, with tiles of either width."""
     offs, LEN = _k1_brick(name, layered)
-    slab, _ = tiles.step_grid(offs, LEN, resident)
-    assert 1 <= slab <= tiles.STEP_SLAB_MAX
-    for _, a0, a1 in tiles.step_items(offs, LEN, slab):
-        assert 1 <= a1 - a0 <= slab
-        assert tiles.STEP_STAGES <= a1 - a0 + 2
+    for width in (tiles.TX, tiles.STEP_WIDE):
+        slab = _slab_of(offs, LEN, resident, width)
+        assert 1 <= slab <= tiles.STEP_SLAB_MAX
+        for _, a0, a1 in tiles.step_items(offs, LEN, slab, width):
+            assert 1 <= a1 - a0 <= slab
+            assert tiles.STEP_STAGES <= a1 - a0 + 2
 
 
-@pytest.mark.parametrize("resident, key", [(264, (3, 2, 12)),
-                                           (396, (3, 3, 8))])
-def test_step_config_key_of_b1(resident, key):
+@pytest.mark.parametrize("dtype, resident, key, tiles_a_plane",
+                         [(torch.float64, 264, (3, 2, 12, 32), 95),
+                          (torch.float32, 264, (3, 2, 10, 44), 57)])
+def test_step_config_key_of_b1(dtype, resident, key, tiles_a_plane):
     """The configuration ``brick_step.configs`` counts the B1 brick's
-    launches under on an H100 (132 SMs; two blocks an SM in float64,
-    three in float32): (ring stages, blocks per SM, slab depth)."""
-    slab, items = tiles.step_grid(_B1_OFFS, 2147328, resident)
-    assert (tiles.STEP_STAGES, resident // 132, slab) == key
-    assert items == 95 * -(-130 // slab)
+    launches under on an H100 (132 SMs; two blocks an SM in float64 and
+    in float32's 44-wide tile, which B1's rows take): (ring stages,
+    blocks per SM, slab depth, tile width)."""
+    slab, items, width = tiles.step_grid(_B1_OFFS, 2147328, resident,
+                                         dtype)
+    assert (tiles.STEP_STAGES, resident // 132, slab, width) == key
+    assert items == tiles_a_plane * -(-130 // slab)
+
+
+def _lane_heavy_warps(n_in, n_mid, width):
+    """The heavy warps of a plane counted lane by lane: every thread of
+    every tile, its element on the brick or not, warps of 32 threads in
+    thread order."""
+    ox, oy, ty = width - 1, tiles.OY, tiles.TY
+    t = np.arange(width * ty)
+    ex = (np.arange(-(-n_in // ox)) * ox - 1)[:, None] + t % width
+    ey = (np.arange(-(-n_mid // oy)) * oy - 1)[:, None] + t // width
+    on = (((ey >= 0) & (ey <= n_mid - 2))[:, None, :]
+          & ((ex >= 0) & (ex <= n_in - 2))[None, :, :])
+    warps = -(-len(t) // 32)
+    on = np.pad(on, ((0, 0), (0, 0), (0, 32 * warps - len(t))))
+    return int(on.reshape(*on.shape[:2], warps, 32).any(axis=3).sum())
+
+
+def _offs_of(n_in, n_mid):
+    return tuple((j & 1) + (j >> 1 & 1) * n_in + (j >> 2 & 1) * n_in * n_mid
+                 for j in range(8))
+
+
+@pytest.mark.parametrize("n_mid", [2, 3, 8, 9, 33, 129])
+def test_step_width_never_adds_heavy_warps(n_mid):
+    """For every row length of 3-520 nodes, K1's float32 tile width
+    (tiles.step_width, brick_step.cu:step_width's mirror) counts no more
+    heavy warps a plane than the 32 x 8 tile, counted lane by lane: 44
+    where its heavy warps over the 22 warps an SM holds of it are fewer
+    than 32's over 24, else 32; float64 keeps 32.  tiles.heavy_warps
+    counts as the lanes do."""
+    for n_in in range(3, 521):
+        offs = _offs_of(n_in, n_mid)
+        narrow = _lane_heavy_warps(n_in, n_mid, 32)
+        wide = _lane_heavy_warps(n_in, n_mid, 44)
+        assert (tiles.heavy_warps(n_in, n_mid, 32),
+                tiles.heavy_warps(n_in, n_mid, 44)) == (narrow, wide)
+        width = tiles.step_width(offs, torch.float32)
+        assert width == (44 if wide / 22 < narrow / 24 else 32)
+        assert (wide if width == 44 else narrow) <= narrow
+        assert tiles.step_width(offs, torch.float64) == 32
+
+
+@pytest.mark.parametrize("n_in, n_mid, narrow, wide, width",
+                         [(129, 129, 730, 606, 44), (257, 257, 2628, 2412, 32),
+                          (33, 33, 72, 50, 44), (49, 129, 292, 366, 32),
+                          (145, 129, 730, 807, 32), (257, 33, 324, 300, 32)])
+def test_step_width_counts(n_in, n_mid, narrow, wide, width):
+    """The heavy warps a plane of either tile on B1's 129-node rows, the
+    2 Hz fragments' and the graded fine brick's 257 (8 % fewer at 44
+    wide: too few for two blocks an SM instead of three, so 32), and rows
+    that keep 32 wide, and the width the rule takes in float32; B1's
+    heavy-warp shares, 0.701 at 32 wide and 0.845 at 44."""
+    offs = _offs_of(n_in, n_mid)
+    assert (_lane_heavy_warps(n_in, n_mid, 32),
+            _lane_heavy_warps(n_in, n_mid, 44)) == (narrow, wide)
+    assert tiles.step_width(offs, torch.float32) == width
+    if n_in == n_mid == 129:
+        assert offs == _B1_OFFS
+        assert round(tiles.heavy_warp_share(offs, 32), 3) == 0.701
+        assert round(tiles.heavy_warp_share(offs, 44), 3) == 0.845
+        assert tiles.step_width(offs, torch.float64) == 32
+
+
+def test_note_k1_tile_counts_on_tables_span(monkeypatch):
+    """note_k1_tile counts the width the library gives (step_grid_of's
+    sixth value) and its heavy-warp share on the open "Solver tables"
+    span: on B1 in float32 44 and 0.845."""
+    from types import SimpleNamespace
+
+    from hercules_tpu_torch.solver import fused_brick
+    from hercules_tpu_torch.utils.timers import GLOBAL_TIMERS
+    asked = []
+
+    def grid(offs, LEN, dtype, device):
+        asked.append((offs, LEN, dtype))
+        return (3, 2, 264) + tiles.step_grid(offs, LEN, 264, dtype)
+
+    monkeypatch.setattr(fused_brick, "step_grid_of", grid)
+    pt = SimpleNamespace(offs=_B1_OFFS, LEN=2147328, dtype=torch.float32,
+                         K=torch.zeros(1))
+    with GLOBAL_TIMERS.span("Solver tables") as rec:
+        fused_brick.note_k1_tile(pt)
+    assert asked == [(_B1_OFFS, 2147328, torch.float32)]
+    assert rec.counts["k1_tile_width"] == 44
+    assert round(rec.counts["k1_heavy_warp_share"], 3) == 0.845
